@@ -1,0 +1,94 @@
+"""Build and bind the port's CUDA kernels.
+
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared
+library with a plain C interface under ``miso_tpu_torch/build/``; it
+rebuilds when a source is newer than the library.  The library is loaded
+with ``ctypes``: pointers and the stream go as ``c_void_p`` (a bare int
+would be cut to 32 bits), scalars as ``c_int``/``c_uint``.  Each C entry
+point returns ``cudaGetLastError()`` after its launch.  Nothing here
+includes PyTorch's headers, so a build takes seconds, not minutes.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Optional
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_DIR, "csrc")
+BUILD_DIR = os.path.join(_DIR, "build")
+LIB_PATH = os.path.join(BUILD_DIR, "libmiso_kernels.so")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LOCK = threading.Lock()
+_LIB: Optional[ctypes.CDLL] = None
+# what the last build printed (ptxas registers / spills) and took
+BUILD_INFO = {"seconds": None, "log": ""}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    if os.path.isfile(cuda):
+        return cuda
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def build() -> str:
+    """Compile csrc/*.cu into LIB_PATH unless it is newer than every
+    source.  Returns the library path; raises if nvcc fails."""
+    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    if not sources:
+        raise RuntimeError("no CUDA sources under %s" % CSRC)
+    newest = max(os.path.getmtime(s) for s in sources)
+    if os.path.isfile(LIB_PATH) and os.path.getmtime(LIB_PATH) >= newest:
+        return LIB_PATH
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = "%s.%d.tmp" % (LIB_PATH, os.getpid())
+    cmd = [_nvcc()] + NVCC_FLAGS + sources + ["-o", tmp]
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_INFO["seconds"] = time.time() - t0
+    BUILD_INFO["log"] = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed (%d):\n%s\n%s" % (
+            proc.returncode, " ".join(cmd), BUILD_INFO["log"]))
+    os.replace(tmp, LIB_PATH)
+    return LIB_PATH
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built at first use."""
+    global _LIB
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        lib = ctypes.CDLL(build())
+        vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+        lib.miso_reassign.restype = ci
+        lib.miso_reassign.argtypes = (
+            [vp] * 14          # 9 inputs (start may be null), 5 outputs
+            + [ci] * 8         # E, R, I, K, iters, burn_in, lag, rrec
+            + [cu, cu]         # seed words
+            + [ci, vp])        # fixed_u, stream
+        lib.miso_cuda_error_string.restype = ctypes.c_char_p
+        lib.miso_cuda_error_string.argtypes = [ci]
+        _LIB = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if rc != 0:
+        msg = lib.miso_cuda_error_string(rc).decode(errors="replace")
+        raise RuntimeError("%s: CUDA error %d (%s)" % (what, rc, msg))

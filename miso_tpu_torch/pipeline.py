@@ -1,0 +1,572 @@
+"""End-to-end quantification pipeline on one GPU: indexed GFF + BAM -> .miso.
+
+The port of ``miso_tpu/pipeline.py``.  The host half (catalog walk, event
+compile, ``.miso`` formatting) is the JAX package's own code, reused or
+copied verbatim into ``_host.py``.  The device half is torch:
+
+1. ``StreamRunner._dispatch`` pads a bucket's class tensors, expands the
+   per-read tiles on the device (``_expand_read_tensors``), runs the
+   REASSIGN kernel (``sampler/reassign_kernel.py``) and quantises psi to
+   ticks and scores to centipoints, with the posterior summary computed
+   on the device (``_summary_stats``);
+2. a materializer thread copies each chunk to the host and hands it to
+   the ``.miso`` writers.
+
+The slice runs fixed-stop REASSIGN, single-end, auto start, with full
+``.miso`` output or ``--summary-only``.  Every other mode raises
+``NotImplementedError`` naming the ROADMAP item that will add it.
+"""
+from __future__ import annotations
+
+import os
+import queue as queue_mod
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from miso_tpu.core.events import (CompiledEvent, bucket_events, _round_up,
+                                  _round_up_iso, _round_up_reads, pad_events)
+from miso_tpu.io import sam as sam_io
+from miso_tpu.io.index import get_gene_ids_to_filenames
+from miso_tpu.io.settings import Settings
+from miso_tpu_torch._host import (RunConfig, _CompileStream, _LazyResult,
+                                  _ci_bound_indices, _write_events_batch)
+from miso_tpu_torch.sampler.mcmc import (EventBatch, SamplerConfig,
+                                         _pow2_pad_events, batch_from_numpy)
+from miso_tpu_torch.sampler.reassign_kernel import (KERNEL_ISO,
+                                                    run_batch_reassign)
+
+# Above this many reads a bucket takes the multinomial Gibbs step in the
+# JAX package (pipeline.py:460); the port has no such step yet.
+DEEP_READS = 16384
+
+
+def check_slice(cfg: RunConfig) -> None:
+    """Raise NotImplementedError for a run the port cannot do yet."""
+    todo = []
+    if cfg.stop != "fixed":
+        todo.append("convergent stop (ROADMAP A.8)")
+    if cfg.start != "auto":
+        todo.append("--linear-start (ROADMAP A.8)")
+    if cfg.algorithm != "reassign":
+        todo.append("--algorithm %s (ROADMAP A.9)" % cfg.algorithm)
+    if cfg.paired_end:
+        todo.append("--paired-end (ROADMAP A.7)")
+    if cfg.pack_output:
+        todo.append("--pack-output (ROADMAP A.12)")
+    if todo:
+        raise NotImplementedError("not ported yet: " + ", ".join(todo))
+
+
+def resolve_device(device) -> torch.device:
+    """The device a run asks for; never falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device %r asked for, but torch sees no CUDA "
+                           "device (pass --device cpu to run the plain "
+                           "version on the CPU)" % str(device))
+    return dev
+
+
+def _bucket_key(ev: CompiledEvent) -> Tuple[int, int, int]:
+    return (_round_up_iso(ev.num_iso),
+            _round_up(max(ev.num_classes, 1)),
+            _round_up_reads(max(int(ev.counts.sum()), 1)))
+
+
+def chunk_seed(seed: int, offset: int, pad_iso: int, pad_classes: int,
+               pad_reads: int) -> int:
+    """64-bit sampler seed of one chunk.  It mixes every bucket axis and
+    the chunk offset within the bucket: buckets that differ in one axis,
+    or successive chunks of one bucket, would otherwise replay the same
+    per-(event, chain) random streams (pipeline.py:473-484)."""
+    words = np.random.SeedSequence(
+        [seed, offset, pad_iso, pad_classes, pad_reads]).generate_state(
+            2, np.uint32)
+    return int(words[0]) | (int(words[1]) << 32)
+
+
+def _expand_read_tensors(weights, log_read, counts, R: int):
+    """Per-read tiles from the (E, C, I) class tensors, on their device:
+    read slot r of event e carries the weights of the class whose
+    cumulative count interval holds r (pad_events' np.repeat layout,
+    class 0 first); slots past the event's reads are zero.  Returns f32
+    (E, R, I) read_w and read_logscore (pipeline.py:221-243, which rounds
+    them to bf16; the port keeps f32)."""
+    cum = torch.cumsum(counts, dim=1)                        # (E, C)
+    slots = torch.arange(R, device=counts.device, dtype=counts.dtype)
+    cid = (cum[:, :, None] <= slots[None, None, :]).sum(1)   # (E, R)
+    valid = (slots[None, :] < cum[:, -1:])[:, :, None]       # (E, R, 1)
+    gather = cid.clamp(0, weights.shape[1] - 1)[:, :, None].expand(
+        -1, -1, weights.shape[2])
+    zero = torch.zeros((), dtype=weights.dtype, device=weights.device)
+    read_w = torch.where(valid, torch.gather(weights, 1, gather), zero)
+    read_ls = torch.where(valid, torch.gather(log_read, 1, gather), zero)
+    return read_w.contiguous(), read_ls.contiguous()
+
+
+def _quantize_psi(flat_psi, two_iso: bool):
+    """(E, S, I) psi -> int32 ticks of 1e-4 (the .miso "%.4f" precision),
+    clipped to 0..10000; two-isoform buckets keep column 0 only.  NaN
+    (masked lanes) maps to 0, as JAX's float -> uint16 cast does."""
+    x = flat_psi[:, :, 0] if two_iso else flat_psi
+    x = torch.nan_to_num(torch.round(x * 1e4), nan=0.0)
+    return torch.clamp(x, 0, 10000).to(torch.int32)
+
+
+def _quantize_scores(flat_ll):
+    """(E, S) scores -> (resid int32 centipoints above the per-event min,
+    cmin, cmax) (pipeline.py:630-635)."""
+    cents = torch.round(flat_ll * 100.0)
+    cmin = cents.min(dim=1).values
+    cmax = cents.max(dim=1).values
+    resid = torch.nan_to_num(cents - cmin[:, None], nan=0.0)
+    return torch.clamp(resid, 0, 65535).to(torch.int32), cmin, cmax
+
+
+def _summary_stats(quant, lo: int, hi: int):
+    """Device-side posterior summary of the ticks (pipeline.py:258-283):
+    per-(event[, isoform]) tick sums as (E, 1[, I]) int64 -- one segment,
+    since the card has int64 -- plus the Chen-Shao order statistics at
+    the lo/hi bound indices."""
+    s = torch.sort(quant, dim=1).values
+    ssum = quant.to(torch.int64).sum(dim=1, keepdim=True)
+    return ssum, s[:, lo], s[:, hi]
+
+
+def _to_numpy(t):
+    return None if t is None else t.cpu().numpy()
+
+
+class StreamRunner:
+    """Streaming device dispatcher (pipeline.py:306-766, single GPU):
+    events accumulate into (pad_iso, pad_classes, pad_reads) buckets and
+    every full bucket is dispatched at once; a materializer thread copies
+    finished chunks to the host while the next chunk runs.
+
+    ``on_chunk(tags, results)`` fires on the materializer thread as each
+    chunk lands.  ``bucket_stats`` collects one dict per chunk."""
+
+    MAX_PENDING = 4  # chunks of device-side lookahead (device memory)
+
+    def __init__(self, cfg: RunConfig, seed: int = 0, device="cuda",
+                 bucket_stats: Optional[list] = None, on_chunk=None):
+        check_slice(cfg)
+        self.cfg = cfg
+        self.seed = seed
+        self.device = resolve_device(device)
+        self.bucket_stats = bucket_stats
+        self.on_chunk = on_chunk
+        self.sampler_cfg = SamplerConfig(
+            iters=cfg.iters, burn_in=cfg.burn_in, lag=cfg.lag,
+            chains=cfg.chains, algorithm=cfg.algorithm)
+        self.buckets: Dict[Tuple[int, int, int], Tuple[list, list]] = {}
+        self.bucket_off: Dict[Tuple[int, int, int], int] = {}
+        self.bucket_chunks: Dict[Tuple[int, int, int], int] = {}
+        self._pending: "queue_mod.Queue" = queue_mod.Queue(
+            maxsize=self.MAX_PENDING)
+        self._mat_err: list = []
+        self._mat_thread = threading.Thread(target=self._materialize_loop,
+                                            daemon=True)
+        self._mat_thread.start()
+
+    # ------------------------------------------------------------ intake
+    def add(self, ev: CompiledEvent, tag=None) -> None:
+        key = _bucket_key(ev)
+        evs, tags = self.buckets.setdefault(key, ([], []))
+        evs.append(ev)
+        tags.append(ev if tag is None else tag)
+        # progressive chunk sizes (512 -> 1024 -> 2048 -> max): the first
+        # chunks dispatch early, so device work, copies and writes start
+        # while the host still compiles (pipeline.py:363-381)
+        n_disp = self.bucket_chunks.get(key, 0)
+        thresh = min(self.cfg.max_batch_events, max(512 << n_disp, 1))
+        if len(evs) >= thresh:
+            del self.buckets[key]
+            self.bucket_chunks[key] = n_disp + 1
+            self._dispatch(key, evs, tags)
+        self._check_err()
+
+    def finish(self) -> None:
+        """Flush partial buckets in sub-chunks, drain, join the thread."""
+        step = max(256, self.cfg.max_batch_events // 8)
+        for key in sorted(self.buckets):
+            evs, tags = self.buckets[key]
+            for lo in range(0, len(evs), step):
+                self._dispatch(key, evs[lo:lo + step], tags[lo:lo + step])
+        self.buckets.clear()
+        self._put(None)
+        self._mat_thread.join()
+        self._check_err()
+
+    def abort(self) -> None:
+        """Error-path shutdown: drop queued chunks, stop the thread."""
+        self.buckets.clear()
+        try:
+            while True:
+                self._pending.get_nowait()
+        except queue_mod.Empty:
+            pass
+        try:
+            self._pending.put(None, timeout=5)
+        except queue_mod.Full:
+            pass
+        self._mat_thread.join(timeout=30)
+
+    def _put(self, item) -> None:
+        """Bounded put that cannot deadlock if the materializer died."""
+        while True:
+            try:
+                self._pending.put(item, timeout=5)
+                return
+            except queue_mod.Full:
+                self._check_err()
+                if not self._mat_thread.is_alive():
+                    raise RuntimeError("materializer thread died")
+
+    def _check_err(self):
+        if self._mat_err:
+            raise self._mat_err[0]
+
+    # ---------------------------------------------------------- dispatch
+    def _dispatch(self, key, evs, tags) -> None:
+        cfg = self.cfg
+        pad_iso, pad_classes, pad_reads = key
+        if pad_reads > DEEP_READS:
+            raise NotImplementedError(
+                "not ported yet: events with more than %d reads (the "
+                "multinomial Gibbs step, ROADMAP A.10)" % DEEP_READS)
+        if self.device.type == "cuda" and pad_iso not in KERNEL_ISO:
+            raise NotImplementedError(
+                "not ported yet: events with more than %d isoforms on the "
+                "CUDA kernel (ROADMAP B1)" % max(KERNEL_ISO))
+        t_bucket = time.time()
+        pad = pad_events(evs, pad_iso=pad_iso, pad_classes=pad_classes,
+                         pad_reads=pad_reads, read_dtype=np.float32,
+                         per_read=False)
+        lo = self.bucket_off.get(key, 0)
+        self.bucket_off[key] = lo + cfg.max_batch_events
+        seed = chunk_seed(self.seed, lo, pad_iso, pad_classes, pad_reads)
+        batch, _ = _pow2_pad_events(EventBatch(**pad), None, len(evs))
+        batch, _ = batch_from_numpy(batch, self.device)
+        rw, rls = _expand_read_tensors(batch.weights, batch.log_read,
+                                       batch.counts, pad_reads)
+        batch = batch._replace(read_w=rw, read_logscore=rls)
+        res = run_batch_reassign(seed, batch, self.sampler_cfg)
+        two_iso = pad_iso == 2
+        quant = _quantize_psi(res.flat_samples(), two_iso)
+        bounds = _ci_bound_indices(quant.shape[1])
+        summ = (None if bounds is None
+                else _summary_stats(quant, bounds[0], bounds[1]))
+        ll = resid = cmin = cmax = None
+        if cfg.summary_only:
+            quant = None
+        else:
+            ll = res.flat_loglik()
+            resid, cmin, cmax = _quantize_scores(ll)
+        self._put({
+            "evs": evs, "tags": tags, "quant": quant, "two_iso": two_iso,
+            "summ": summ, "n_samples": int(res.flat_samples().shape[1]),
+            "ll_min": cmin, "ll_max": cmax, "ll_resid": resid,
+            "ll_full": ll, "accepted": res.accepted,
+            "rejected": res.rejected, "final_n": res.final_n,
+            "final_psi": res.final_psi, "t0": t_bucket, "shape": key})
+        self._check_err()
+
+    # ------------------------------------------------------- materialize
+    def _materialize_loop(self):
+        while True:
+            p = self._pending.get()
+            if p is None:
+                return
+            try:
+                self._materialize_chunk(p)
+            except BaseException as e:  # surfaced on the caller thread
+                self._mat_err.append(e)
+                return
+
+    def _materialize_chunk(self, p: dict) -> None:
+        """pipeline.py:663-766 with device_get replaced by .cpu() copies;
+        int32 ticks and centipoints become uint16 on the host."""
+        evs = p["evs"]
+        accepted = _to_numpy(p["accepted"])
+        rejected = _to_numpy(p["rejected"])
+        final_n = _to_numpy(p["final_n"])
+        n_real = len(evs)
+        S = p["n_samples"]
+        q = None if p["quant"] is None else _to_numpy(p["quant"]).astype(
+            np.uint16)
+        summary = None
+        if p["summ"] is not None:
+            ssum, lo_t, hi_t = (_to_numpy(t) for t in p["summ"])
+            ssum = ssum.astype(np.int64).sum(axis=1)
+            lo_v = lo_t.astype(np.float64) / 1e4
+            hi_v = hi_t.astype(np.float64) / 1e4
+            # the mean from the host ticks when they are here (bitwise
+            # what summarize_miso computes from the .miso text), else
+            # from the exact device tick sums
+            if q is not None:
+                mean_v = (q.astype(np.float64) / 1e4).mean(axis=1)
+            else:
+                mean_v = ssum.astype(np.float64) / S / 1e4
+            if p["two_iso"]:  # column-0 scalars -> (E, 1) vectors
+                mean_v, lo_v, hi_v = (a.reshape(len(a), 1)
+                                      for a in (mean_v, lo_v, hi_v))
+            summary = (mean_v, lo_v, hi_v)
+        ticks = cmin_i = resid = None
+        wide = set()
+        if q is not None:
+            cmin, cmax = _to_numpy(p["ll_min"]), _to_numpy(p["ll_max"])
+            resid = _to_numpy(p["ll_resid"]).astype(np.uint16)
+            if p["two_iso"]:
+                ticks = np.empty(q.shape + (2,), np.uint16)
+                ticks[:, :, 0] = q
+                ticks[:, :, 1] = 10000 - q
+            else:
+                ticks = q
+            with np.errstate(invalid="ignore"):
+                # padding events carry non-finite score rows; no real
+                # event reads their cmin
+                cmin_i = np.round(np.nan_to_num(cmin.astype(np.float64))
+                                  ).astype(np.int64)
+                wide = set(np.flatnonzero(
+                    (cmax[:n_real].astype(np.float64) - cmin[:n_real])
+                    > 65535).tolist())
+        results = []
+        for j, ev in enumerate(evs):
+            k = ev.num_iso
+            res = _LazyResult({
+                "percent_accept": 100.0 * accepted[j]
+                    / max(accepted[j] + rejected[j], 1),
+                "final_n": final_n[j, 0, :k],  # chain 0
+            })
+            if summary is not None:
+                res["summary"] = (summary[0][j], summary[1][j],
+                                  summary[2][j])
+            if ticks is not None:
+                res["psi_ticks"] = ticks[j, :, :k]
+                if j in wide:  # rare: full-precision row
+                    res["loglik"] = _to_numpy(p["ll_full"][int(j)])
+                else:
+                    res["score_cents"] = (resid[j].astype(np.int64)
+                                          + cmin_i[j])
+            results.append(res)
+        if self.bucket_stats is not None:
+            dt = time.time() - p["t0"]
+            self.bucket_stats.append({
+                "shape": p["shape"], "events": len(evs), "seconds": dt,
+                "events_per_s": len(evs) / max(dt, 1e-9)})
+        if self.on_chunk is not None:
+            self.on_chunk(p["tags"], results)
+
+
+def run_events(events: List[CompiledEvent], cfg: RunConfig, seed: int = 0,
+               device="cuda", bucket_stats: Optional[list] = None,
+               on_chunk=None):
+    """Run compiled events through the sampler, bucketed by shape.
+    Returns a list parallel to ``events`` of per-event result dicts."""
+    out: List[Optional[dict]] = [None] * len(events)
+
+    def _on_chunk(tags, results):
+        for i, res in zip(tags, results):
+            out[i] = res
+        if on_chunk is not None:
+            on_chunk(tags, out)
+
+    runner = StreamRunner(cfg, seed=seed, device=device,
+                          bucket_stats=bucket_stats, on_chunk=_on_chunk)
+    for key, idxs in bucket_events(events):
+        for i in idxs:
+            runner.add(events[i], tag=i)
+    runner.finish()
+    return out
+
+
+def compute_all_genes_psi(
+    index_dir: str,
+    alignments_path: str,
+    read_len: int,
+    output_dir: str,
+    cfg: Optional[RunConfig] = None,
+    settings: Optional[Settings] = None,
+    gene_ids: Optional[List[str]] = None,
+    seed: int = 0,
+    verbose: bool = True,
+    device="cuda",
+) -> int:
+    """The ``miso --run`` engine on one device.  Returns the number of
+    events written.  A copy of pipeline.py:1304-1567 without the mesh,
+    the profiler and the multi-host labels (ROADMAP A.11, A.12)."""
+    from miso_tpu.io.sanity import check_gff_and_bam, setup_logger
+
+    settings = settings or Settings.get()
+    cfg = cfg or RunConfig.from_settings(settings, read_len)
+    if cfg.summary_only:
+        n_s = ((cfg.iters - cfg.burn_in) // cfg.lag) * cfg.chains
+        if _ci_bound_indices(n_s) is None:
+            raise ValueError(
+                "--summary-only needs enough retained samples for the "
+                "95%% credible interval (got %d; need ~40+)" % n_s)
+    setup_logger(output_dir)
+    check_gff_and_bam(index_dir, alignments_path,
+                      given_read_len=cfg.filter_read_len)
+
+    t0 = time.time()
+    id_to_fname = get_gene_ids_to_filenames(index_dir)
+    if gene_ids is not None:
+        id_to_fname = {g: id_to_fname[g] for g in gene_ids if g in id_to_fname}
+    alignments = sam_io.open_alignments(alignments_path)
+
+    # group by per-chromosome pickle directory so the whole-chromosome
+    # scan cache stays small, then by gene id for determinism
+    items = sorted(id_to_fname.items(), key=lambda kv: (kv[1], kv[0]))
+    if items and getattr(alignments, "references", None):
+        # build the region index once before fanning out threads
+        list(alignments.fetch(alignments.references[0], 0, 0))
+
+    bucket_stats: List[dict] = []
+    from concurrent.futures import ThreadPoolExecutor
+
+    write_pool = ThreadPoolExecutor(
+        max_workers=max(2, min(4, os.cpu_count() or 4)))
+    write_futures = []
+    write_lock = threading.Lock()
+
+    progress = {"done": 0, "t_last": t0}
+    from miso_tpu.io.miso_file import summary_row_fields
+    summary_rows: Dict[str, str] = {}
+
+    def on_chunk(evs, results):
+        rows_local = {}
+        for ev, res in zip(evs, results):
+            if res is None:
+                continue
+            fields = summary_row_fields(ev, res)
+            if fields is not None:
+                rows_local[ev.name] = "\t".join(fields)
+        with write_lock:
+            if not cfg.summary_only:
+                for lo in range(0, len(evs), 512):
+                    write_futures.append(write_pool.submit(
+                        _write_events_batch, output_dir, cfg,
+                        evs[lo:lo + 512], results[lo:lo + 512]))
+            summary_rows.update(rows_local)
+            progress["done"] += len(evs)
+            now = time.time()
+            if verbose and now - progress["t_last"] > 15:
+                progress["t_last"] = now
+                print("  ... %d/%d events through the device (%.0f "
+                      "events/s)" % (progress["done"], len(items),
+                                     progress["done"] / (now - t0)))
+
+    runner = StreamRunner(cfg, seed=seed, device=device,
+                          bucket_stats=bucket_stats, on_chunk=on_chunk)
+
+    ev_queue: "queue_mod.Queue" = queue_mod.Queue(maxsize=8192)
+    compile_done = {}
+
+    from miso_tpu import native as _native
+    workers = 1
+    if (not hasattr(alignments, "scan_chrom_columnar")
+            or _native.load() is None):
+        workers = settings.get_num_processors() or 1
+    stream = _CompileStream(items, alignments, cfg, output_dir, verbose,
+                            emit=ev_queue.put, workers=workers, done=None)
+
+    def produce():
+        t = time.time()
+        try:
+            stream.run()
+            compile_done["seconds"] = time.time() - t
+        except BaseException as e:
+            compile_done["error"] = e
+        finally:
+            ev_queue.put(None)
+
+    producer = threading.Thread(target=produce, daemon=True)
+
+    def consume():
+        producer.start()
+        try:
+            while True:
+                ev = ev_queue.get()
+                if ev is None:
+                    break
+                runner.add(ev)
+        except BaseException:
+            # stop the producer at its next gene, drain the queue until
+            # it exits, then stop the materializer
+            stream.stop = True
+            while producer.is_alive():
+                try:
+                    while True:
+                        ev_queue.get_nowait()
+                except queue_mod.Empty:
+                    pass
+                producer.join(timeout=0.2)
+            runner.abort()
+            raise
+        producer.join()
+        if "error" in compile_done:
+            runner.abort()
+            raise compile_done["error"]
+        runner.finish()
+
+    try:
+        consume()
+        written = 0
+        for f in write_futures:
+            written += f.result()
+    finally:
+        write_pool.shutdown()
+    if summary_rows or stream.resume_skipped:
+        from miso_tpu.io.miso_file import write_summary_file
+        label = os.path.basename(os.path.normpath(output_dir))
+        summary_filename = os.path.join(output_dir, "summary",
+                                        "%s.miso_summary" % label)
+        if stream.resume_skipped and not cfg.summary_only:
+            # resumed runs: backfill the skipped events' rows from their
+            # stored samples so the summary is never silently partial
+            from miso_tpu.io.miso_file import (MISOSamples,
+                                               summary_row_from_data)
+            have = set(summary_rows)
+            if os.path.isfile(summary_filename):
+                with open(summary_filename) as f:
+                    f.readline()
+                    have.update(line.split("\t", 1)[0]
+                                for line in f if line.strip())
+            obj = MISOSamples(output_dir)
+            for nm in stream.resume_skipped_names:
+                if nm in have or nm not in obj.event_names_to_fnames:
+                    continue
+                data = obj.get_event_samples(nm)
+                if data is None:
+                    continue
+                try:
+                    summary_rows[nm] = "\t".join(
+                        summary_row_from_data(nm, data))
+                except ValueError:
+                    print("WARNING: cannot summarize resumed event %s "
+                          "(too few samples)" % nm)
+        n_summ = write_summary_file(summary_filename, summary_rows)
+        if verbose:
+            print("Posterior summary (%d events, device-side): %s"
+                  % (n_summ, summary_filename))
+        if cfg.summary_only:
+            written = len(summary_rows)
+    if verbose:
+        dt = time.time() - t0
+        for bs in bucket_stats:
+            print("  bucket (iso=%d, classes=%d, reads=%d): %d events "
+                  "in %.2fs (%.1f events/s)"
+                  % (bs["shape"] + (bs["events"], bs["seconds"],
+                                    bs["events_per_s"])))
+        print("Quantified %d events (%d skipped) in %.2fs on %s "
+              "(host compile %.2fs, overlapped); %.1f events/s"
+              % (written, stream.skipped, dt, device,
+                 compile_done.get("seconds", float("nan")),
+                 written / max(dt, 1e-9)))
+    return written

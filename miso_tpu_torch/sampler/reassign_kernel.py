@@ -1,0 +1,299 @@
+"""REASSIGN sampler: the hand-written CUDA kernel and its plain version.
+
+Replaces ``miso_tpu/sampler/pallas_kernel.py::_sampler_kernel`` (launcher
+``run_batch_pallas``, ``pl.pallas_call`` at :508).  ``run_batch_reassign``
+takes the same batch, ``start_psi`` (E, K, I) and result layout.
+
+- A batch on a CUDA device runs ``csrc/reassign_kernel.cu``.  If the
+  kernel does not build or launch, the call raises; nothing falls back.
+- A batch on the CPU runs ``_reassign_plain``: batched torch over the
+  (event, chain) lanes with a Python loop over iterations.  It computes
+  what the kernel computes, in the same alpha-space form as the TPU
+  kernel (``pallas_kernel.py:177-197,293-297``), and ``chip_smoke.py``
+  holds the kernel against it on the card.
+
+What bounds the kernel on an H100: Philox and compare work over the R
+reads of every step (integer and FP32 ALU), no tensor-core work, and
+L2-resident read tiles.  Its design answers that with one warp per
+(event, chain) lane, the reads split over the warp's threads, and the
+I-wide MH math done redundantly by every thread (see the .cu header).
+
+``fixed_uniform=0.4999`` replaces every uniform, as the TPU kernel's
+``_DEBUG_NO_PRNG`` does, so both routes then reproduce the JAX kernel's
+chain exactly; the proposal normals keep ``_normal_rows``' cos/sin split.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from miso_tpu_torch.sampler.mcmc import (EventBatch, SamplerConfig,
+                                         SamplerResult)
+
+LAUNCHES = {"cuda": 0, "plain": 0}
+FIXED_U = 0.4999
+NEG_BIG = -1e30
+TWO_PI = 2.0 * math.pi
+_U24 = 2.0 ** -24
+# the isoform widths the kernel is instantiated for (bucketed I)
+KERNEL_ISO = (2, 3, 4, 6, 8, 16, 32, 64)
+
+
+def _event_consts(batch: EventBatch):
+    """Per-event constants shared by both routes, (E, I) or (E, 2) f32:
+    clamped log efflen, hyper (1 on padded isoforms), amask, iso_mask,
+    last_onehot, and scal = (noise_scale, dir_const).  noise_scale is
+    sigma = 0.2/k^2 for k = 2, else sqrt(sigma) (miso.c:188, :328);
+    padding events (k = 0) get a finite scale."""
+    f32 = torch.float32
+    num_iso = batch.num_iso.to(torch.int32)
+    I = batch.read_w.shape[2]
+    ar = torch.arange(I, device=num_iso.device)[None, :]
+    iso_mask = (ar < num_iso[:, None]).to(f32)
+    amask = (ar < (num_iso[:, None] - 1)).to(f32)
+    last_onehot = (ar == (num_iso[:, None] - 1)).to(f32)
+    kf = num_iso.clamp_min(1).to(f32)
+    sigma = 0.2 / (kf * kf)
+    noise_scale = torch.where(num_iso == 2, sigma, torch.sqrt(sigma))
+    real = iso_mask > 0
+    h = torch.where(real, batch.hyper.to(f32), torch.ones_like(iso_mask))
+    zero = torch.zeros_like(iso_mask)
+    dir_const = (torch.lgamma(torch.where(real, h, zero).sum(1))
+                 - torch.where(real, torch.lgamma(h), zero).sum(1))
+    log_iso_w = batch.log_iso_w.to(f32).clamp_min(NEG_BIG)
+    scal = torch.stack([noise_scale, dir_const], dim=1)
+    return [t.contiguous() for t in
+            (log_iso_w, h, amask, iso_mask, last_onehot, scal)]
+
+
+def _stats(alpha, amask, last, eiw):
+    """alpha (..., I) -> (psi, log denom, log S): e = exp(alpha) on the
+    head isoforms, denom = 1 + sum(e), psi = (e + last) / denom and
+    S = sum((e + last) * efflen) (pallas_kernel.py:177-187)."""
+    e = torch.exp(alpha) * amask
+    denom = 1.0 + e.sum(-1)
+    ld = torch.log(denom.clamp_min(1e-38))
+    e_aug = e + last
+    psi = e_aug / denom[..., None]
+    logS = torch.log((e_aug * eiw).sum(-1).clamp_min(1e-38))
+    return psi, ld, logS
+
+
+def _log_ratio(n, d, h1, H1, n_valid, kk, ld, ld_new, logS, logS_new, full):
+    """MH log-ratio of the drift d = alpha_new - alpha, in alpha space
+    (pallas_kernel.py:293-297): the proposal quadratic and the read score
+    cancel, the rest is linear in d.  ``full`` = 0 drops the proposal
+    correction (iteration 0)."""
+    return (((n + h1) * d).sum(-1) - n_valid * (logS_new - logS)
+            - H1 * (ld_new - ld) + full * (d.sum(-1) + kk * (ld - ld_new)))
+
+
+def _joint_abs(alpha, amask, n, h1, H1, a_liw, rp, n_valid, ld, logS,
+               dir_const):
+    """Absolute joint score (miso.c:243-307) of a state, for recorded
+    log-likelihoods (pallas_kernel.py:189-196)."""
+    t = ((n + h1) * (alpha * amask) + n * a_liw).sum(-1)
+    return rp + t - n_valid * logS - H1 * ld + dir_const
+
+
+def _is_record(m: int, cfg: SamplerConfig) -> bool:
+    """Record after 0-based step m (the mcmc.py burn-in / lag schedule)."""
+    return (m < cfg.iters and m + 1 > cfg.burn_in
+            and (m + 1 - cfg.burn_in) % cfg.lag == 0)
+
+
+def run_batch_reassign(seed: int, batch: EventBatch, cfg: SamplerConfig,
+                       start_psi=None, fixed_uniform=None) -> SamplerResult:
+    """REASSIGN + per-read Gibbs over a padded batch, on the batch's
+    device.  ``seed`` is an int: the kernel's Philox key or the plain
+    version's ``torch.Generator`` seed.  ``start_psi`` (E, K, I) selects
+    the GIVEN start (miso.c:405-409)."""
+    if cfg.algorithm != "reassign" or cfg.gibbs != "perread":
+        raise ValueError("run_batch_reassign runs REASSIGN with the "
+                         "per-read Gibbs step only (got %s/%s)"
+                         % (cfg.algorithm, cfg.gibbs))
+    if cfg.lag < 1 or cfg.iters < 0 or cfg.burn_in < 0 or cfg.chains < 1:
+        raise ValueError("bad sampler schedule: %r" % (cfg,))
+    if fixed_uniform is not None and fixed_uniform != FIXED_U:
+        raise ValueError("fixed_uniform must be None or %r" % FIXED_U)
+    dev = batch.read_w.device
+    consts = _event_consts(batch)
+    if dev.type == "cuda":
+        return _reassign_cuda(seed, batch, cfg, consts, start_psi,
+                              fixed_uniform is not None)
+    if dev.type == "cpu":
+        return _reassign_plain(seed, batch, cfg, consts, start_psi,
+                               fixed_uniform)
+    raise ValueError("no REASSIGN route for device %s" % dev)
+
+
+def _result(psi_out, ll_out, acc, final_n, final_psi, cfg):
+    accepted = acc.sum(dim=1).to(torch.int32)
+    return SamplerResult(
+        psi_samples=psi_out, loglik=ll_out, accepted=accepted,
+        rejected=cfg.iters * cfg.chains - accepted,
+        final_n=final_n, final_psi=final_psi)
+
+
+def _reassign_plain(seed, batch, cfg, consts, start_psi=None,
+                    fixed_uniform=None) -> SamplerResult:
+    """Plain PyTorch version of the kernel, batched over (E, K) lanes on
+    any device.  ``fixed_uniform`` replaces every uniform; otherwise a
+    ``torch.Generator`` seeded with ``seed`` draws them."""
+    LAUNCHES["plain"] += 1
+    f32 = torch.float32
+    E, R, I = batch.read_w.shape
+    K = cfg.chains
+    dev = batch.read_w.device
+    gen = None
+    if fixed_uniform is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed) % (1 << 63))
+
+    def uniform(*shape):
+        if gen is None:
+            return torch.full(shape, fixed_uniform, dtype=f32, device=dev)
+        return torch.rand(shape, generator=gen, dtype=f32, device=dev)
+
+    log_iso_w, h, amask, iso_mask, last, scal = (c[:, None] for c in consts)
+    rw = batch.read_w.to(f32)[:, None]                 # (E, 1, R, I)
+    rls = batch.read_logscore.to(f32)[:, None]
+    ns = scal[..., 0:1]                                # (E, 1, 1)
+    dir_const = scal[..., 1]                           # (E, 1)
+    real = iso_mask > 0
+    zero = torch.zeros_like(iso_mask)
+    eiw = torch.exp(log_iso_w) * iso_mask
+    a_liw = torch.where(real, log_iso_w, zero)
+    h1 = torch.where(real, h - 1.0, zero)
+    H1 = h1.sum(-1)
+    km1 = amask.sum(-1)
+    kk = km1 + 1.0
+    valid = rw.sum(-1) > 0                             # (E, 1, R)
+    n_valid = valid.sum(-1).to(f32)                    # (E, 1)
+    iso = torch.arange(I, device=dev)
+    H = (I + 1) // 2
+
+    def normal_rows():
+        u1 = uniform(E, K, H).clamp_min(_U24)
+        u2 = uniform(E, K, H)
+        r = torch.sqrt(-2.0 * torch.log(u1))
+        ang = TWO_PI * u2
+        return torch.cat([r * torch.cos(ang), r * torch.sin(ang)], -1)[..., :I]
+
+    def stats(alpha):
+        return _stats(alpha, amask, last, eiw)
+
+    def gibbs(psi, want_rp):
+        # cumulative weights over isoforms, summed in order as the kernel
+        # does; torch.cumsum over this short last axis ran ~100x slower
+        # on the card than the whole rest of the step
+        w = rw * psi[:, :, None, :]                    # (E, K, R, I)
+        cums = [w[..., 0]]
+        for i in range(1, I):
+            cums.append(cums[-1] + w[..., i])
+        u = uniform(E, K, R)
+        if gen is not None:
+            u = u.clamp_min(_U24)      # strictly positive Gibbs uniforms
+        ge = torch.stack(cums[:-1], -1) >= (u * cums[-1])[..., None]
+        choice = (I - 1) - ge.sum(-1)          # first cums_i >= u, else I-1
+        # padding reads (valid = False) count into no isoform
+        onehot = ((choice[..., None] == iso) & valid[..., None]).to(f32)
+        n = onehot.sum(-2)
+        rp = ((onehot * rls).sum((-1, -2)) if want_rp
+              else torch.zeros((E, K), dtype=f32, device=dev))
+        return n, rp
+
+    if start_psi is not None:
+        sp = start_psi.to(f32)
+        sp_last = (sp * last).sum(-1, keepdim=True)
+        alpha = torch.where(amask > 0, torch.log(sp.clamp_min(1e-30))
+                            - torch.log(sp_last.clamp_min(1e-30)), zero)
+    else:
+        a0 = torch.where(km1 == 1.0, torch.zeros_like(km1),
+                         1.0 / km1.clamp_min(1.0))
+        alpha = torch.where(amask > 0, a0[..., None], zero).expand(E, K, I)
+    alpha = alpha + ns * normal_rows() * amask
+    psi, ld, logS = stats(alpha)
+    n, rp = gibbs(psi, _is_record(0, cfg))
+
+    RREC = max(cfg.num_records, 0)
+    psi_out = torch.empty((E, RREC, K, I), dtype=f32, device=dev)
+    ll_out = torch.empty((E, RREC, K), dtype=f32, device=dev)
+    acc = torch.zeros((E, K), dtype=torch.int32, device=dev)
+    rec = 0
+    for m in range(cfg.iters):
+        d = ns * normal_rows() * amask
+        alpha_new = alpha + d
+        psi_new, ld_new, logS_new = stats(alpha_new)
+        logr = _log_ratio(n, d, h1, H1, n_valid, kk, ld, ld_new, logS,
+                          logS_new, 1.0 if m > 0 else 0.0)
+        u = uniform(E, K).clamp_min(_U24)
+        accept = (logr >= 0) | (torch.log(u) < logr)
+        a3 = accept[..., None]
+        alpha = torch.where(a3, alpha_new, alpha)
+        psi = torch.where(a3, psi_new, psi)
+        ld = torch.where(accept, ld_new, ld)
+        logS = torch.where(accept, logS_new, logS)
+        acc += accept.to(torch.int32)
+        if _is_record(m, cfg) and rec < RREC:
+            psi_out[:, rec] = psi
+            ll_out[:, rec] = _joint_abs(alpha, amask, n, h1, H1, a_liw, rp,
+                                        n_valid, ld, logS, dir_const)
+            rec += 1
+        n, rp = gibbs(psi, _is_record(m + 1, cfg))
+    return _result(psi_out, ll_out, acc, n, psi, cfg)
+
+
+def _checked(t, name, shape, dtype, dev):
+    if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError("%s: want %s %s on %s, got %s %s on %s" % (
+            name, tuple(shape), dtype, dev, tuple(t.shape), t.dtype,
+            t.device))
+    if not t.is_contiguous():
+        raise ValueError("%s must be contiguous" % name)
+    return t
+
+
+def _reassign_cuda(seed, batch, cfg, consts, start_psi, fixed):
+    """Launch csrc/reassign_kernel.cu on the batch's CUDA device."""
+    from miso_tpu_torch import kernels
+
+    f32 = torch.float32
+    E, R, I = batch.read_w.shape
+    K = cfg.chains
+    RREC = max(cfg.num_records, 0)
+    dev = batch.read_w.device
+    if I not in KERNEL_ISO:
+        raise ValueError("the REASSIGN kernel takes I in %s, got %d"
+                         % (KERNEL_ISO, I))
+    inputs = [
+        _checked(batch.read_w, "read_w", (E, R, I), f32, dev),
+        _checked(batch.read_logscore, "read_logscore", (E, R, I), f32, dev),
+    ]
+    for name, c in zip(("log_iso_w", "hyper", "amask", "iso_mask",
+                        "last_onehot"), consts[:5]):
+        inputs.append(_checked(c, name, (E, I), f32, dev))
+    inputs.append(_checked(consts[5], "scal", (E, 2), f32, dev))
+    start = None
+    if start_psi is not None:
+        start = _checked(start_psi, "start_psi", (E, K, I), f32, dev)
+    psi_out = torch.empty((E, RREC, K, I), dtype=f32, device=dev)
+    ll_out = torch.empty((E, RREC, K), dtype=f32, device=dev)
+    acc = torch.empty((E, K), dtype=torch.int32, device=dev)
+    final_n = torch.empty((E, K, I), dtype=f32, device=dev)
+    final_psi = torch.empty((E, K, I), dtype=f32, device=dev)
+    lib = kernels.load()
+    seed = int(seed) & ((1 << 64) - 1)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.miso_reassign(
+            *[t.data_ptr() for t in inputs],
+            None if start is None else start.data_ptr(),
+            psi_out.data_ptr(), ll_out.data_ptr(), acc.data_ptr(),
+            final_n.data_ptr(), final_psi.data_ptr(),
+            E, R, I, K, cfg.iters, cfg.burn_in, cfg.lag, RREC,
+            seed & 0xFFFFFFFF, seed >> 32, int(bool(fixed)), stream)
+    kernels.check(lib, rc, "reassign kernel launch")
+    LAUNCHES["cuda"] += 1
+    return _result(psi_out, ll_out, acc, final_n, final_psi, cfg)

@@ -1,0 +1,72 @@
+"""The port's CUDA kernel against its plain PyTorch version, on the card.
+
+Every test here needs an NVIDIA GPU and skips without one.  The card's
+machine has no JAX, so this file imports none, and runs there without
+tests/conftest.py (which imports jax):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from miso_tpu_torch.sampler import reassign_kernel as rk
+from miso_tpu_torch.sampler.mcmc import SamplerConfig
+from miso_tpu_torch.testing import lane_test_batch
+
+pytestmark = pytest.mark.cuda
+
+# f32 chains that follow the same path differ only by rounding (the
+# tolerances of tests/test_pallas_interpret.py)
+PSI_ATOL, LL_ATOL, N_ATOL = 2e-4, 2e-3, 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+# (I, num_iso): every width the kernel is built for, some with padded
+# isoforms
+WIDTHS = [(2, 2), (3, 3), (4, 3), (6, 5), (8, 8), (16, 9), (32, 17),
+          (64, 33)]
+
+
+@pytest.mark.parametrize("given", [False, True])
+@pytest.mark.parametrize("I,num_iso", WIDTHS)
+def test_kernel_matches_plain_fixed_uniform(cuda, I, num_iso, given):
+    cfg = SamplerConfig(iters=24, burn_in=6, lag=3, chains=2)
+    batch = lane_test_batch(I, num_iso, I, cuda)
+    start = None
+    if given:
+        sp = np.zeros((2, 2, I), np.float32)
+        sp[..., :num_iso] = np.random.default_rng(9).dirichlet(
+            np.ones(num_iso), size=(2, 2))
+        start = torch.from_numpy(sp).to(cuda)
+    ref = rk._reassign_plain(0, batch, cfg, rk._event_consts(batch), start,
+                             rk.FIXED_U).to_numpy()
+    launches = rk.LAUNCHES["cuda"]
+    got = rk.run_batch_reassign(0, batch, cfg, start_psi=start,
+                                fixed_uniform=rk.FIXED_U)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["cuda"] == launches + 1
+    got = got.to_numpy()
+    np.testing.assert_allclose(got.psi_samples, ref.psi_samples, rtol=0,
+                               atol=PSI_ATOL)
+    np.testing.assert_allclose(got.loglik, ref.loglik, rtol=0, atol=LL_ATOL)
+    np.testing.assert_allclose(got.final_n, ref.final_n, rtol=0,
+                               atol=N_ATOL)
+    np.testing.assert_array_equal(got.accepted, ref.accepted)
+
+
+def test_kernel_rejects_bad_input(cuda):
+    cfg = SamplerConfig(iters=4, burn_in=0, lag=1, chains=2)
+    batch = lane_test_batch(2, 2, 0, cuda)
+    with pytest.raises(ValueError, match="read_w"):
+        rk.run_batch_reassign(0, batch._replace(
+            read_w=batch.read_w.double()), cfg)
+    with pytest.raises(ValueError, match="start_psi"):
+        rk.run_batch_reassign(0, batch, cfg, start_psi=torch.zeros(
+            (2, 3, 2), device=cuda))
