@@ -2,16 +2,18 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch version and against the grid-exact posterior,
-then runs ``miso --run`` through the port (``miso_tpu_torch.cli.main``)
-on a 2,000-gene simulated catalog at stock sampler settings and checks
-its output against the simulation truth.  Every phase that fails raises,
-so the script exits non-zero and never prints its last line.  It needs
-one CUDA device and fails without one.
+Builds the port's CUDA kernels from the sources in this checkout (one
+``nvcc`` per source, in parallel), holds each against its plain PyTorch
+version and against the grid-exact posterior, then runs ``miso --run``
+through the port (``miso_tpu_torch.cli.main``) on a 2,000-gene simulated
+catalog at stock sampler settings -- REASSIGN, then MARGINAL with the
+linear start, CLASSES, and REASSIGN with convergent stop -- and checks
+each run's output against the simulation truth.  Every phase that fails
+raises, so the script exits non-zero and never prints its last line.  It
+needs one CUDA device and fails without one.
 
 The line before the last is ``{"kernels": [...]}``: per kernel, its
-launches in the main-path run, its largest difference from the plain
+launches in the main-path runs, its largest difference from the plain
 version, and both times at the main path's bucket shape.  The last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -36,10 +38,13 @@ sys.path.insert(0, ROOT)
 
 from miso_tpu_torch import kernels  # noqa: E402
 from miso_tpu_torch.cli.main import main as miso_torch_main  # noqa: E402
+from miso_tpu_torch.sampler import marginal_kernel as mk  # noqa: E402
 from miso_tpu_torch.sampler import reassign_kernel as rk  # noqa: E402
-from miso_tpu_torch.sampler.mcmc import SamplerConfig  # noqa: E402
+from miso_tpu_torch.sampler.mcmc import (  # noqa: E402
+    EventBatch, SamplerConfig, batch_from_numpy)
 from miso_tpu_torch.testing import (  # noqa: E402
-    indexed_catalog, lane_test_batch, padded_batch, simulated_event)
+    exact_marginal_mean_2iso, indexed_catalog, lane_test_batch,
+    marginal_lane_batch, padded_batch, simulated_event)
 
 # tests/exact_posterior.py is numpy/scipy only
 sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -51,9 +56,13 @@ DEV = "cuda"
 # tests/test_pallas_interpret.py)
 PSI_ATOL, LL_ATOL, N_ATOL = 2e-4, 2e-3, 1e-5
 STOCK = SamplerConfig()             # 5000 iters, burn-in 500, lag 10, 6 chains
+STOCK_M = SamplerConfig(algorithm="marginal")
 SE_GENE = ([100, 50, 100], [[1, 2, 3], [1, 3]])  # make_se_catalog's gene
 G3_GENE = ([100, 50, 80, 100], [[1, 2, 3, 4], [1, 3, 4], [1, 4]])
 MAIN_E, MAIN_R = 2048, 320          # the 2,000-gene run's bucket: I=2, R=320
+N_GENES = 2000
+SMALL = dict(iters=24, burn_in=6, lag=3, chains=2)
+PHILOX = dict(iters=1500, burn_in=300, lag=5, chains=4)
 
 
 def card() -> str:
@@ -76,7 +85,7 @@ def compare(name, got, ref):
     ok = (errs["psi"] <= PSI_ATOL and errs["final_psi"] <= PSI_ATOL
           and errs["loglik"] <= LL_ATOL and errs["final_n"] <= N_ATOL
           and np.array_equal(got.accepted, ref.accepted))
-    print("  %-34s max|dpsi| %.3g  max|dll| %.3g  max|dn| %.3g  "
+    print("  %-40s max|dpsi| %.3g  max|dll| %.3g  max|dn| %.3g  "
           "accepted equal %s" % (name, errs["psi"], errs["loglik"],
                                  errs["final_n"],
                                  np.array_equal(got.accepted, ref.accepted)))
@@ -86,21 +95,50 @@ def compare(name, got, ref):
     return float(errs["psi"])
 
 
-def main_shape_batch():
-    """MAIN_E events shaped like the 2,000-gene run's bucket: 64
-    simulated SE events (300 reads of 36 nt) tiled."""
+def main_shape_batch(algorithm="reassign"):
+    """MAIN_E events shaped like the 2,000-gene run's bucket for
+    ``algorithm``: 64 simulated SE events (300 reads of 36 nt) tiled."""
     rng = np.random.default_rng(1)
-    evs = [simulated_event(*SE_GENE, [p, 1.0 - p], 300, 36, seed=100 + i)
+    evs = [simulated_event(*SE_GENE, [p, 1.0 - p], 300, 36, seed=100 + i,
+                           algorithm=algorithm)
            for i, p in enumerate(rng.uniform(0.05, 0.95, 64))]
     return padded_batch([evs[i % 64] for i in range(MAIN_E)], DEV,
                         pad_reads=MAIN_R)
 
 
+def classes_sized_batch(E=64, C=32, I=4, num_iso=3):
+    """E events of ``num_iso`` isoforms over C classes, the class count
+    of a CLASSES event: row-normalised random weights, a quarter of the
+    classes empty, random counts, and the last event a padding event."""
+    rng = np.random.default_rng(5)
+    w = np.zeros((E, C, I), np.float32)
+    w[:, :, :num_iso] = rng.random((E, C, num_iso)) * (
+        rng.random((E, C, num_iso)) < 0.6)
+    w /= np.maximum(w.sum(-1, keepdims=True), 1e-30)
+    counts = rng.integers(0, 40, (E, C)).astype(np.float32)
+    counts[:, rng.random(C) < 0.25] = 0.0
+    num_iso_v = np.full(E, num_iso, np.int32)
+    w[-1], counts[-1], num_iso_v[-1] = 0.0, 0.0, 0
+    batch, _ = batch_from_numpy(EventBatch(
+        weights=w, log_read=np.zeros_like(w), counts=counts,
+        log_iso_w=np.zeros((E, I)), hyper=np.ones((E, I)),
+        num_iso=num_iso_v, read_w=np.zeros((E, 1, I)),
+        read_logscore=np.zeros((E, 1, I))), DEV)
+    return batch
+
+
 def both(seed, batch, cfg, start=None, fixed=None):
-    consts = rk._event_consts(batch)
-    ref = rk._reassign_plain(seed, batch, cfg, consts, start, fixed)
-    got = rk.run_batch_reassign(seed, batch, cfg, start_psi=start,
-                                fixed_uniform=fixed)
+    """(kernel result, plain result) of REASSIGN or MARGINAL/CLASSES."""
+    if cfg.algorithm == "reassign":
+        ref = rk._reassign_plain(seed, batch, cfg, rk._event_consts(batch),
+                                 start, fixed)
+        got = rk.run_batch_reassign(seed, batch, cfg, start_psi=start,
+                                    fixed_uniform=fixed)
+    else:
+        ref = mk._marginal_plain(seed, batch, cfg,
+                                 mk._marginal_consts(batch), start, fixed)
+        got = mk.run_batch_marginal(seed, batch, cfg, start_psi=start,
+                                    fixed_uniform=fixed)
     torch.cuda.synchronize()
     return got, ref
 
@@ -119,6 +157,125 @@ def timed(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def dirichlet_start(num_iso, E, K):
+    """(E, K, num_iso) GIVEN start psi, seeded."""
+    sp = np.random.default_rng(9).dirichlet(np.ones(num_iso), size=(E, K))
+    return torch.as_tensor(sp.astype(np.float32)).to(DEV)
+
+
+class Launches:
+    """Wraps both kernels' CUDA launchers for one main-path run: CUDA-
+    event times and GIVEN-start launches per kernel, and the launch
+    counts read from each wrapper's own counter."""
+
+    def __init__(self):
+        self.spans = {"reassign": [], "marginal": []}
+        self.given = {"reassign": 0, "marginal": 0}
+        self.counts = None
+
+    def _wrap(self, name, launch):
+        def timed_launch(seed, batch, cfg, consts, start_psi, fixed):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out = launch(seed, batch, cfg, consts, start_psi, fixed)
+            t1.record()
+            self.spans[name].append((t0, t1))
+            self.given[name] += start_psi is not None
+            return out
+        return timed_launch
+
+    def __enter__(self):
+        self._saved = (rk._reassign_cuda, mk._marginal_cuda)
+        rk._reassign_cuda = self._wrap("reassign", rk._reassign_cuda)
+        mk._marginal_cuda = self._wrap("marginal", mk._marginal_cuda)
+        for counts in (rk.LAUNCHES, mk.LAUNCHES):
+            for key in counts:
+                counts[key] = 0
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        rk._reassign_cuda, mk._marginal_cuda = self._saved
+        self.counts = {"reassign": dict(rk.LAUNCHES),
+                       "marginal": dict(mk.LAUNCHES)}
+        return False
+
+    def ms(self, name):
+        return sum(a.elapsed_time(b) for a, b in self.spans[name])
+
+
+def check_run(fix, out, name, gpu, wall, lc):
+    """A main-path run's output: every .miso file and the summary, and
+    posterior means against the simulation truth."""
+    headers = {}
+    for d, _, files in os.walk(out):
+        for f in files:
+            if f.endswith(".miso"):
+                with open(os.path.join(d, f)) as fh:
+                    headers[f[:-5]] = fh.readline()
+    missing = {"ev%d" % e for e in range(N_GENES)} - set(headers)
+    if missing:
+        raise AssertionError("%s: %d events have no .miso"
+                             % (name, len(missing)))
+    summ = os.path.join(out, "summary", "%s.miso_summary"
+                        % os.path.basename(out))
+    with open(summ) as f:
+        head = f.readline().rstrip("\n").split("\t")
+        rows = [dict(zip(head, ln.rstrip("\n").split("\t")))
+                for ln in f if ln.strip()]
+    mean = {r["event_name"]: float(r["miso_posterior_mean"]) for r in rows}
+    est = np.array([mean["ev%d" % e] for e in range(N_GENES)])
+    truth = fix["true_psi"]
+    corr = float(np.corrcoef(est, truth)[0, 1])
+    bias = float(np.mean(est - truth))
+    print("%s: %d events in %.2fs = %.1f events/s end to end; kernels "
+          "%.1f ms (reassign) + %.1f ms (marginal); launches %s; %d .miso "
+          "files + summary (%d rows); truth corr %.4f, bias %+.4f  [%s]"
+          % (name, N_GENES, wall, N_GENES / wall, lc.ms("reassign"),
+             lc.ms("marginal"), lc.counts, len(headers), len(rows), corr,
+             bias, gpu))
+    if not (corr > 0.9 and abs(bias) < 0.06):
+        raise AssertionError("%s: posterior means miss the truth" % name)
+    return headers
+
+
+def run_main_path(fix, tmp, name, flags, gpu):
+    out = os.path.join(tmp, name)
+    with Launches() as lc:
+        t = time.time()
+        rc = miso_torch_main(["--run", fix["index"], fix["bam"],
+                              "--output-dir", out, "--read-len", "36"]
+                             + flags)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+    if rc != 0:
+        raise AssertionError("miso_torch --run %s returned %d"
+                             % (" ".join(flags), rc))
+    for kern in ("reassign", "marginal"):
+        if lc.counts[kern]["plain"] != 0:
+            raise AssertionError("%s: plain %s launches %s"
+                                 % (name, kern, lc.counts))
+    return lc, check_run(fix, out, name, gpu, wall, lc)
+
+
+def three_iso(name, results, cfg):
+    """A 3-isoform event: kernel and plain version agree on means and
+    acceptance, and the chain is not frozen."""
+    got, ref = (r.to_numpy() for r in results)
+    m1 = got.flat_samples()[0].mean(axis=0)
+    m2 = ref.flat_samples()[0].mean(axis=0)
+    a1 = float(got.accepted[0]) / (cfg.iters * cfg.chains)
+    a2 = float(ref.accepted[0]) / (cfg.iters * cfg.chains)
+    print("%s 3-isoform: kernel means %s acc %.3f; plain means %s acc %.3f"
+          % (name, np.array2string(m1, precision=4), a1,
+             np.array2string(m2, precision=4), a2))
+    if not (np.all(np.abs(m1 - m2) < 0.03) and abs(a1 - a2) < 0.06
+            and a1 > 0.05):
+        raise AssertionError("%s: 3-isoform kernel disagrees with plain"
+                             % name)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -134,39 +291,61 @@ def main() -> int:
     print("kernel build: %s, loaded after %.2fs" % (
         "library already built" if nvcc_s is None
         else "nvcc %.2fs" % nvcc_s, time.time() - t))
-    # ptxas -v: per instantiation (isoform width I) registers and spills
-    width = None
+    # ptxas -v: per kernel and isoform width I, registers and spills
+    entry = None
     for line in kernels.BUILD_INFO["log"].splitlines():
-        m = re.search(r"entry function '\S*reassign_kernelILi(\d+)E", line)
+        m = re.search(r"entry function '\S*?(reassign|marginal)_kernelILi"
+                      r"(\d+)E", line)
         if m:
-            width = m.group(1)
-        elif width and ("spill" in line or "registers" in line):
-            print("  I=%s: %s" % (width, line.split(":", 1)[-1].strip()))
+            entry = "%s I=%s" % m.groups()
+        elif entry and ("spill" in line or "registers" in line):
+            print("  %s: %s" % (entry, line.split(":", 1)[-1].strip()))
 
-    # -- 2. fixed uniforms: the kernel follows the plain version's chain
+    # -- 2. fixed uniforms: each kernel follows its plain version's chain
     print("fixed-uniform match, kernel vs plain version on the card:")
-    small = SamplerConfig(iters=24, burn_in=6, lag=3, chains=2)
+    small = SamplerConfig(**SMALL)
     for num_iso in (2, 3):
         for given in (False, True):
             b = lane_test_batch(num_iso, num_iso, num_iso, DEV)
-            start = None
-            if given:
-                sp = np.random.default_rng(9).dirichlet(
-                    np.ones(num_iso), size=(2, 2)).astype(np.float32)
-                start = torch.as_tensor(sp).to(DEV)
-            compare("I=%d %s padded reads" % (num_iso,
-                                             "GIVEN" if given else "AUTO"),
-                    *both(0, b, small, start, rk.FIXED_U))
+            start = dirichlet_start(num_iso, 2, 2) if given else None
+            compare("reassign I=%d %s padded reads" % (
+                num_iso, "GIVEN" if given else "AUTO"),
+                *both(0, b, small, start, rk.FIXED_U))
     big = main_shape_batch()
     E, R, I = big.read_w.shape
-    max_err = compare("I=%d R=%d E=%d stock %dx%d" % (
+    max_err = compare("reassign I=%d R=%d E=%d stock %dx%d" % (
         I, R, E, STOCK.iters, STOCK.chains),
         *both(0, big, STOCK, None, rk.FIXED_U))
+
+    # -- (a) the same for the MARGINAL kernel: an empty class and a
+    # padding event, a CLASSES-sized class count, the main path's bucket
+    small_m = SamplerConfig(algorithm="marginal", **SMALL)
+    m_err = 0.0
+    for num_iso in (2, 3):
+        for given in (False, True):
+            b = marginal_lane_batch(num_iso, num_iso, num_iso, DEV)
+            start = dirichlet_start(num_iso, 3, 2) if given else None
+            m_err = max(m_err, compare("marginal I=%d %s empty class + pad "
+                                       "event" % (num_iso, "GIVEN" if given
+                                                  else "AUTO"),
+                                       *both(0, b, small_m, start,
+                                             mk.FIXED_U)))
+    cb = classes_sized_batch()
+    m_err = max(m_err, compare("classes I=4 C=%d E=%d" % cb.counts.shape[::-1],
+                               *both(0, cb, SamplerConfig(
+                                   algorithm="classes", iters=400,
+                                   burn_in=100, lag=5, chains=4),
+                                   None, mk.FIXED_U)))
+    big_m = main_shape_batch("marginal")
+    Em, Cm, Im = big_m.weights.shape
+    m_err = max(m_err, compare("marginal I=%d C=%d E=%d stock %dx%d" % (
+        Im, Cm, Em, STOCK.iters, STOCK.chains),
+        *both(0, big_m, STOCK_M, None, mk.FIXED_U)))
 
     # -- 3. Philox draws: the exact posterior and the plain version
     ev = simulated_event(*SE_GENE, [0.7, 0.3], 2000, 25, seed=42)
     exact = exact_posterior_mean_2iso(ev)
-    cfg = SamplerConfig(iters=1500, burn_in=300, lag=5, chains=4)
+    cfg = SamplerConfig(**PHILOX)
     res = rk.run_batch_reassign(0, padded_batch([ev] * 8, DEV), cfg)
     means = res.to_numpy().flat_samples()[:, :, 0].mean(axis=1)
     print("exact posterior: exact %.4f, kernel means %s" % (
@@ -175,95 +354,92 @@ def main() -> int:
         raise AssertionError("kernel misses the exact posterior")
 
     ev3 = simulated_event(*G3_GENE, [0.5, 0.3, 0.2], 3000, 25, seed=7)
-    got, ref = both(2, padded_batch([ev3] * 8, DEV), cfg)
-    got, ref = got.to_numpy(), ref.to_numpy()
-    m1 = got.flat_samples()[0].mean(axis=0)
-    m2 = ref.flat_samples()[0].mean(axis=0)
-    a1 = float(got.accepted[0]) / (cfg.iters * cfg.chains)
-    a2 = float(ref.accepted[0]) / (cfg.iters * cfg.chains)
-    print("3-isoform: kernel means %s acc %.3f; plain means %s acc %.3f" % (
-        np.array2string(m1, precision=4), a1,
-        np.array2string(m2, precision=4), a2))
-    if not (np.all(np.abs(m1 - m2) < 0.03) and abs(a1 - a2) < 0.06
-            and a1 > 0.05):
-        raise AssertionError("3-isoform kernel disagrees with plain")
+    three_iso("reassign", both(2, padded_batch([ev3] * 8, DEV), cfg), cfg)
 
-    # -- 4. the main path: miso --run through the port
-    kernel_ms = []
-    launch = rk._reassign_cuda
+    # -- (b) MARGINAL and CLASSES with Philox draws: the collapsed model's
+    # exact posterior from AUTO and from a wrong GIVEN start, and the
+    # 3-isoform agreement with the plain version
+    for algo in ("marginal", "classes"):
+        cfg_a = SamplerConfig(algorithm=algo, **PHILOX)
+        ev_a = simulated_event(*SE_GENE, [0.7, 0.3], 2000, 25, seed=42,
+                               algorithm=algo)
+        exact_a = exact_marginal_mean_2iso(ev_a)
+        b = padded_batch([ev_a] * 8, DEV)
+        wrong = torch.tensor([0.05, 0.95], device=DEV).expand(
+            8, cfg_a.chains, 2).contiguous()
+        for start, tol in ((None, 0.02), (wrong, 0.03)):
+            res = mk.run_batch_marginal(1, b, cfg_a, start_psi=start)
+            means = res.to_numpy().flat_samples()[:, :, 0].mean(axis=1)
+            print("%s exact posterior (%s start): exact %.4f, kernel means "
+                  "%s" % (algo, "AUTO" if start is None else "GIVEN (0.05, "
+                          "0.95)", exact_a,
+                          np.array2string(means, precision=4)))
+            if not np.all(np.abs(means - exact_a) < tol):
+                raise AssertionError("%s kernel misses the exact posterior"
+                                     % algo)
+        ev3a = simulated_event(*G3_GENE, [0.5, 0.3, 0.2], 3000, 25, seed=7,
+                               algorithm=algo)
+        three_iso(algo, both(2, padded_batch([ev3a] * 8, DEV), cfg_a), cfg_a)
 
-    def timed_launch(*a, **kw):   # CUDA-event timing of each launch
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        out = launch(*a, **kw)
-        t1.record()
-        kernel_ms.append((t0, t1))
-        return out
-
+    # -- 4 and (c). the main paths: miso --run through the port
     with tempfile.TemporaryDirectory(prefix="miso_smoke_") as tmp:
         t = time.time()
-        fix = indexed_catalog(os.path.join(tmp, "cat"), num_events=2000,
+        fix = indexed_catalog(os.path.join(tmp, "cat"), num_events=N_GENES,
                               reads_per_event=300, read_len=36, seed=1)
-        print("catalog: 2000 genes x 300 reads built and indexed in %.1fs"
-              % (time.time() - t))
-        out = os.path.join(tmp, "out")
-        rk._reassign_cuda = timed_launch
-        for key in rk.LAUNCHES:
-            rk.LAUNCHES[key] = 0
-        try:
-            t = time.time()
-            rc = miso_torch_main(["--run", fix["index"], fix["bam"],
-                                  "--output-dir", out, "--read-len", "36"])
-            torch.cuda.synchronize()
-            wall = time.time() - t
-        finally:
-            rk._reassign_cuda = launch
-        launches = dict(rk.LAUNCHES)
-        if rc != 0:
-            raise AssertionError("miso_torch --run returned %d" % rc)
-        if launches["cuda"] < 1 or launches["plain"] != 0:
-            raise AssertionError("main path launches: %s" % launches)
-        names = set()
-        for _, _, files in os.walk(out):
-            names.update(f[:-5] for f in files if f.endswith(".miso"))
-        missing = {"ev%d" % e for e in range(2000)} - names
-        if missing:
-            raise AssertionError("%d events have no .miso" % len(missing))
-        summ = os.path.join(out, "summary", "out.miso_summary")
-        with open(summ) as f:
-            head = f.readline().rstrip("\n").split("\t")
-            rows = [dict(zip(head, ln.rstrip("\n").split("\t")))
-                    for ln in f if ln.strip()]
-        mean = {r["event_name"]: float(r["miso_posterior_mean"])
-                for r in rows}
-        est = np.array([mean["ev%d" % e] for e in range(2000)])
-        truth = fix["true_psi"]
-        corr = float(np.corrcoef(est, truth)[0, 1])
-        bias = float(np.mean(est - truth))
-        k_ms = sum(a.elapsed_time(b) for a, b in kernel_ms)
-        print("main path: 2000 events in %.2fs = %.1f events/s end to end; "
-              "kernel %.1f ms over %d launches; %d .miso files + summary "
-              "(%d rows); truth corr %.4f, bias %+.4f  [%s]" % (
-                  wall, 2000 / wall, k_ms, launches["cuda"], len(names),
-                  len(rows), corr, bias, gpu))
-        if not (corr > 0.9 and abs(bias) < 0.06):
-            raise AssertionError("posterior means miss the truth")
+        print("catalog: %d genes x 300 reads built and indexed in %.1fs"
+              % (N_GENES, time.time() - t))
+        lc_r, _ = run_main_path(fix, tmp, "out", [], gpu)
+        lc_m, _ = run_main_path(fix, tmp, "marginal_linear",
+                                ["--algorithm", "marginal",
+                                 "--linear-start"], gpu)
+        lc_c, _ = run_main_path(fix, tmp, "classes",
+                                ["--algorithm", "classes"], gpu)
+        lc_v, heads = run_main_path(fix, tmp, "convergent",
+                                    ["--convergent"], gpu)
+    checks = [
+        (lc_r, "reassign", lc_r.counts["marginal"]["cuda"] == 0),
+        (lc_m, "marginal", lc_m.given["marginal"] >= 1
+         and lc_m.counts["reassign"]["cuda"] == 0),
+        (lc_c, "marginal", lc_c.counts["reassign"]["cuda"] == 0),
+        (lc_v, "reassign", lc_v.counts["marginal"]["cuda"] == 0),
+    ]
+    for lc, kern, ok in checks:
+        if lc.counts[kern]["cuda"] < 1 or not ok:
+            raise AssertionError("main path launches: %s, GIVEN %s"
+                                 % (lc.counts, lc.given))
+    iters = np.array([int(re.search(r"iters=(\d+)", h).group(1))
+                      for h in heads.values()])
+    print("convergent: %d of %d events needed a continuation round "
+          "(final iters %s)" % ((iters > STOCK.iters).sum(), len(iters),
+                                sorted(set(iters.tolist()))))
 
-    # -- 5. kernel and plain version at the main path's bucket shape
-    consts = rk._event_consts(big)
+    # -- 5 and (d). kernel and plain version at the main paths' buckets
     ms = timed(lambda: rk.run_batch_reassign(3, big, STOCK), reps=3)
-    plain_ms = timed(lambda: rk._reassign_plain(3, big, STOCK, consts),
-                     reps=1)
-    print("time at I=%d R=%d E=%d, %d iters x %d chains: kernel %.2f ms, "
-          "plain %.2f ms  [%s]" % (I, R, E, STOCK.iters, STOCK.chains, ms,
-                                   plain_ms, gpu))
+    plain_ms = timed(lambda: rk._reassign_plain(
+        3, big, STOCK, rk._event_consts(big)), reps=1)
+    print("reassign time at I=%d R=%d E=%d, %d iters x %d chains: kernel "
+          "%.2f ms, plain %.2f ms  [%s]" % (I, R, E, STOCK.iters,
+                                            STOCK.chains, ms, plain_ms, gpu))
+    m_ms = timed(lambda: mk.run_batch_marginal(3, big_m, STOCK_M), reps=3)
+    m_plain_ms = timed(lambda: mk._marginal_plain(
+        3, big_m, STOCK_M, mk._marginal_consts(big_m)), reps=1)
+    print("marginal time at I=%d C=%d E=%d, %d iters x %d chains: kernel "
+          "%.2f ms, plain %.2f ms  [%s]" % (Im, Cm, Em, STOCK.iters,
+                                            STOCK.chains, m_ms, m_plain_ms,
+                                            gpu))
     print(json.dumps({"kernels": [{
         "name": "reassign", "route": "cuda",
         "source": "miso_tpu_torch/csrc/reassign_kernel.cu",
         "replaces": "miso_tpu/sampler/pallas_kernel.py:120",
-        "launches": launches["cuda"], "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "launches": lc_r.counts["reassign"]["cuda"]
+        + lc_v.counts["reassign"]["cuda"],
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}, {
+        "name": "marginal", "route": "cuda",
+        "source": "miso_tpu_torch/csrc/marginal_kernel.cu",
+        "replaces": "miso_tpu/sampler/pallas_marginal.py:48",
+        "launches": lc_m.counts["marginal"]["cuda"]
+        + lc_c.counts["marginal"]["cuda"],
+        "max_abs_err": m_err, "ms": m_ms, "plain_ms": m_plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,8 +2,11 @@
 
 The same flags as ``miso`` (``miso_tpu.cli.main.build_parser``) plus
 ``--device`` (default ``cuda``; a run that asks for CUDA where there is
-none raises).  Flags outside the port's first slice raise
-NotImplementedError naming the ROADMAP item that will add them.
+none raises).  The port runs ``--algorithm reassign|marginal|classes``,
+``--linear-start``, ``--convergent`` (with ``--convergent-growth``) and
+``--summary-only``.  ``--paired-end``, ``--pack-output``, ``--profile``
+and the multi-host flags raise NotImplementedError naming the ROADMAP
+item that will add them.
 """
 from __future__ import annotations
 
@@ -74,7 +77,8 @@ def main(argv=None) -> int:
         algorithm=args.algorithm, paired_end=args.paired_end is not None,
         **({"stop": "convergent"} if args.convergent else {}),
         **({"start": "linear"} if args.linear_start else {}),
-        summary_only=args.summary_only, pack_output=args.pack_output)
+        summary_only=args.summary_only, pack_output=args.pack_output,
+        convergent_growth=args.convergent_growth)
     check_slice(cfg)
     os.makedirs(args.output_dir, exist_ok=True)
     index_dir = os.path.abspath(os.path.expanduser(index_dir))

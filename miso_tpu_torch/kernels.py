@@ -1,12 +1,14 @@
 """Build and bind the port's CUDA kernels.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared
-library with a plain C interface under ``miso_tpu_torch/build/``; it
-rebuilds when a source is newer than the library.  The library is loaded
-with ``ctypes``: pointers and the stream go as ``c_void_p`` (a bare int
-would be cut to 32 bits), scalars as ``c_int``/``c_uint``.  Each C entry
-point returns ``cudaGetLastError()`` after its launch.  Nothing here
-includes PyTorch's headers, so a build takes seconds, not minutes.
+At first use, ``nvcc`` compiles each ``csrc/*.cu`` into an object file --
+one ``nvcc`` per source, all started together -- and links them into one
+shared library with a plain C interface under ``miso_tpu_torch/build/``;
+it rebuilds when a source is newer than the library.  The
+library is loaded with ``ctypes``: pointers and the stream go as
+``c_void_p`` (a bare int would be cut to 32 bits), scalars as
+``c_int``/``c_uint``.  Each C entry point returns ``cudaGetLastError()``
+after its launch.  Nothing here includes PyTorch's headers, so a build
+takes seconds, not minutes.
 """
 from __future__ import annotations
 
@@ -23,8 +25,12 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libmiso_kernels.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                     "-Xptxas", "-v"]
+# per-source flags: the marginal kernel must round every product and sum
+# on its own, as its plain version does (see its header)
+SOURCE_FLAGS = {"marginal_kernel.cu": ["-fmad=false"]}
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -44,6 +50,24 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _run_all(cmds):
+    """Start every command at once; wait for all.  Returns the combined
+    output; raises with the first failure's command and output."""
+    procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True))
+             for c in cmds]
+    logs, failed = [], None
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        logs.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = "nvcc failed (%d):\n%s\n%s" % (
+                proc.returncode, " ".join(cmd), out)
+    if failed:
+        raise RuntimeError(failed)
+    return "".join(logs)
+
+
 def build() -> str:
     """Compile csrc/*.cu into LIB_PATH unless it is newer than every
     source.  Returns the library path; raises if nvcc fails."""
@@ -54,15 +78,22 @@ def build() -> str:
     if os.path.isfile(LIB_PATH) and os.path.getmtime(LIB_PATH) >= newest:
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "%s.%d.tmp" % (LIB_PATH, os.getpid())
-    cmd = [_nvcc()] + NVCC_FLAGS + sources + ["-o", tmp]
+    nvcc, tag = _nvcc(), os.getpid()
+    objs = [os.path.join(BUILD_DIR, "%s.%d.o" % (
+        os.path.basename(s)[:-3], tag)) for s in sources]
+    tmp = "%s.%d.tmp" % (LIB_PATH, tag)
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_INFO["seconds"] = time.time() - t0
-    BUILD_INFO["log"] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (%d):\n%s\n%s" % (
-            proc.returncode, " ".join(cmd), BUILD_INFO["log"]))
+    try:
+        log = _run_all([
+            [nvcc] + NVCC_FLAGS + SOURCE_FLAGS.get(os.path.basename(s), [])
+            + ["-c", s, "-o", o] for s, o in zip(sources, objs)])
+        log += _run_all([[nvcc] + ARCH + ["-shared"] + objs + ["-o", tmp]])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+        BUILD_INFO["seconds"] = time.time() - t0
+    BUILD_INFO["log"] = log
     os.replace(tmp, LIB_PATH)
     return LIB_PATH
 
@@ -79,6 +110,12 @@ def load() -> ctypes.CDLL:
         lib.miso_reassign.argtypes = (
             [vp] * 14          # 9 inputs (start may be null), 5 outputs
             + [ci] * 8         # E, R, I, K, iters, burn_in, lag, rrec
+            + [cu, cu]         # seed words
+            + [ci, vp])        # fixed_u, stream
+        lib.miso_marginal.restype = ci
+        lib.miso_marginal.argtypes = (
+            [vp] * 10          # 6 inputs (start may be null), 4 outputs
+            + [ci] * 8         # E, C, I, K, iters, burn_in, lag, rrec
             + [cu, cu]         # seed words
             + [ci, vp])        # fixed_u, stream
         lib.miso_cuda_error_string.restype = ctypes.c_char_p

@@ -4,20 +4,29 @@ The port of ``miso_tpu/pipeline.py``.  The host half (catalog walk, event
 compile, ``.miso`` formatting) is the JAX package's own code, reused or
 copied verbatim into ``_host.py``.  The device half is torch:
 
-1. ``StreamRunner._dispatch`` pads a bucket's class tensors, expands the
-   per-read tiles on the device (``_expand_read_tensors``), runs the
-   REASSIGN kernel (``sampler/reassign_kernel.py``) and quantises psi to
-   ticks and scores to centipoints, with the posterior summary computed
-   on the device (``_summary_stats``);
-2. a materializer thread copies each chunk to the host and hands it to
-   the ``.miso`` writers.
+1. ``StreamRunner._dispatch`` pads a bucket's class tensors and runs the
+   sampler (``run_sampler``): REASSIGN expands the per-read tiles on the
+   device (``_expand_read_tensors``) for its kernel
+   (``sampler/reassign_kernel.py``); MARGINAL and CLASSES run their
+   kernel (``sampler/marginal_kernel.py``) on the class tensors alone.
+   It quantises psi to ticks and scores to centipoints, with the
+   posterior summary computed on the device (``quantize.py``);
+2. a materializer thread copies each chunk to the host, draws the final
+   assignment counts of MARGINAL/CLASSES events there, and hands the
+   chunk to the ``.miso`` writers.
 
-The slice runs fixed-stop REASSIGN, single-end, auto start, with full
-``.miso`` output or ``--summary-only``.  Every other mode raises
-``NotImplementedError`` naming the ROADMAP item that will add it.
+``--convergent`` runs each bucket through ``sampler/convergent.py``
+instead, synchronously on the dispatch thread.  ``--linear-start`` seeds
+every chain of either stop rule with the host NNLS start.
+
+The port runs single-end events with every algorithm, either start and
+either stop rule, with full ``.miso`` output or ``--summary-only``.
+Every other mode raises ``NotImplementedError`` naming the ROADMAP item
+that will add it.
 """
 from __future__ import annotations
 
+import functools
 import os
 import queue as queue_mod
 import threading
@@ -34,25 +43,24 @@ from miso_tpu.io.index import get_gene_ids_to_filenames
 from miso_tpu.io.settings import Settings
 from miso_tpu_torch._host import (RunConfig, _CompileStream, _LazyResult,
                                   _ci_bound_indices, _write_events_batch)
+from miso_tpu_torch.quantize import (quantize_psi, quantize_scores,
+                                     summary_stats)
+from miso_tpu_torch.sampler.convergent import run_batch_convergent
+from miso_tpu_torch.sampler.marginal_kernel import run_batch_marginal
 from miso_tpu_torch.sampler.mcmc import (EventBatch, SamplerConfig,
                                          _pow2_pad_events, batch_from_numpy)
 from miso_tpu_torch.sampler.reassign_kernel import (KERNEL_ISO,
                                                     run_batch_reassign)
 
-# Above this many reads a bucket takes the multinomial Gibbs step in the
-# JAX package (pipeline.py:460); the port has no such step yet.
+# Above this many reads a REASSIGN bucket takes the multinomial Gibbs
+# step in the JAX package (pipeline.py:460); the port has no such step
+# yet.  MARGINAL and CLASSES read no per-read tiles at any depth.
 DEEP_READS = 16384
 
 
 def check_slice(cfg: RunConfig) -> None:
     """Raise NotImplementedError for a run the port cannot do yet."""
     todo = []
-    if cfg.stop != "fixed":
-        todo.append("convergent stop (ROADMAP A.8)")
-    if cfg.start != "auto":
-        todo.append("--linear-start (ROADMAP A.8)")
-    if cfg.algorithm != "reassign":
-        todo.append("--algorithm %s (ROADMAP A.9)" % cfg.algorithm)
     if cfg.paired_end:
         todo.append("--paired-end (ROADMAP A.7)")
     if cfg.pack_output:
@@ -108,33 +116,35 @@ def _expand_read_tensors(weights, log_read, counts, R: int):
     return read_w.contiguous(), read_ls.contiguous()
 
 
-def _quantize_psi(flat_psi, two_iso: bool):
-    """(E, S, I) psi -> int32 ticks of 1e-4 (the .miso "%.4f" precision),
-    clipped to 0..10000; two-isoform buckets keep column 0 only.  NaN
-    (masked lanes) maps to 0, as JAX's float -> uint16 cast does."""
-    x = flat_psi[:, :, 0] if two_iso else flat_psi
-    x = torch.nan_to_num(torch.round(x * 1e4), nan=0.0)
-    return torch.clamp(x, 0, 10000).to(torch.int32)
+def run_sampler(seed: int, batch: EventBatch, cfg: SamplerConfig,
+                start_psi, pad_reads: int):
+    """One sampler run over a padded torch batch on its device: MARGINAL
+    and CLASSES read the class tensors only; REASSIGN first expands
+    ``pad_reads`` per-read slots on the device."""
+    if cfg.algorithm in ("marginal", "classes"):
+        return run_batch_marginal(seed, batch, cfg, start_psi=start_psi)
+    rw, rls = _expand_read_tensors(batch.weights, batch.log_read,
+                                   batch.counts, pad_reads)
+    return run_batch_reassign(
+        seed, batch._replace(read_w=rw, read_logscore=rls), cfg,
+        start_psi=start_psi)
 
 
-def _quantize_scores(flat_ll):
-    """(E, S) scores -> (resid int32 centipoints above the per-event min,
-    cmin, cmax) (pipeline.py:630-635)."""
-    cents = torch.round(flat_ll * 100.0)
-    cmin = cents.min(dim=1).values
-    cmax = cents.max(dim=1).values
-    resid = torch.nan_to_num(cents - cmin[:, None], nan=0.0)
-    return torch.clamp(resid, 0, 65535).to(torch.int32), cmin, cmax
+def linear_start(evs: List[CompiledEvent], cfg: RunConfig,
+                 pad_iso: int) -> np.ndarray:
+    """(n, K, pad_iso) f32 start psi: every chain of an event starts at
+    its NNLS deconvolution (MISO_START_LINEAR, pipeline.py:485-497); an
+    event whose NNLS fails starts uniform, as in the JAX package."""
+    from miso_tpu.core.assignment import linear_start_psi
 
-
-def _summary_stats(quant, lo: int, hi: int):
-    """Device-side posterior summary of the ticks (pipeline.py:258-283):
-    per-(event[, isoform]) tick sums as (E, 1[, I]) int64 -- one segment,
-    since the card has int64 -- plus the Chen-Shao order statistics at
-    the lo/hi bound indices."""
-    s = torch.sort(quant, dim=1).values
-    ssum = quant.to(torch.int64).sum(dim=1, keepdim=True)
-    return ssum, s[:, lo], s[:, hi]
+    sp = np.zeros((len(evs), cfg.chains, pad_iso), np.float32)
+    for j, ev in enumerate(evs):
+        try:
+            expr = linear_start_psi(ev, cfg.read_len, cfg.overhang_len)
+        except Exception:
+            expr = np.full(ev.num_iso, 1.0 / ev.num_iso)
+        sp[j, :, :ev.num_iso] = expr[None, :]
+    return sp
 
 
 def _to_numpy(t):
@@ -181,9 +191,12 @@ class StreamRunner:
         tags.append(ev if tag is None else tag)
         # progressive chunk sizes (512 -> 1024 -> 2048 -> max): the first
         # chunks dispatch early, so device work, copies and writes start
-        # while the host still compiles (pipeline.py:363-381)
+        # while the host still compiles (pipeline.py:363-381).  Convergent
+        # stop keeps whole buckets: each chunk runs its own rounds.
         n_disp = self.bucket_chunks.get(key, 0)
-        thresh = min(self.cfg.max_batch_events, max(512 << n_disp, 1))
+        thresh = (self.cfg.max_batch_events if self.cfg.stop == "convergent"
+                  else min(self.cfg.max_batch_events,
+                           max(512 << n_disp, 1)))
         if len(evs) >= thresh:
             del self.buckets[key]
             self.bucket_chunks[key] = n_disp + 1
@@ -192,7 +205,8 @@ class StreamRunner:
 
     def finish(self) -> None:
         """Flush partial buckets in sub-chunks, drain, join the thread."""
-        step = max(256, self.cfg.max_batch_events // 8)
+        step = (self.cfg.max_batch_events if self.cfg.stop == "convergent"
+                else max(256, self.cfg.max_batch_events // 8))
         for key in sorted(self.buckets):
             evs, tags = self.buckets[key]
             for lo in range(0, len(evs), step):
@@ -235,46 +249,111 @@ class StreamRunner:
     def _dispatch(self, key, evs, tags) -> None:
         cfg = self.cfg
         pad_iso, pad_classes, pad_reads = key
-        if pad_reads > DEEP_READS:
+        if pad_reads > DEEP_READS and cfg.algorithm == "reassign":
             raise NotImplementedError(
-                "not ported yet: events with more than %d reads (the "
-                "multinomial Gibbs step, ROADMAP A.10)" % DEEP_READS)
+                "not ported yet: REASSIGN events with more than %d reads "
+                "(the multinomial Gibbs step, ROADMAP A.10)" % DEEP_READS)
         if self.device.type == "cuda" and pad_iso not in KERNEL_ISO:
             raise NotImplementedError(
                 "not ported yet: events with more than %d isoforms on the "
-                "CUDA kernel (ROADMAP B1)" % max(KERNEL_ISO))
+                "CUDA kernels (ROADMAP B1, B2)" % max(KERNEL_ISO))
         t_bucket = time.time()
-        pad = pad_events(evs, pad_iso=pad_iso, pad_classes=pad_classes,
-                         pad_reads=pad_reads, read_dtype=np.float32,
-                         per_read=False)
+        batch = EventBatch(**pad_events(
+            evs, pad_iso=pad_iso, pad_classes=pad_classes,
+            pad_reads=pad_reads, read_dtype=np.float32, per_read=False))
         lo = self.bucket_off.get(key, 0)
         self.bucket_off[key] = lo + cfg.max_batch_events
         seed = chunk_seed(self.seed, lo, pad_iso, pad_classes, pad_reads)
-        batch, _ = _pow2_pad_events(EventBatch(**pad), None, len(evs))
-        batch, _ = batch_from_numpy(batch, self.device)
-        rw, rls = _expand_read_tensors(batch.weights, batch.log_read,
-                                       batch.counts, pad_reads)
-        batch = batch._replace(read_w=rw, read_logscore=rls)
-        res = run_batch_reassign(seed, batch, self.sampler_cfg)
+        start = (linear_start(evs, cfg, pad_iso) if cfg.start == "linear"
+                 else None)
+        sampler = functools.partial(run_sampler, pad_reads=pad_reads)
+        if cfg.stop == "convergent":
+            self._dispatch_convergent(key, evs, tags, batch, start, seed,
+                                      sampler, t_bucket)
+            return
+        batch, start = _pow2_pad_events(batch, start, len(evs))
+        batch, start = batch_from_numpy(batch, self.device, start)
+        res = sampler(seed, batch, self.sampler_cfg, start)
         two_iso = pad_iso == 2
-        quant = _quantize_psi(res.flat_samples(), two_iso)
+        quant = quantize_psi(res.flat_samples(), two_iso)
         bounds = _ci_bound_indices(quant.shape[1])
         summ = (None if bounds is None
-                else _summary_stats(quant, bounds[0], bounds[1]))
+                else summary_stats(quant, bounds[0], bounds[1]))
         ll = resid = cmin = cmax = None
         if cfg.summary_only:
             quant = None
         else:
             ll = res.flat_loglik()
-            resid, cmin, cmax = _quantize_scores(ll)
+            resid, cmin, cmax = quantize_scores(ll)
+        # REASSIGN's final counts come from the chain; the collapsed
+        # algorithms draw them on the host from chain 0's final psi
+        reassign = cfg.algorithm == "reassign"
         self._put({
             "evs": evs, "tags": tags, "quant": quant, "two_iso": two_iso,
             "summ": summ, "n_samples": int(res.flat_samples().shape[1]),
             "ll_min": cmin, "ll_max": cmax, "ll_resid": resid,
             "ll_full": ll, "accepted": res.accepted,
-            "rejected": res.rejected, "final_n": res.final_n,
-            "final_psi": res.final_psi, "t0": t_bucket, "shape": key})
+            "rejected": res.rejected,
+            "final_n": res.final_n if reassign else None,
+            "final_psi": None if reassign else res.final_psi,
+            "t0": t_bucket, "shape": key})
         self._check_err()
+
+    def _dispatch_convergent(self, key, evs, tags, batch, start, seed,
+                             sampler, t_bucket) -> None:
+        """Convergent stop for one bucket (pipeline.py:506-572), on the
+        dispatch thread: each round needs the last round's R-hat.  The
+        class tensors are sliced per round on the host, and REASSIGN
+        expands its per-read tiles on the device each round.  Summaries
+        are taken on the host, batched per final schedule."""
+        cfg = self.cfg
+        conv_res, _ = run_batch_convergent(
+            seed, batch, self.sampler_cfg, sampler, self.device,
+            max_iters=cfg.max_iters, start_psi=start,
+            extend_factor=cfg.convergent_growth)
+        groups: Dict[int, list] = {}
+        for j in range(len(evs)):
+            groups.setdefault(conv_res[j]["samples"].shape[0], []).append(j)
+        summaries: Dict[int, tuple] = {}
+        for S, idxs in groups.items():
+            bounds = _ci_bound_indices(S)
+            if bounds is None:
+                continue
+            T = np.clip(np.round(np.stack(
+                [conv_res[j]["samples"] for j in idxs]) * 1e4),
+                0, 10000).astype(np.int64)          # (n, S, I_pad)
+            st = np.sort(T, axis=1)
+            mean = (T.astype(np.float64) / 1e4).mean(axis=1)
+            lo, hi = st[:, bounds[0]] / 1e4, st[:, bounds[1]] / 1e4
+            for t_i, j in enumerate(idxs):
+                summaries[j] = (mean[t_i], lo[t_i], hi[t_i])
+        results = []
+        for j, ev in enumerate(evs):
+            r = conv_res[j]
+            k = ev.num_iso
+            fn = r["final_n"][0, :k]
+            if cfg.algorithm != "reassign":
+                # the final assignment pass from chain 0's end-of-chain
+                # psi (miso.c:935-947)
+                fn = ev.final_assignment_counts(r["final_psi"][0, :k])
+            res_d = {
+                "samples": r["samples"][:, :k], "loglik": r["loglik"],
+                "percent_accept": 100.0 * r["accepted"]
+                    / max(r["accepted"] + r["rejected"], 1),
+                "final_n": fn, "iters": int(r["iters"]),
+                "burn_in": int(r["burn_in"]),
+            }
+            if j in summaries:
+                res_d["summary"] = summaries[j]
+            results.append(res_d)
+        if self.bucket_stats is not None:
+            dt = time.time() - t_bucket
+            self.bucket_stats.append({
+                "shape": key, "events": len(evs), "seconds": dt,
+                "events_per_s": len(evs) / max(dt, 1e-9),
+                "stop": "convergent"})
+        if self.on_chunk is not None:
+            self.on_chunk(tags, results)
 
     # ------------------------------------------------------- materialize
     def _materialize_loop(self):
@@ -295,6 +374,7 @@ class StreamRunner:
         accepted = _to_numpy(p["accepted"])
         rejected = _to_numpy(p["rejected"])
         final_n = _to_numpy(p["final_n"])
+        final_psi = _to_numpy(p["final_psi"])
         n_real = len(evs)
         S = p["n_samples"]
         q = None if p["quant"] is None else _to_numpy(p["quant"]).astype(
@@ -338,10 +418,16 @@ class StreamRunner:
         results = []
         for j, ev in enumerate(evs):
             k = ev.num_iso
+            if final_n is not None:
+                fn = final_n[j, 0, :k]  # chain 0
+            else:
+                # the final assignment pass of the collapsed algorithms
+                # (miso.c:935-947, pipeline.py:738-741)
+                fn = ev.final_assignment_counts(final_psi[j, 0, :k])
             res = _LazyResult({
                 "percent_accept": 100.0 * accepted[j]
                     / max(accepted[j] + rejected[j], 1),
-                "final_n": final_n[j, 0, :k],  # chain 0
+                "final_n": fn,
             })
             if summary is not None:
                 res["summary"] = (summary[0][j], summary[1][j],

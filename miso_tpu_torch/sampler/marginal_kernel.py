@@ -1,0 +1,257 @@
+"""MARGINAL / CLASSES sampler: the hand-written CUDA kernel and its plain
+version.
+
+Replaces ``miso_tpu/sampler/pallas_marginal.py::_marginal_kernel``
+(launcher ``run_batch_pallas_marginal``, ``pl.pallas_call`` at :322).
+``run_batch_marginal`` takes the same batch, ``start_psi`` (E, K, I) and
+result layout.  The collapsed algorithms have no Gibbs step, so
+``final_n`` is zeros: the pipeline draws the final assignment on the host
+(``CompiledEvent.final_assignment_counts``).
+
+- A batch on a CUDA device runs ``csrc/marginal_kernel.cu``.  If the
+  kernel does not build or launch, the call raises; nothing falls back.
+- A batch on the CPU runs ``_marginal_plain``: batched torch over the
+  (event, chain) lanes with a Python loop over iterations.  It computes
+  what the kernel computes, in the TPU kernel's psi-space form
+  (``pallas_marginal.py:86-161``), and ``chip_smoke.py`` holds the kernel
+  against it on the card.
+
+What bounds the kernel on an H100: a serial chain of scalar work per lane
+(2*C*I products, C logs, a few I-wide exps and logs per step), 5,000
+dependent steps, and parallelism only across the E*K lanes.  Its design
+answers that with one thread per lane, the K chains of an event on
+neighbouring threads sharing the event's W through the cache, and the
+current score carried from the accepted state (see the .cu header).
+
+Both routes sum in a fixed order -- s_c = sum_i W_ci psi_i over isoforms,
+then sum_c counts_c log s_c over classes -- and never through ``@``: a
+contraction that rounds through TF32 moves the MH ratio by whole units
+(docs/VALIDATION.md:106-114).  ``fixed_uniform=0.4999`` replaces every
+uniform, as the TPU kernel's ``_DEBUG_NO_PRNG`` does; the proposal
+normals are then cos-only Box-Muller (``pallas_kernel._normal``), so
+both routes reproduce the JAX kernel's chain.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from miso_tpu_torch.sampler.mcmc import EventBatch, SamplerConfig
+from miso_tpu_torch.sampler.reassign_kernel import (FIXED_U, KERNEL_ISO,
+                                                    TWO_PI, _U24, _checked,
+                                                    _is_record, _result)
+
+LAUNCHES = {"cuda": 0, "plain": 0}
+TINY = 1e-38
+
+
+def _marginal_consts(batch: EventBatch):
+    """Per-event constants shared by both routes (pallas_marginal.py:257-
+    270): hyper h (E, I) with 1 on padded isoforms, and scal (E, 4) =
+    (noise_scale, inv_sigma, prop_const, dir_const), f32.  sigma = 0.2/k^2
+    and noise_scale is sigma for k = 2, else sqrt(sigma) (miso.c:188,
+    :328).  k is clamped to 1 and dir_const is 0 without real isoforms,
+    so padding events (k = 0) get finite constants and scores where the
+    TPU kernel's are inf and NaN."""
+    f32 = torch.float32
+    num_iso = batch.num_iso.to(torch.int32)
+    I = batch.weights.shape[2]
+    ar = torch.arange(I, device=num_iso.device)[None, :]
+    real = ar < num_iso[:, None]
+    kf = num_iso.clamp_min(1).to(f32)
+    sigma = 0.2 / (kf * kf)
+    noise_scale = torch.where(num_iso == 2, sigma, torch.sqrt(sigma))
+    inv_sigma = 1.0 / sigma
+    prop_const = -0.5 * (kf - 1.0) * torch.log(2.0 * math.pi * sigma)
+    h = torch.where(real, batch.hyper.to(f32), torch.ones_like(sigma[:, None]))
+    zero = torch.zeros_like(h)
+    dir_const = torch.where(
+        num_iso > 0, torch.lgamma(torch.where(real, h, zero).sum(1))
+        - torch.where(real, torch.lgamma(h), zero).sum(1), 0.0)
+    scal = torch.stack([noise_scale, inv_sigma, prop_const, dir_const], 1)
+    return h.contiguous(), scal.contiguous()
+
+
+def run_batch_marginal(seed: int, batch: EventBatch, cfg: SamplerConfig,
+                       start_psi=None, fixed_uniform=None):
+    """MARGINAL / CLASSES over a padded batch, on the batch's device.
+    ``seed`` is an int: the kernel's Philox key or the plain version's
+    ``torch.Generator`` seed.  ``start_psi`` (E, K, I) selects the GIVEN
+    start (miso.c:405-409).  Reads only the class tensors: ``read_w`` and
+    ``read_logscore`` may be placeholders."""
+    if cfg.algorithm not in ("marginal", "classes"):
+        raise ValueError("run_batch_marginal runs MARGINAL or CLASSES "
+                         "(got %s)" % cfg.algorithm)
+    if cfg.lag < 1 or cfg.iters < 0 or cfg.burn_in < 0 or cfg.chains < 1:
+        raise ValueError("bad sampler schedule: %r" % (cfg,))
+    if fixed_uniform is not None and fixed_uniform != FIXED_U:
+        raise ValueError("fixed_uniform must be None or %r" % FIXED_U)
+    dev = batch.weights.device
+    consts = _marginal_consts(batch)
+    if dev.type == "cuda":
+        return _marginal_cuda(seed, batch, cfg, consts, start_psi,
+                              fixed_uniform is not None)
+    if dev.type == "cpu":
+        return _marginal_plain(seed, batch, cfg, consts, start_psi,
+                               fixed_uniform)
+    raise ValueError("no MARGINAL route for device %s" % dev)
+
+
+def _seq_sum(x):
+    """Sum over the last axis in ascending index order, as the kernel
+    sums (torch's reductions pick their own order)."""
+    s = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        s = s + x[..., j]
+    return s
+
+
+def _marginal_plain(seed, batch, cfg, consts, start_psi=None,
+                    fixed_uniform=None):
+    """Plain PyTorch version of the kernel, batched over (E, K) lanes on
+    any device.  ``fixed_uniform`` replaces every uniform; otherwise a
+    ``torch.Generator`` seeded with ``seed`` draws them."""
+    LAUNCHES["plain"] += 1
+    f32 = torch.float32
+    E, C, I = batch.weights.shape
+    K = cfg.chains
+    dev = batch.weights.device
+    gen = None
+    if fixed_uniform is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed) % (1 << 63))
+
+    h, scal = consts
+    k = batch.num_iso.to(torch.int64)[:, None, None]     # (E, 1, 1)
+    ar = torch.arange(I, device=dev)
+    real = ar < k                                        # (E, 1, I)
+    am = ar < k - 1
+    amf = am.to(f32)
+    lastf = (ar == k - 1).to(f32)
+    ns, inv_sigma, prop_const, dir_const = (scal[:, None, j]
+                                            for j in range(4))  # (E, 1)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    h1 = torch.where(real, h[:, None] - 1.0, zero)       # (E, 1, I)
+    W = batch.weights.to(f32)[:, None]                   # (E, 1, C, I)
+    cnt = batch.counts.to(f32)[:, None]                  # (E, 1, C)
+    H = (I + 1) // 2
+
+    def normals():
+        if gen is None:   # every row r*cos(2*pi*u), as _normal((I, B))
+            u = torch.full((E, K, I), fixed_uniform, dtype=f32, device=dev)
+            return torch.sqrt(-2.0 * torch.log(u.clamp_min(_U24))) * \
+                torch.cos(TWO_PI * u)
+        u1 = torch.rand((E, K, H), generator=gen, dtype=f32, device=dev)
+        u2 = torch.rand((E, K, H), generator=gen, dtype=f32, device=dev)
+        r = torch.sqrt(-2.0 * torch.log(u1.clamp_min(_U24)))
+        ang = TWO_PI * u2
+        return torch.cat([r * torch.cos(ang), r * torch.sin(ang)], -1)[..., :I]
+
+    def logistic_inv(alpha):
+        e = torch.exp(alpha) * amf
+        head = e / (1.0 + _seq_sum(e))[..., None]
+        psi = head + lastf * (1.0 - _seq_sum(head))[..., None]
+        return psi, torch.log(psi.clamp_min(TINY))
+
+    def joint(psi, lp):
+        s = W[..., 0] * psi[..., 0:1]                    # (E, K, C)
+        for i in range(1, I):
+            s = s + W[..., i] * psi[..., i:i + 1]
+        term = torch.where(s > 0, cnt * torch.log(s.clamp_min(TINY)), zero)
+        return _seq_sum(term) + (_seq_sum(torch.where(real, h1 * lp, zero))
+                                 + dir_const)
+
+    def proposal(psi, lp, mu):
+        lt = torch.log(_seq_sum(psi * lastf).clamp_min(TINY))
+        a = torch.where(am, lp, zero)
+        t = torch.where(am, (a - lt[..., None]) - mu, zero)
+        return (prop_const - _seq_sum(a) - lt
+                + (-0.5 * _seq_sum(t * t)) * inv_sigma)
+
+    if start_psi is not None:
+        sp = start_psi.to(f32)
+        lsl = torch.log(_seq_sum(sp * lastf).clamp_min(1e-30))
+        alpha = torch.where(am, torch.log(sp.clamp_min(1e-30))
+                            - lsl[..., None], zero)
+    else:
+        km1 = amf.sum(-1)                                # (E, 1)
+        a0 = torch.where(km1 == 1.0, torch.zeros_like(km1),
+                         1.0 / km1.clamp_min(1.0))
+        alpha = torch.where(am, a0[..., None], zero).expand(E, K, I)
+    alpha = alpha + ns[..., None] * normals() * amf
+    psi, lp = logistic_inv(alpha)
+    cjs = joint(psi, lp)
+
+    RREC = max(cfg.num_records, 0)
+    psi_out = torch.empty((E, RREC, K, I), dtype=f32, device=dev)
+    ll_out = torch.empty((E, RREC, K), dtype=f32, device=dev)
+    acc = torch.zeros((E, K), dtype=torch.int32, device=dev)
+    rec = 0
+    for m in range(cfg.iters):
+        alpha_new = alpha + ns[..., None] * normals() * amf
+        psi_new, lp_new = logistic_inv(alpha_new)
+        pjs = joint(psi_new, lp_new)
+        full = 1.0 if m > 0 else 0.0
+        logr = (pjs - cjs) + full * (proposal(psi, lp, alpha_new)
+                                     - proposal(psi_new, lp_new, alpha))
+        if gen is None:
+            u = torch.full((E, K), fixed_uniform, dtype=f32, device=dev)
+        else:
+            u = torch.rand((E, K), generator=gen, dtype=f32, device=dev)
+        accept = (logr >= 0) | (torch.log(u.clamp_min(_U24)) < logr)
+        a3 = accept[..., None]
+        alpha = torch.where(a3, alpha_new, alpha)
+        psi = torch.where(a3, psi_new, psi)
+        lp = torch.where(a3, lp_new, lp)
+        cjs = torch.where(accept, pjs, cjs)
+        acc += accept.to(torch.int32)
+        if _is_record(m, cfg) and rec < RREC:
+            psi_out[:, rec] = psi
+            ll_out[:, rec] = cjs
+            rec += 1
+    final_n = torch.zeros((E, K, I), dtype=f32, device=dev)
+    return _result(psi_out, ll_out, acc, final_n, psi, cfg)
+
+
+def _marginal_cuda(seed, batch, cfg, consts, start_psi, fixed):
+    """Launch csrc/marginal_kernel.cu on the batch's CUDA device."""
+    from miso_tpu_torch import kernels
+
+    f32 = torch.float32
+    E, C, I = batch.weights.shape
+    K = cfg.chains
+    RREC = max(cfg.num_records, 0)
+    dev = batch.weights.device
+    if I not in KERNEL_ISO:
+        raise ValueError("the MARGINAL kernel takes I in %s, got %d"
+                         % (KERNEL_ISO, I))
+    inputs = [
+        _checked(batch.weights, "weights", (E, C, I), f32, dev),
+        _checked(batch.counts, "counts", (E, C), f32, dev),
+        _checked(batch.num_iso, "num_iso", (E,), torch.int32, dev),
+        _checked(consts[0], "hyper", (E, I), f32, dev),
+        _checked(consts[1], "scal", (E, 4), f32, dev),
+    ]
+    start = None
+    if start_psi is not None:
+        start = _checked(start_psi, "start_psi", (E, K, I), f32, dev)
+    psi_out = torch.empty((E, RREC, K, I), dtype=f32, device=dev)
+    ll_out = torch.empty((E, RREC, K), dtype=f32, device=dev)
+    acc = torch.empty((E, K), dtype=torch.int32, device=dev)
+    final_psi = torch.empty((E, K, I), dtype=f32, device=dev)
+    lib = kernels.load()
+    seed = int(seed) & ((1 << 64) - 1)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.miso_marginal(
+            *[t.data_ptr() for t in inputs],
+            None if start is None else start.data_ptr(),
+            psi_out.data_ptr(), ll_out.data_ptr(), acc.data_ptr(),
+            final_psi.data_ptr(), E, C, I, K, cfg.iters, cfg.burn_in,
+            cfg.lag, RREC, seed & 0xFFFFFFFF, seed >> 32, int(bool(fixed)),
+            stream)
+    kernels.check(lib, rc, "marginal kernel launch")
+    LAUNCHES["cuda"] += 1
+    final_n = torch.zeros((E, K, I), dtype=f32, device=dev)
+    return _result(psi_out, ll_out, acc, final_n, final_psi, cfg)

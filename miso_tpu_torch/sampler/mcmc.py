@@ -46,7 +46,7 @@ class SamplerConfig:
     burn_in: int = 500
     lag: int = 10
     chains: int = 6
-    algorithm: str = "reassign"  # the port runs 'reassign' only
+    algorithm: str = "reassign"  # 'reassign' | 'marginal' | 'classes'
     gibbs: str = "perread"       # the port runs 'perread' only
     dtype: str = "float32"       # the port computes in float32 only
 

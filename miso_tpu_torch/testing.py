@@ -1,6 +1,7 @@
 """Seeded inputs for the port's checks (``chip_smoke.py``): simulated
-events, padded batches on a device, and an indexed simulated catalog,
-built with the JAX package's JAX-free host code."""
+events, padded batches on a device, an indexed simulated catalog, built
+with the JAX package's JAX-free host code, and the grid-exact posterior
+of the collapsed model."""
 from __future__ import annotations
 
 import os
@@ -15,13 +16,16 @@ from miso_tpu.testing import build_catalog_fixture
 from miso_tpu_torch.sampler.mcmc import EventBatch, batch_from_numpy
 
 
-def simulated_event(exon_lens, isoforms, psi, n_reads, read_len, seed):
+def simulated_event(exon_lens, isoforms, psi, n_reads, read_len, seed,
+                    algorithm="reassign"):
     """One single-end event: reads simulated at ``psi`` on a gene of
-    ``exon_lens`` with ``isoforms`` (1-based exon lists), compiled."""
+    ``exon_lens`` with ``isoforms`` (1-based exon lists), compiled for
+    ``algorithm``."""
     gene = make_gene(list(exon_lens), [list(i) for i in isoforms])
     _, pos, cig = simulate_reads(gene, list(psi), n_reads, read_len,
                                  np.random.default_rng(seed))
-    return compile_single_end(gene, pos, cig, read_len=read_len)
+    return compile_single_end(gene, pos, cig, read_len=read_len,
+                              algorithm=algorithm)
 
 
 def padded_batch(events, device, pad_reads=None):
@@ -65,3 +69,39 @@ def lane_test_batch(I, num_iso, seed, device):
         hyper=np.ones((E, I)), num_iso=np.full((E,), num_iso),
         read_w=read_w, read_logscore=rls), device)
     return batch
+
+
+def marginal_lane_batch(I, num_iso, seed, device):
+    """The MARGINAL inputs of tests/test_pallas_interpret.py, widened to
+    any I: E=2 events of ``num_iso`` real isoforms padded to I, C=4
+    classes of random weights with the last class empty and counts
+    (30, 20, 10, 0), then one padding event (num_iso = 0) as
+    ``_pow2_pad_events`` adds them."""
+    E, C = 3, 4
+    rng = np.random.default_rng(seed)
+    weights = np.zeros((E, C, I), np.float32)
+    weights[:2, :, :num_iso] = rng.random((2, C, num_iso))
+    weights[:, -1, :] = 0.0
+    counts = np.zeros((E, C), np.float32)
+    counts[:2] = [30.0, 20.0, 10.0, 0.0]
+    num_iso_v = np.array([num_iso, num_iso, 0], np.int32)
+    batch, _ = batch_from_numpy(EventBatch(
+        weights=weights, log_read=np.zeros((E, C, I)), counts=counts,
+        log_iso_w=np.zeros((E, I)), hyper=np.ones((E, I)),
+        num_iso=num_iso_v, read_w=np.zeros((E, 1, I)),
+        read_logscore=np.zeros((E, 1, I))), device)
+    return batch
+
+
+def exact_marginal_mean_2iso(ev, grid=20001):
+    """Grid-exact posterior mean of psi_1 for a two-isoform event
+    compiled for MARGINAL or CLASSES: under the uniform Dirichlet prior
+    p(psi) is proportional to prod_c (sum_i W_ci psi_i)^counts_c
+    (tests/test_sampler.py:132-140)."""
+    p = np.linspace(1e-6, 1 - 1e-6, grid)
+    s = np.stack([p, 1 - p], axis=1) @ np.asarray(ev.weights, np.float64).T
+    ll = np.where(ev.counts[None, :] > 0,
+                  np.log(np.maximum(s, 1e-300)) * ev.counts[None, :],
+                  0.0).sum(axis=1)
+    w = np.exp(ll - ll.max())
+    return float((w * p).sum() / w.sum())

@@ -1,4 +1,5 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.
 
 Every test here needs an NVIDIA GPU and skips without one.  The card's
 machine has no JAX, so this file imports none, and runs there without
@@ -10,9 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from miso_tpu_torch.sampler import marginal_kernel as mk
 from miso_tpu_torch.sampler import reassign_kernel as rk
 from miso_tpu_torch.sampler.mcmc import SamplerConfig
-from miso_tpu_torch.testing import lane_test_batch
+from miso_tpu_torch.testing import lane_test_batch, marginal_lane_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -70,3 +72,51 @@ def test_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="start_psi"):
         rk.run_batch_reassign(0, batch, cfg, start_psi=torch.zeros(
             (2, 3, 2), device=cuda))
+
+
+@pytest.mark.parametrize("given", [False, True])
+@pytest.mark.parametrize("I,num_iso", WIDTHS)
+def test_marginal_kernel_matches_plain_fixed_uniform(cuda, I, num_iso,
+                                                     given):
+    """B2 at every width, with padded isoforms, an empty class and a
+    padding event."""
+    cfg = SamplerConfig(iters=24, burn_in=6, lag=3, chains=2,
+                        algorithm="marginal")
+    batch = marginal_lane_batch(I, num_iso, I, cuda)
+    start = None
+    if given:
+        sp = np.zeros((3, 2, I), np.float32)
+        sp[:2, :, :num_iso] = np.random.default_rng(9).dirichlet(
+            np.ones(num_iso), size=(2, 2))
+        start = torch.from_numpy(sp).to(cuda)
+    ref = mk._marginal_plain(0, batch, cfg, mk._marginal_consts(batch),
+                             start, mk.FIXED_U).to_numpy()
+    launches = mk.LAUNCHES["cuda"]
+    got = mk.run_batch_marginal(0, batch, cfg, start_psi=start,
+                                fixed_uniform=mk.FIXED_U)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES["cuda"] == launches + 1
+    got = got.to_numpy()
+    np.testing.assert_allclose(got.psi_samples, ref.psi_samples, rtol=0,
+                               atol=PSI_ATOL)
+    np.testing.assert_allclose(got.loglik, ref.loglik, rtol=0, atol=LL_ATOL)
+    np.testing.assert_allclose(got.final_psi, ref.final_psi, rtol=0,
+                               atol=PSI_ATOL)
+    np.testing.assert_array_equal(got.accepted, ref.accepted)
+
+
+def test_marginal_kernel_rejects_bad_input(cuda):
+    cfg = SamplerConfig(iters=4, burn_in=0, lag=1, chains=2,
+                        algorithm="classes")
+    batch = marginal_lane_batch(2, 2, 0, cuda)
+    with pytest.raises(ValueError, match="weights"):
+        mk.run_batch_marginal(0, batch._replace(
+            weights=batch.weights.double()), cfg)
+    with pytest.raises(ValueError, match="num_iso"):
+        mk.run_batch_marginal(0, batch._replace(
+            num_iso=batch.num_iso.long()), cfg)
+    with pytest.raises(ValueError, match="start_psi"):
+        mk.run_batch_marginal(0, batch, cfg, start_psi=torch.zeros(
+            (3, 3, 2), device=cuda))
+    with pytest.raises(ValueError, match="takes I in"):
+        mk.run_batch_marginal(0, marginal_lane_batch(5, 5, 0, cuda), cfg)

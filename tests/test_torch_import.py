@@ -17,7 +17,9 @@ ROOT = os.path.dirname(PKG)
 def test_port_imports_leave_jax_out():
     code = ("import sys, miso_tpu_torch, miso_tpu_torch.pipeline, "
             "miso_tpu_torch.cli.main, miso_tpu_torch.kernels, "
-            "miso_tpu_torch.sampler.model, miso_tpu_torch.testing; "
+            "miso_tpu_torch.sampler.model, miso_tpu_torch.testing, "
+            "miso_tpu_torch.sampler.marginal_kernel, "
+            "miso_tpu_torch.sampler.convergent, miso_tpu_torch.stats.rhat; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith('jax.')))")
     env = dict(os.environ, PYTHONPATH=ROOT)

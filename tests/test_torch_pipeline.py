@@ -1,12 +1,13 @@
 """The port's pipeline (miso_tpu_torch/pipeline.py, _host.py, cli/main.py)
 against the JAX package's, on the CPU.
 
-The deterministic device pieces (per-read expansion, tick and centipoint
-quantisation, the device summary) must match the JAX functions exactly
-on the same inputs.  The whole slice -- catalog -> ``miso --run`` ->
-``.miso`` + ``.miso_summary`` -- runs through both CLIs on one simulated
-catalog; chains differ, so posterior means are held to the Monte-Carlo
-noise of the fast settings.
+The deterministic device pieces (per-read expansion, the tick and
+centipoint quantisation and the device summary of quantize.py) must match
+the JAX functions exactly on the same inputs.  The whole slice --
+catalog -> ``miso --run`` -> ``.miso`` + ``.miso_summary`` -- runs
+through both CLIs on one simulated catalog, in every mode the port runs;
+chains differ, so posterior means are held to the Monte-Carlo noise of
+the fast settings.
 """
 import inspect
 import os
@@ -20,6 +21,7 @@ import jax.numpy as jnp
 import miso_tpu.pipeline as jp
 import miso_tpu_torch._host as host
 import miso_tpu_torch.pipeline as tp
+import miso_tpu_torch.quantize as tz
 from miso_tpu.core.events import compile_single_end
 from miso_tpu.core.gene import make_gene
 from miso_tpu.core.simulate import simulate_reads
@@ -93,8 +95,8 @@ def test_quantisation_and_summary_match_jax(I):
     two = I == 2
     jq, jres, jmin, jmax = _jax_quantize(jnp.asarray(psi), jnp.asarray(ll),
                                          two)
-    tq = tp._quantize_psi(torch.from_numpy(psi), two)
-    tres, tmin, tmax = tp._quantize_scores(torch.from_numpy(ll))
+    tq = tz.quantize_psi(torch.from_numpy(psi), two)
+    tres, tmin, tmax = tz.quantize_scores(torch.from_numpy(ll))
     np.testing.assert_array_equal(tq.numpy().astype(np.uint16),
                                   np.asarray(jq))
     np.testing.assert_array_equal(tres.numpy().astype(np.uint16),
@@ -103,7 +105,7 @@ def test_quantisation_and_summary_match_jax(I):
     np.testing.assert_array_equal(tmax.numpy(), np.asarray(jmax))
     lo, hi = jp._ci_bound_indices(S)
     jsum, jlo, jhi = jp._summary_stats(jq, lo, hi)
-    tsum, tlo, thi = tp._summary_stats(tq, lo, hi)
+    tsum, tlo, thi = tz.summary_stats(tq, lo, hi)
     # the host reduction of pipeline.py:694 over either payload
     np.testing.assert_array_equal(
         tsum.numpy().astype(np.int64).sum(axis=1),
@@ -175,7 +177,7 @@ def _run_both(catalog, extra):
     from miso_tpu_torch.cli.main import main as torch_main
 
     root, fix, index_dir, settings = catalog
-    tag = "summary" if extra else "full"
+    tag = "_".join(a.strip("-") for a in extra) or "full"
     outs = {}
     for name, fn, dev in (("jax", jax_main, []),
                           ("torch", torch_main, ["--device", "cpu"])):
@@ -221,21 +223,22 @@ def _check_truth(means, fix):
     assert abs(np.mean(means - truth)) < 0.06
 
 
-def test_slice_matches_jax_cli(catalog):
+def _means(out):
     from miso_tpu.io.miso_file import MISOSamples
 
+    obj = MISOSamples(out)
+    return np.array([obj.get_event_samples("ev%d" % e).samples[:, 0].mean()
+                     for e in range(N_EVENTS)])
+
+
+def test_slice_matches_jax_cli(catalog):
     outs = _run_both(catalog, [])
     jf, tf = _miso_files(outs["jax"]), _miso_files(outs["torch"])
     assert len(tf) == N_EVENTS and sorted(tf) == sorted(jf)
     for rel in tf:
         assert _header(tf[rel]) == _header(jf[rel]), rel
     assert sorted(_summary(outs["torch"])) == sorted(_summary(outs["jax"]))
-    means = {}
-    for name, out in outs.items():
-        obj = MISOSamples(out)
-        means[name] = np.array([
-            obj.get_event_samples("ev%d" % e).samples[:, 0].mean()
-            for e in range(N_EVENTS)])
+    means = {name: _means(out) for name, out in outs.items()}
     assert np.all(np.abs(means["torch"] - means["jax"]) < MEAN_TOL)
     _check_truth(means["torch"], catalog[1])
 
@@ -254,16 +257,36 @@ def test_slice_summary_only_matches_jax_cli(catalog):
     _check_truth(tm, catalog[1])
 
 
+@pytest.mark.parametrize("flags", [
+    ["--algorithm", "marginal"], ["--algorithm", "classes"],
+    ["--linear-start"], ["--convergent"]])
+def test_new_modes_match_jax_cli(catalog, flags):
+    """The modes this slice adds, through both CLIs: the same .miso
+    files, headers equal apart from chain-dependent fields (convergent
+    stop also records each event's own schedule), and posterior means
+    within the Monte-Carlo tolerance of each other and of the truth."""
+    outs = _run_both(catalog, flags)
+    jf, tf = _miso_files(outs["jax"]), _miso_files(outs["torch"])
+    assert len(tf) == N_EVENTS and sorted(tf) == sorted(jf)
+    dependent = ("iters", "burn_in") if "--convergent" in flags else ()
+    for rel in tf:
+        th = [x for x in _header(tf[rel]) if x.split("=")[0] not in dependent]
+        jh = [x for x in _header(jf[rel]) if x.split("=")[0] not in dependent]
+        assert th == jh, rel
+    assert sorted(_summary(outs["torch"])) == sorted(_summary(outs["jax"]))
+    means = {name: _means(out) for name, out in outs.items()}
+    assert np.all(np.abs(means["torch"] - means["jax"]) < MEAN_TOL)
+    _check_truth(means["torch"], catalog[1])
+
+
 def test_cli_refuses_unported_flags_and_missing_cuda(catalog):
     from miso_tpu_torch.cli.main import main as torch_main
 
     root, fix, index_dir, settings = catalog
     base = ["--run", index_dir, fix["bam"], "--output-dir",
             str(root / "refused"), "--read-len", "36"]
-    for flags in (["--convergent"], ["--algorithm", "classes"],
-                  ["--linear-start"], ["--paired-end", "250", "15"],
-                  ["--pack-output"], ["--profile", str(root / "p")],
-                  ["--num-hosts", "2"]):
+    for flags in (["--paired-end", "250", "15"], ["--pack-output"],
+                  ["--profile", str(root / "p")], ["--num-hosts", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             torch_main(base + flags + ["--device", "cpu"])
     if not torch.cuda.is_available():
