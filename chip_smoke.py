@@ -4,21 +4,28 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, in parallel), holds each against its plain PyTorch
-version and against the grid-exact posterior, then runs ``miso --run``
-through the port (``miso_tpu_torch.cli.main``) on a 2,000-gene simulated
-catalog at stock sampler settings -- REASSIGN, then MARGINAL with the
-linear start, CLASSES, and REASSIGN with convergent stop -- and checks
-each run's output against the simulation truth.  Every phase that fails
-raises, so the script exits non-zero and never prints its last line.  It
-needs one CUDA device and fails without one.
+version -- at the main paths' shapes, at 128 isoforms and on paired-end
+events -- and against the grid-exact posterior, then runs ``miso --run``
+through the port (``miso_tpu_torch.cli.main``) at stock sampler
+settings: on a 2,000-gene single-end catalog REASSIGN, MARGINAL with the
+linear start, CLASSES, REASSIGN with convergent stop and REASSIGN with
+``--pack-output``; on a 2,000-gene paired-end catalog with
+``--paired-end 250 15``; and on a 16-gene catalog of 20,000 reads per
+gene, whose deep events take the multinomial route, once more under
+``--profile``.  It checks each run's output against the simulation
+truth.  Every phase that fails raises, so the script exits non-zero and
+never prints its last line.  It needs one CUDA device and fails without
+one.
 
-The line before the last is ``{"kernels": [...]}``: per kernel, its
-launches in the main-path runs, its largest difference from the plain
-version, and both times at the main path's bucket shape.  The last line
-is ``{"ok": true, "device": {...}}``.
+The last lines are the deep route's launches and times (it is no
+kernel), ``{"kernels": [...]}`` -- per kernel, its launches in the
+main-path runs, its largest difference from the plain version, and both
+times at the main path's bucket shape -- and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
+import glob
 import json
 import os
 import re
@@ -26,6 +33,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+T_START = time.time()
 
 import numpy as np
 import torch
@@ -37,14 +46,17 @@ if not os.path.isdir(os.path.join(ROOT, "miso_tpu_torch", "csrc")):
 sys.path.insert(0, ROOT)
 
 from miso_tpu_torch import kernels  # noqa: E402
+from miso_tpu_torch import pipeline as tp  # noqa: E402
 from miso_tpu_torch.cli.main import main as miso_torch_main  # noqa: E402
+from miso_tpu_torch.sampler import deep  # noqa: E402
 from miso_tpu_torch.sampler import marginal_kernel as mk  # noqa: E402
 from miso_tpu_torch.sampler import reassign_kernel as rk  # noqa: E402
 from miso_tpu_torch.sampler.mcmc import (  # noqa: E402
     EventBatch, SamplerConfig, batch_from_numpy)
 from miso_tpu_torch.testing import (  # noqa: E402
-    exact_marginal_mean_2iso, indexed_catalog, lane_test_batch,
-    marginal_lane_batch, padded_batch, simulated_event)
+    PAIRED_GENE, class_batch, deepened, exact_marginal_mean_2iso,
+    indexed_catalog, lane_test_batch, marginal_lane_batch, packed_events,
+    padded_batch, paired_event, simulated_event)
 
 # tests/exact_posterior.py is numpy/scipy only
 sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -63,6 +75,12 @@ MAIN_E, MAIN_R = 2048, 320          # the 2,000-gene run's bucket: I=2, R=320
 N_GENES = 2000
 SMALL = dict(iters=24, burn_in=6, lag=3, chains=2)
 PHILOX = dict(iters=1500, burn_in=300, lag=5, chains=4)
+# the deep catalog: 16 genes whose 20,000 reads each pad to a bucket of
+# 32,768 > pipeline.DEEP_READS, so REASSIGN takes the multinomial route
+DEEP_GENES, DEEP_READS_PER_GENE = 16, 20000
+# the threshold measurement: 64 events of ~16,000 reads, B1 at R=16,384
+# against the deep route on the same events
+THRESH_E, THRESH_R = 64, 16384
 
 
 def card() -> str:
@@ -164,60 +182,74 @@ def dirichlet_start(num_iso, E, K):
 
 
 class Launches:
-    """Wraps both kernels' CUDA launchers for one main-path run: CUDA-
-    event times and GIVEN-start launches per kernel, and the launch
-    counts read from each wrapper's own counter."""
+    """Wraps both kernels' CUDA launchers, and the pipeline's deep route,
+    for one main-path run: CUDA-event times and GIVEN-start launches per
+    kernel, and the launch counts read from each wrapper's own counter
+    (``counts["deep"]["deep"]`` for the deep route)."""
 
     def __init__(self):
-        self.spans = {"reassign": [], "marginal": []}
-        self.given = {"reassign": 0, "marginal": 0}
+        self.spans = {"reassign": [], "marginal": [], "deep": []}
+        self.given = {"reassign": 0, "marginal": 0, "deep": 0}
         self.counts = None
 
     def _wrap(self, name, launch):
-        def timed_launch(seed, batch, cfg, consts, start_psi, fixed):
+        def timed_launch(*args, **kw):
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
             t0.record()
-            out = launch(seed, batch, cfg, consts, start_psi, fixed)
+            out = launch(*args, **kw)
             t1.record()
             self.spans[name].append((t0, t1))
+            start_psi = args[4] if len(args) > 4 else kw.get("start_psi")
             self.given[name] += start_psi is not None
             return out
         return timed_launch
 
     def __enter__(self):
-        self._saved = (rk._reassign_cuda, mk._marginal_cuda)
+        self._saved = (rk._reassign_cuda, mk._marginal_cuda,
+                       tp.run_batch_multinomial)
         rk._reassign_cuda = self._wrap("reassign", rk._reassign_cuda)
         mk._marginal_cuda = self._wrap("marginal", mk._marginal_cuda)
-        for counts in (rk.LAUNCHES, mk.LAUNCHES):
+        tp.run_batch_multinomial = self._wrap("deep",
+                                              tp.run_batch_multinomial)
+        for counts in (rk.LAUNCHES, mk.LAUNCHES, deep.LAUNCHES):
             for key in counts:
                 counts[key] = 0
         return self
 
     def __exit__(self, *exc):
         torch.cuda.synchronize()
-        rk._reassign_cuda, mk._marginal_cuda = self._saved
+        (rk._reassign_cuda, mk._marginal_cuda,
+         tp.run_batch_multinomial) = self._saved
         self.counts = {"reassign": dict(rk.LAUNCHES),
-                       "marginal": dict(mk.LAUNCHES)}
+                       "marginal": dict(mk.LAUNCHES),
+                       "deep": dict(deep.LAUNCHES)}
         return False
 
     def ms(self, name):
         return sum(a.elapsed_time(b) for a, b in self.spans[name])
 
 
-def check_run(fix, out, name, gpu, wall, lc):
-    """A main-path run's output: every .miso file and the summary, and
-    posterior means against the simulation truth."""
+def check_run(fix, out, name, gpu, wall, lc, packed=False):
+    """A main-path run's output: every event's .miso file (or, packed,
+    its .miso_db entry) and the summary, and posterior means against the
+    simulation truth.  Returns {event: header line}."""
+    n = len(fix["true_psi"])
     headers = {}
+    if packed:
+        headers = {ev: h.split("\n", 1)[0]
+                   for ev, (h, _) in packed_events(out).items()}
     for d, _, files in os.walk(out):
         for f in files:
             if f.endswith(".miso"):
                 with open(os.path.join(d, f)) as fh:
-                    headers[f[:-5]] = fh.readline()
-    missing = {"ev%d" % e for e in range(N_GENES)} - set(headers)
-    if missing:
-        raise AssertionError("%s: %d events have no .miso"
-                             % (name, len(missing)))
+                    headers[f[:-5]] = fh.readline().rstrip("\n")
+    missing = {"ev%d" % e for e in range(n)} - set(headers)
+    if missing or len(headers) != n:
+        raise AssertionError("%s: %d events have no %s, %d files"
+                             % (name, len(missing),
+                                ".miso_db entry" if packed else ".miso",
+                                len(headers)))
     summ = os.path.join(out, "summary", "%s.miso_summary"
                         % os.path.basename(out))
     with open(summ) as f:
@@ -225,28 +257,30 @@ def check_run(fix, out, name, gpu, wall, lc):
         rows = [dict(zip(head, ln.rstrip("\n").split("\t")))
                 for ln in f if ln.strip()]
     mean = {r["event_name"]: float(r["miso_posterior_mean"]) for r in rows}
-    est = np.array([mean["ev%d" % e] for e in range(N_GENES)])
+    est = np.array([mean["ev%d" % e] for e in range(n)])
     truth = fix["true_psi"]
     corr = float(np.corrcoef(est, truth)[0, 1])
     bias = float(np.mean(est - truth))
     print("%s: %d events in %.2fs = %.1f events/s end to end; kernels "
-          "%.1f ms (reassign) + %.1f ms (marginal); launches %s; %d .miso "
-          "files + summary (%d rows); truth corr %.4f, bias %+.4f  [%s]"
-          % (name, N_GENES, wall, N_GENES / wall, lc.ms("reassign"),
-             lc.ms("marginal"), lc.counts, len(headers), len(rows), corr,
-             bias, gpu))
+          "%.1f ms (reassign) + %.1f ms (marginal), deep route %.1f ms; "
+          "launches %s; %d %s + summary (%d rows); truth corr %.4f, bias "
+          "%+.4f  [%s]"
+          % (name, n, wall, n / wall, lc.ms("reassign"), lc.ms("marginal"),
+             lc.ms("deep"), lc.counts, len(headers),
+             ".miso_db entries" if packed else ".miso files", len(rows),
+             corr, bias, gpu))
     if not (corr > 0.9 and abs(bias) < 0.06):
         raise AssertionError("%s: posterior means miss the truth" % name)
     return headers
 
 
-def run_main_path(fix, tmp, name, flags, gpu):
+def run_main_path(fix, tmp, name, flags, gpu, read_len=36):
     out = os.path.join(tmp, name)
     with Launches() as lc:
         t = time.time()
         rc = miso_torch_main(["--run", fix["index"], fix["bam"],
-                              "--output-dir", out, "--read-len", "36"]
-                             + flags)
+                              "--output-dir", out, "--read-len",
+                              str(read_len)] + flags)
         torch.cuda.synchronize()
         wall = time.time() - t
     if rc != 0:
@@ -256,7 +290,28 @@ def run_main_path(fix, tmp, name, flags, gpu):
         if lc.counts[kern]["plain"] != 0:
             raise AssertionError("%s: plain %s launches %s"
                                  % (name, kern, lc.counts))
-    return lc, check_run(fix, out, name, gpu, wall, lc)
+    lc.wall = wall
+    return lc, check_run(fix, out, name, gpu, wall, lc,
+                         packed="--pack-output" in flags)
+
+
+def header_field(header, key):
+    return re.search(r"(?:^#|\t)%s=([^\t]*)" % key, header).group(1)
+
+
+def compatible_reads(header):
+    """The reads of a .miso header's ``counts=`` classes that are
+    compatible with some isoform: those a final assignment places."""
+    return sum(int(n) for t, n in re.findall(
+        r"\(([\d,]+)\):(\d+)", header_field(header, "counts"))
+        if "1" in t.split(","))
+
+
+def settled(header):
+    """A .miso header line without its chain-dependent fields."""
+    return [x for x in header.lstrip("#").split("\t")
+            if x.split("=", 1)[0] not in ("percent_accept",
+                                          "assigned_counts")]
 
 
 def three_iso(name, results, cfg):
@@ -381,6 +436,75 @@ def main() -> int:
                                algorithm=algo)
         three_iso(algo, both(2, padded_batch([ev3a] * 8, DEV), cfg_a), cfg_a)
 
+    # -- (e) fixed uniforms at 128 isoforms (about 70 real), and on
+    # paired-end events: fragment-probability weights, log_iso_w =
+    # assscores near 11, non-zero read scores; B2 on the same events
+    for given in (False, True):
+        start = None
+        if given:
+            sp = np.zeros((2, 2, 128), np.float32)
+            sp[..., :70] = np.random.default_rng(9).dirichlet(
+                np.ones(70), size=(2, 2))
+            start = torch.from_numpy(sp).to(DEV)
+        max_err = max(max_err, compare(
+            "reassign I=128 (70 real) %s" % ("GIVEN" if given else "AUTO"),
+            *both(0, lane_test_batch(128, 70, 128, DEV), small, start,
+                  rk.FIXED_U)))
+        m_err = max(m_err, compare(
+            "marginal I=128 (70 real) %s" % ("GIVEN" if given else "AUTO"),
+            *both(0, marginal_lane_batch(128, 70, 128, DEV), small_m,
+                  None if start is None else torch.cat(
+                      [start, torch.zeros_like(start[:1])]), mk.FIXED_U)))
+    pe = [paired_event(*PAIRED_GENE, [p, 1.0 - p], 400, 40, 250.0, 15.0,
+                       seed=11 + i)
+          for i, p in enumerate((0.6, 0.3, 0.8, 0.45))]
+    pb = padded_batch(pe, DEV)
+    print("  paired batch: E=%d C=%d R=%d, log_iso_w %.3f..%.3f, read "
+          "scores down to %.2f" % (pb.weights.shape[0], pb.weights.shape[1],
+                                   pb.read_w.shape[1],
+                                   float(pb.log_iso_w.min()),
+                                   float(pb.log_iso_w.max()),
+                                   float(pb.read_logscore.min())))
+    for cfg_p in (small, STOCK):
+        tag = "stock %dx%d" % (cfg_p.iters, cfg_p.chains) \
+            if cfg_p is STOCK else "small"
+        max_err = max(max_err, compare("reassign paired-end %s" % tag,
+                                       *both(0, pb, cfg_p, None,
+                                             rk.FIXED_U)))
+        cfg_pm = SamplerConfig(algorithm="marginal", iters=cfg_p.iters,
+                               burn_in=cfg_p.burn_in, lag=cfg_p.lag,
+                               chains=cfg_p.chains)
+        m_err = max(m_err, compare("marginal paired-end %s" % tag,
+                                   *both(0, pb, cfg_pm, None, mk.FIXED_U)))
+
+    # -- (f) paired-end, Philox draws: the exact posterior
+    # (tests/test_sampler.py::test_paired_end_recovery's event)
+    ev_p = paired_event(*PAIRED_GENE, [0.65, 0.35], 1500, 30, 200.0, 10.0,
+                        seed=11)
+    exact_p = exact_posterior_mean_2iso(ev_p)
+    res = rk.run_batch_reassign(0, padded_batch([ev_p] * 8, DEV), cfg)
+    means = res.to_numpy().flat_samples()[:, :, 0].mean(axis=1)
+    print("paired-end exact posterior: exact %.4f, kernel means %s" % (
+        exact_p, np.array2string(means, precision=4)))
+    if not np.all(np.abs(means - exact_p) < 0.02):
+        raise AssertionError("kernel misses the paired exact posterior")
+
+    # -- (h), first half: the million-read event of
+    # tests/test_deep_events.py through the deep route on the card
+    ev_d = deepened(simulated_event(*SE_GENE, [0.3, 0.7], 2000, 25,
+                                    seed=4), 500)
+    exact_d = exact_posterior_mean_2iso(ev_d)
+    res = deep.run_batch_multinomial(
+        0, class_batch([ev_d], DEV),
+        SamplerConfig(iters=800, burn_in=200, lag=4, chains=4))
+    res = res.to_numpy()
+    mean_d = float(res.flat_samples()[0, :, 0].mean())
+    print("deep route, 1,000,000 reads: exact %.4f, mean %.4f; final_n "
+          "sums %s" % (exact_d, mean_d, res.final_n.sum(-1)[0].tolist()))
+    if not (abs(mean_d - exact_d) < 0.02
+            and np.all(res.final_n.sum(-1) == 1_000_000.0)):
+        raise AssertionError("deep route misses the million-read event")
+
     # -- 4 and (c). the main paths: miso --run through the port
     with tempfile.TemporaryDirectory(prefix="miso_smoke_") as tmp:
         t = time.time()
@@ -388,7 +512,7 @@ def main() -> int:
                               reads_per_event=300, read_len=36, seed=1)
         print("catalog: %d genes x 300 reads built and indexed in %.1fs"
               % (N_GENES, time.time() - t))
-        lc_r, _ = run_main_path(fix, tmp, "out", [], gpu)
+        lc_r, heads_r = run_main_path(fix, tmp, "out", [], gpu)
         lc_m, _ = run_main_path(fix, tmp, "marginal_linear",
                                 ["--algorithm", "marginal",
                                  "--linear-start"], gpu)
@@ -396,15 +520,85 @@ def main() -> int:
                                 ["--algorithm", "classes"], gpu)
         lc_v, heads = run_main_path(fix, tmp, "convergent",
                                     ["--convergent"], gpu)
+        # -- (i) --pack-output: the same events in .miso_db, their
+        # headers equal to the .miso run's but for chain-dependent fields
+        lc_k, packed = run_main_path(fix, tmp, "packed", ["--pack-output"],
+                                     gpu)
+        if sorted(packed) != sorted(heads_r) or any(
+                settled(packed[ev]) != settled(heads_r[ev])
+                for ev in packed):
+            raise AssertionError("--pack-output headers differ from the "
+                                 ".miso run's")
+        print("pack-output: %d .miso_db events, headers equal to the .miso "
+              "run's (chain-dependent fields aside)" % len(packed))
+
+        # -- (g) the paired-end main path
+        t = time.time()
+        fix_p = indexed_catalog(os.path.join(tmp, "cat_pe"),
+                                num_events=N_GENES, reads_per_event=150,
+                                read_len=40, seed=1, paired=True)
+        print("paired catalog: %d genes x 150 pairs of 40 nt built and "
+              "indexed in %.1fs" % (N_GENES, time.time() - t))
+        torch.cuda.reset_peak_memory_stats()
+        lc_p, _ = run_main_path(fix_p, tmp, "paired",
+                                ["--paired-end", "250", "15"], gpu,
+                                read_len=40)
+        print("paired-end main path: wall %.2fs, B1 %.1f ms over %d "
+              "launches, peak device memory %.1f MiB  [%s]"
+              % (lc_p.wall, lc_p.ms("reassign"),
+                 lc_p.counts["reassign"]["cuda"],
+                 torch.cuda.max_memory_allocated() / 2 ** 20, gpu))
+
+        # -- (h), second half: a deep catalog through miso --run, then
+        # once more under --profile (shorter chains: the trace holds every
+        # launch of the deep route)
+        t = time.time()
+        fix_d = indexed_catalog(os.path.join(tmp, "cat_deep"),
+                                num_events=DEEP_GENES,
+                                reads_per_event=DEEP_READS_PER_GENE,
+                                read_len=36, seed=2)
+        print("deep catalog: %d genes x %d reads built and indexed in "
+              "%.1fs" % (DEEP_GENES, DEEP_READS_PER_GENE, time.time() - t))
+        lc_d, heads_d = run_main_path(fix_d, tmp, "deep", [], gpu)
+        reads = []
+        for ev, h in heads_d.items():
+            reads.append(compatible_reads(h))
+            n_assigned = sum(int(c.split(":")[1]) for c in
+                             header_field(h, "assigned_counts").split(","))
+            if (n_assigned != reads[-1]
+                    or reads[-1] <= tp.DEEP_READS):
+                raise AssertionError("deep %s: %d reads, %d assigned"
+                                     % (ev, reads[-1], n_assigned))
+        print("deep: every header's assigned counts sum to its event's "
+              "reads (%d..%d)" % (min(reads), max(reads)))
+        prof_dir = os.path.join(tmp, "trace")
+        settings = os.path.join(tmp, "short.txt")
+        with open(settings, "w") as f:
+            f.write("[sampler]\nburn_in = 50\nlag = 5\n"
+                    "num_iters = 200\nnum_chains = 6\n")
+        lc_f, _ = run_main_path(fix_d, tmp, "deep_profiled",
+                                ["--settings-filename", settings,
+                                 "--profile", prof_dir], gpu)
+        traces = glob.glob(os.path.join(prof_dir, "*.json"))
+        if len(traces) != 1 or os.path.getsize(traces[0]) == 0:
+            raise AssertionError("--profile wrote no trace: %s" % traces)
+        print("profile: %s, %.1f MiB" % (os.path.basename(traces[0]),
+                                         os.path.getsize(traces[0])
+                                         / 2 ** 20))
     checks = [
         (lc_r, "reassign", lc_r.counts["marginal"]["cuda"] == 0),
         (lc_m, "marginal", lc_m.given["marginal"] >= 1
          and lc_m.counts["reassign"]["cuda"] == 0),
         (lc_c, "marginal", lc_c.counts["reassign"]["cuda"] == 0),
         (lc_v, "reassign", lc_v.counts["marginal"]["cuda"] == 0),
+        (lc_k, "reassign", lc_k.counts["marginal"]["cuda"] == 0),
+        (lc_p, "reassign", lc_p.counts["marginal"]["cuda"] == 0),
+        (lc_d, "deep", lc_d.counts["reassign"]["cuda"] == 0),
+        (lc_f, "deep", lc_f.counts["reassign"]["cuda"] == 0),
     ]
     for lc, kern, ok in checks:
-        if lc.counts[kern]["cuda"] < 1 or not ok:
+        route = "deep" if kern == "deep" else "cuda"
+        if lc.counts[kern][route] < 1 or not ok:
             raise AssertionError("main path launches: %s, GIVEN %s"
                                  % (lc.counts, lc.given))
     iters = np.array([int(re.search(r"iters=(\d+)", h).group(1))
@@ -427,12 +621,47 @@ def main() -> int:
           "%.2f ms, plain %.2f ms  [%s]" % (Im, Cm, Em, STOCK.iters,
                                             STOCK.chains, m_ms, m_plain_ms,
                                             gpu))
+
+    # -- (j) the deep route at stock settings on 64 deep events, then the
+    # 16,384-read threshold: B1 at R=16,384 against the deep route on the
+    # same 64 events of ~16,000 reads
+    rng = np.random.default_rng(3)
+    base = [simulated_event(*SE_GENE, [p, 1.0 - p], 2000, 36, seed=300 + i)
+            for i, p in enumerate(rng.uniform(0.05, 0.95, THRESH_E))]
+    deep_b = class_batch([deepened(ev, 500) for ev in base], DEV)
+    deep_ms = timed(lambda: deep.run_batch_multinomial(5, deep_b, STOCK),
+                    reps=1)
+    thr = [deepened(ev, 8) for ev in base]        # 16,000 reads each
+    thr_b = class_batch(thr, DEV)
+    thr_rb = padded_batch(thr, DEV, pad_reads=THRESH_R)
+    rk.run_batch_reassign(5, thr_rb, SamplerConfig(iters=10, burn_in=0,
+                                                   lag=5))   # warm-up
+    b1_thr_ms = timed(lambda: rk.run_batch_reassign(5, thr_rb, STOCK),
+                      reps=1)
+    deep_thr_ms = timed(lambda: deep.run_batch_multinomial(5, thr_b, STOCK),
+                        reps=1)
+    print("deep route at E=%d (1,000,000 reads each), %d iters x %d "
+          "chains: %.2f ms  [%s]" % (THRESH_E, STOCK.iters, STOCK.chains,
+                                     deep_ms, gpu))
+    print("threshold, E=%d events of %d reads, %d x %d: B1 at R=%d "
+          "%.2f ms, deep route %.2f ms  [%s]"
+          % (THRESH_E, int(thr[0].counts.sum()), STOCK.iters, STOCK.chains,
+             THRESH_R, b1_thr_ms, deep_thr_ms, gpu))
+    print(json.dumps({"deep_route": {
+        "source": "miso_tpu_torch/sampler/deep.py",
+        "launches": lc_d.counts["deep"]["deep"]
+        + lc_f.counts["deep"]["deep"],
+        "main_path_ms": lc_d.ms("deep"), "stock_ms_e64": deep_ms,
+        "threshold": {"events": THRESH_E, "reads": int(thr[0].counts.sum()),
+                      "b1_ms_r16384": b1_thr_ms, "deep_ms": deep_thr_ms}}}))
+    print("chip_smoke: %.1fs in all" % (time.time() - T_START))
     print(json.dumps({"kernels": [{
         "name": "reassign", "route": "cuda",
         "source": "miso_tpu_torch/csrc/reassign_kernel.cu",
         "replaces": "miso_tpu/sampler/pallas_kernel.py:120",
         "launches": lc_r.counts["reassign"]["cuda"]
-        + lc_v.counts["reassign"]["cuda"],
+        + lc_v.counts["reassign"]["cuda"] + lc_k.counts["reassign"]["cuda"]
+        + lc_p.counts["reassign"]["cuda"],
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}, {
         "name": "marginal", "route": "cuda",
         "source": "miso_tpu_torch/csrc/marginal_kernel.cu",

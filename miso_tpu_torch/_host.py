@@ -4,7 +4,8 @@ Verbatim JAX-free copies of ``miso_tpu/pipeline.py`` objects:
 RunConfig (:45-104), chrom_output_dir / event_output_path (:107-113),
 compile_gene_event (:116-146), _LazyResult (:196-218),
 _ci_bound_indices (:298-303), _write_event / _iter_bodies /
-_write_events_batch (:810-873) and _CompileStream (:927-1302).  They are
+_write_events_batch (:810-873), _pack_events_batch (:876-904) and
+_CompileStream (:927-1302).  They are
 copied because their home imports jax at module level (pipeline.py:42).
 tests/test_torch_pipeline.py checks that each copy still equals its
 original.
@@ -230,6 +231,37 @@ def _write_events_batch(output_dir: str, cfg: RunConfig, evs, results
         _write_event(output_dir, cfg, ev, res, body=body)
         written += 1
     return written
+
+
+def _pack_events_batch(packer, cfg: RunConfig, evs, results) -> int:
+    """Stream a chunk slice straight into per-chromosome sqlite
+    (`--pack-output`): same header/body bytes as the .miso writer, no
+    text tree, no re-pack pass.  Ref: misopy/miso_db.py:144-193."""
+    from miso_tpu.io.miso_file import (_format_quantized,
+                                       _format_sample_block,
+                                       event_header_str)
+
+    n = 0
+    for ev, res, body in _iter_bodies(evs, results):
+        if body is None:
+            t = res.get("psi_ticks")
+            c = res.get("score_cents")
+            if t is not None and c is not None:
+                cents = np.asarray(c, np.int64)
+                body = _format_quantized(np.asarray(t, np.int64),
+                                         cents, cents < 0)
+            else:
+                body = _format_sample_block(
+                    np.asarray(res["samples"], np.float64),
+                    np.asarray(res["loglik"], np.float64))
+        header = (event_header_str(
+            ev, res.get("iters", cfg.iters),
+            res.get("burn_in", cfg.burn_in), cfg.lag,
+            res["percent_accept"], res["final_n"])
+            + "sampled_psi\tlog_score\n")
+        packer.add(ev.gene.chrom, ev.name, header, body.decode())
+        n += 1
+    return n
 
 
 class _CompileStream:

@@ -2,11 +2,12 @@
 
 The same flags as ``miso`` (``miso_tpu.cli.main.build_parser``) plus
 ``--device`` (default ``cuda``; a run that asks for CUDA where there is
-none raises).  The port runs ``--algorithm reassign|marginal|classes``,
-``--linear-start``, ``--convergent`` (with ``--convergent-growth``) and
-``--summary-only``.  ``--paired-end``, ``--pack-output``, ``--profile``
-and the multi-host flags raise NotImplementedError naming the ROADMAP
-item that will add them.
+none raises).  The port runs every single-device mode of ``miso --run``:
+``--paired-end MEAN SD``, ``--algorithm reassign|marginal|classes``,
+``--linear-start``, ``--convergent`` (with ``--convergent-growth``),
+``--summary-only``, ``--pack-output`` and ``--profile DIR`` (a
+``torch.profiler`` Chrome trace).  The multi-host flags raise
+NotImplementedError naming the ROADMAP item that will add them.
 """
 from __future__ import annotations
 
@@ -28,8 +29,7 @@ def build_parser():
 def main(argv=None) -> int:
     from miso_tpu.io.settings import Settings
     from miso_tpu_torch import __version__
-    from miso_tpu_torch.pipeline import (RunConfig, check_slice,
-                                         compute_all_genes_psi,
+    from miso_tpu_torch.pipeline import (RunConfig, compute_all_genes_psi,
                                          resolve_device)
 
     args = build_parser().parse_args(argv)
@@ -49,12 +49,9 @@ def main(argv=None) -> int:
     if args.read_len is None:
         print("Error: need --read-len.", file=sys.stderr)
         return 1
-    # run modes RunConfig does not carry; check_slice refuses the rest
     if args.coordinator or args.num_hosts:
         raise NotImplementedError("not ported yet: --coordinator/"
                                   "--num-hosts (ROADMAP A.11)")
-    if args.profile_dir:
-        raise NotImplementedError("not ported yet: --profile (ROADMAP A.12)")
     device = resolve_device(args.device)
 
     for path, what in [(args.compute_genes_psi[0], "index directory"),
@@ -71,15 +68,23 @@ def main(argv=None) -> int:
         return 1
     settings = Settings.load(args.settings_filename)
     index_dir, reads = args.compute_genes_psi
-    overhang = 1 if args.overhang_len is None else args.overhang_len
+    # miso_tpu/cli/main.py:158-171
+    paired = args.paired_end is not None
+    overhang = 1
+    if args.overhang_len is not None and not paired:
+        overhang = args.overhang_len
+    elif args.overhang_len is not None and paired:
+        print("Warning: cannot use --overhang-len in paired-end mode. "
+              "Using overhang = 1")
     cfg = RunConfig.from_settings(
         settings, args.read_len, overhang_len=overhang,
-        algorithm=args.algorithm, paired_end=args.paired_end is not None,
+        algorithm=args.algorithm, paired_end=paired,
+        mean_frag_len=args.paired_end[0] if paired else None,
+        frag_variance=(args.paired_end[1] ** 2) if paired else None,
         **({"stop": "convergent"} if args.convergent else {}),
         **({"start": "linear"} if args.linear_start else {}),
         summary_only=args.summary_only, pack_output=args.pack_output,
         convergent_growth=args.convergent_growth)
-    check_slice(cfg)
     os.makedirs(args.output_dir, exist_ok=True)
     index_dir = os.path.abspath(os.path.expanduser(index_dir))
     reads = os.path.abspath(os.path.expanduser(reads))
@@ -94,7 +99,7 @@ def main(argv=None) -> int:
         index_dir, reads, args.read_len,
         os.path.abspath(os.path.expanduser(args.output_dir)),
         cfg=cfg, settings=settings, seed=args.seed, gene_ids=gene_ids,
-        device=device)
+        device=device, profile_dir=args.profile_dir)
     return 0
 
 

@@ -35,6 +35,11 @@
 
 namespace {
 
+// Loops over the isoforms (and the I/2 normal pairs) unroll fully up to
+// I = 64.  The 128- and 256-wide instances keep their per-isoform arrays
+// in local memory either way, and unrolled they took ptxas minutes to
+// build, so their loops stay rolled: "#pragma unroll (I > 64 ? 1 : I)".
+
 constexpr float kFixedU = 0.4999f;
 constexpr float kTwoPi = 6.28318530717958647692f;
 constexpr float kTiny = 1e-38f;
@@ -105,7 +110,7 @@ template <int I>
 __device__ __forceinline__ void normals(const Params& p, uint32_t lane,
                                         uint32_t step, float z[I]) {
   constexpr int H = (I + 1) / 2;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
   for (int j = 0; j < H; ++j) {
     float u1 = kFixedU, u2 = kFixedU;
     if (!p.fixed_u) {
@@ -129,19 +134,19 @@ __device__ __forceinline__ void logistic_inv(const float alpha[I], int k,
                                              float psi[I], float lp[I]) {
   float e[I];
   float s = 0.f;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
   for (int i = 0; i < I; ++i) {
     e[i] = expf(alpha[i]) * head(i, k);
     s = s + e[i];
   }
   const float denom = 1.0f + s;
   float hs = 0.f;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
   for (int i = 0; i < I; ++i) {
     e[i] = e[i] / denom;
     hs = hs + e[i];
   }
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
   for (int i = 0; i < I; ++i) {
     psi[i] = e[i] + last(i, k) * (1.0f - hs);
     lp[i] = logf(fmaxf(psi[i], kTiny));
@@ -161,12 +166,12 @@ __device__ __forceinline__ float joint_score(const float* w, const float* cnt,
   for (int c = 0; c < C; ++c) {
     const float* wc = w + (size_t)c * I;
     float s = 0.f;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
     for (int i = 0; i < I; ++i) s = s + __ldg(wc + i) * psi[i];
     if (s > 0.f) rt = rt + __ldg(cnt + c) * logf(fmaxf(s, kTiny));
   }
   float ds = 0.f;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
   for (int i = 0; i < I; ++i)
     if (i < k) ds = ds + h1[i] * lp[i];
   return rt + (ds + dir_const);
@@ -181,11 +186,11 @@ __device__ __forceinline__ float proposal_score(const float psi[I],
                                                 float inv_sigma,
                                                 float prop_const) {
   float lth = 0.f;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
   for (int i = 0; i < I; ++i) lth = lth + psi[i] * last(i, k);
   const float lt = logf(fmaxf(lth, kTiny));
   float slp = 0.f, ss = 0.f;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
   for (int i = 0; i < I; ++i) {
     const bool h = i < k - 1;
     const float a = h ? lp[i] : 0.f;
@@ -210,7 +215,7 @@ __global__ void __launch_bounds__(128) marginal_kernel(const Params p) {
   const float dir_const = p.scal[4 * e + 3];
   float h1[I];
   float km1 = 0.f;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
   for (int i = 0; i < I; ++i) {
     h1[i] = i < k ? p.hyper[(size_t)e * I + i] - 1.0f : 0.f;
     km1 = km1 + head(i, k);
@@ -222,19 +227,19 @@ __global__ void __launch_bounds__(128) marginal_kernel(const Params p) {
   if (p.start != nullptr) {
     const float* sp = p.start + (size_t)lane * I;
     float sl = 0.f;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
     for (int i = 0; i < I; ++i) sl = sl + sp[i] * last(i, k);
     const float lsl = logf(fmaxf(sl, 1e-30f));
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
     for (int i = 0; i < I; ++i)
       alpha[i] = i < k - 1 ? logf(fmaxf(sp[i], 1e-30f)) - lsl : 0.f;
   } else {
     const float a0 = km1 == 1.0f ? 0.f : 1.0f / fmaxf(km1, 1.0f);
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
     for (int i = 0; i < I; ++i) alpha[i] = i < k - 1 ? a0 : 0.f;
   }
   normals<I>(p, (uint32_t)lane, 0u, z);
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
   for (int i = 0; i < I; ++i) alpha[i] = alpha[i] + ns * z[i] * head(i, k);
   logistic_inv<I>(alpha, k, psi, lp);
   float cjs = joint_score<I>(w, cnt, p.C, psi, lp, h1, k, dir_const);
@@ -244,7 +249,7 @@ __global__ void __launch_bounds__(128) marginal_kernel(const Params p) {
     const uint32_t step = (uint32_t)m + 1u;
     float an[I], pn[I], lpn[I];
     normals<I>(p, (uint32_t)lane, step, z);
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
     for (int i = 0; i < I; ++i) an[i] = alpha[i] + ns * z[i] * head(i, k);
     logistic_inv<I>(an, k, pn, lpn);
     const float pjs = joint_score<I>(w, cnt, p.C, pn, lpn, h1, k, dir_const);
@@ -261,7 +266,7 @@ __global__ void __launch_bounds__(128) marginal_kernel(const Params p) {
                             p.k0, p.k1).x);
     u = fmaxf(u, kTwoM24);
     if (logr >= 0.f || logf(u) < logr) {
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
       for (int i = 0; i < I; ++i) {
         alpha[i] = an[i];
         psi[i] = pn[i];
@@ -273,14 +278,14 @@ __global__ void __launch_bounds__(128) marginal_kernel(const Params p) {
     if (is_record(m, p) && rec < p.rrec) {
       // the absolute joint score of the state after this step
       const size_t o = ((size_t)e * p.rrec + rec) * p.K + (lane - e * p.K);
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
       for (int i = 0; i < I; ++i) p.psi_out[o * I + i] = psi[i];
       p.loglik_out[o] = cjs;
       ++rec;
     }
   }
   p.acc_out[lane] = accepted;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
   for (int i = 0; i < I; ++i) p.final_psi[(size_t)lane * I + i] = psi[i];
 }
 
@@ -309,6 +314,8 @@ extern "C" int miso_marginal(
     case 16: marginal_kernel<16><<<blocks, threads, 0, s>>>(p); break;
     case 32: marginal_kernel<32><<<blocks, threads, 0, s>>>(p); break;
     case 64: marginal_kernel<64><<<blocks, threads, 0, s>>>(p); break;
+    case 128: marginal_kernel<128><<<blocks, threads, 0, s>>>(p); break;
+    case 256: marginal_kernel<256><<<blocks, threads, 0, s>>>(p); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

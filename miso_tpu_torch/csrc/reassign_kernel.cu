@@ -25,6 +25,11 @@
 
 namespace {
 
+// Loops over the isoforms (and the I/2 normal pairs) unroll fully up to
+// I = 64.  The 128- and 256-wide instances keep their per-isoform arrays
+// in local memory either way, and unrolled they took ptxas minutes to
+// build, so their loops stay rolled: "#pragma unroll (I > 64 ? 1 : I)".
+
 constexpr float kFixedU = 0.4999f;
 constexpr float kTwoPi = 6.28318530717958647692f;
 constexpr float kNegBig = -1e30f;
@@ -100,7 +105,7 @@ template <int I>
 __device__ __forceinline__ void normal_rows(const Params& p, uint32_t lane,
                                             uint32_t step, float z[I]) {
   constexpr int H = (I + 1) / 2;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
   for (int j = 0; j < H; ++j) {
     float u1 = kFixedU, u2 = kFixedU;
     if (!p.fixed_u) {
@@ -125,7 +130,7 @@ __device__ __forceinline__ void stats(const float alpha[I], const float am[I],
                                       float psi[I], float& ld, float& logS) {
   float e[I];
   float s = 0.f;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
   for (int i = 0; i < I; ++i) {
     e[i] = expf(alpha[i]) * am[i];
     s += e[i];
@@ -133,7 +138,7 @@ __device__ __forceinline__ void stats(const float alpha[I], const float am[I],
   const float denom = 1.0f + s;
   ld = logf(fmaxf(denom, kTiny));
   float S = 0.f;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
   for (int i = 0; i < I; ++i) {
     const float ea = e[i] + last[i];
     psi[i] = ea / denom;
@@ -152,7 +157,7 @@ __device__ __forceinline__ void gibbs(const Params& p, const float* rw,
                                       uint32_t step, const float psi[I],
                                       bool want_rp, float n[I], float& rp) {
   float cnt[I];
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
   for (int i = 0; i < I; ++i) cnt[i] = 0.f;
   float acc_rp = 0.f;
   const int groups = (p.R + 3) >> 2;
@@ -169,7 +174,7 @@ __device__ __forceinline__ void gibbs(const Params& p, const float* rw,
       const float* w = rw + (size_t)r * I;
       float c[I];
       float acc = 0.f, wsum = 0.f;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
       for (int i = 0; i < I; ++i) {
         const float wi = w[i];
         wsum += wi;
@@ -180,15 +185,15 @@ __device__ __forceinline__ void gibbs(const Params& p, const float* rw,
       if (!(wsum > 0.f)) continue;
       const float u = (p.fixed_u ? kFixedU : u01_open(bits[j])) * acc;
       int ch = I - 1;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
       for (int i = I - 2; i >= 0; --i)
         if (c[i] >= u) ch = i;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
       for (int i = 0; i < I; ++i) cnt[i] += (ch == i) ? 1.f : 0.f;
       if (want_rp) acc_rp += rl[(size_t)r * I + ch];
     }
   }
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
   for (int i = 0; i < I; ++i) n[i] = warp_sum(cnt[i]);
   rp = want_rp ? warp_sum(acc_rp) : 0.f;
 }
@@ -207,7 +212,7 @@ __global__ void __launch_bounds__(128) reassign_kernel(const Params p) {
   // per-event constants (efflen, log efflen, hyper - 1 on real isoforms)
   float am[I], last[I], eiw[I], aliw[I], h1[I];
   float km1 = 0.f, H1 = 0.f;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
   for (int i = 0; i < I; ++i) {
     const size_t o = (size_t)e * I + i;
     const float liw = fmaxf(p.log_iso_w[o], kNegBig);
@@ -227,7 +232,7 @@ __global__ void __launch_bounds__(128) reassign_kernel(const Params p) {
   float nv = 0.f;
   for (int r = threadIdx.x & 31; r < p.R; r += 32) {
     float s = 0.f;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
     for (int i = 0; i < I; ++i) s += rw[(size_t)r * I + i];
     nv += s > 0.f ? 1.f : 0.f;
   }
@@ -239,19 +244,19 @@ __global__ void __launch_bounds__(128) reassign_kernel(const Params p) {
   if (p.start != nullptr) {
     const float* sp = p.start + ((size_t)e * p.K + k) * I;
     float sl = 0.f;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
     for (int i = 0; i < I; ++i) sl += sp[i] * last[i];
     const float lsl = logf(fmaxf(sl, 1e-30f));
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
     for (int i = 0; i < I; ++i)
       alpha[i] = am[i] > 0.f ? logf(fmaxf(sp[i], 1e-30f)) - lsl : 0.f;
   } else {
     const float a0 = km1 == 1.0f ? 0.f : 1.0f / fmaxf(km1, 1.0f);
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
     for (int i = 0; i < I; ++i) alpha[i] = am[i] > 0.f ? a0 : 0.f;
   }
   normal_rows<I>(p, lane, 0u, z);
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
   for (int i = 0; i < I; ++i) alpha[i] += ns * z[i] * am[i];
   float psi[I], n[I], ld, logS, rp;
   stats<I>(alpha, am, last, eiw, psi, ld, logS);
@@ -262,7 +267,7 @@ __global__ void __launch_bounds__(128) reassign_kernel(const Params p) {
     const uint32_t step = (uint32_t)m + 1u;
     float d[I], an[I], pn[I], ldn, logSn;
     normal_rows<I>(p, lane, step, z);
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
     for (int i = 0; i < I; ++i) {
       d[i] = ns * z[i] * am[i];
       an[i] = alpha[i] + d[i];
@@ -271,7 +276,7 @@ __global__ void __launch_bounds__(128) reassign_kernel(const Params p) {
     // MH log-ratio in alpha space: the proposal quadratic and the read
     // score cancel; iteration 0 drops the proposal correction
     float s1 = 0.f, sd = 0.f;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
     for (int i = 0; i < I; ++i) {
       s1 += (n[i] + h1[i]) * d[i];
       sd += d[i];
@@ -284,7 +289,7 @@ __global__ void __launch_bounds__(128) reassign_kernel(const Params p) {
       u = u01(philox4x32_10(make_uint4(lane, step, 0u, kAccept), p.k0, p.k1).x);
     u = fmaxf(u, kTwoM24);
     if (logr >= 0.f || logf(u) < logr) {
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
       for (int i = 0; i < I; ++i) {
         alpha[i] = an[i];
         psi[i] = pn[i];
@@ -297,13 +302,13 @@ __global__ void __launch_bounds__(128) reassign_kernel(const Params p) {
       // joint score (miso.c:243-307) with the n and read score from
       // before this step's Gibbs draw
       float t = 0.f;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
       for (int i = 0; i < I; ++i)
         t += (n[i] + h1[i]) * (alpha[i] * am[i]) + n[i] * aliw[i];
       const float score = rp + t - n_valid * logS - H1 * ld + dir_const;
       if (leader) {
         const size_t o = ((size_t)e * p.rrec + rec) * p.K + k;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
         for (int i = 0; i < I; ++i) p.psi_out[o * I + i] = psi[i];
         p.loglik_out[o] = score;
       }
@@ -313,7 +318,7 @@ __global__ void __launch_bounds__(128) reassign_kernel(const Params p) {
   }
   if (leader) {
     p.acc_out[warp] = accepted;
-#pragma unroll
+#pragma unroll (I > 64 ? 1 : I)
     for (int i = 0; i < I; ++i) {
       p.final_n[(size_t)warp * I + i] = n[i];
       p.final_psi[(size_t)warp * I + i] = psi[i];
@@ -349,6 +354,8 @@ extern "C" int miso_reassign(
     case 16: reassign_kernel<16><<<blocks, threads, 0, s>>>(p); break;
     case 32: reassign_kernel<32><<<blocks, threads, 0, s>>>(p); break;
     case 64: reassign_kernel<64><<<blocks, threads, 0, s>>>(p); break;
+    case 128: reassign_kernel<128><<<blocks, threads, 0, s>>>(p); break;
+    case 256: reassign_kernel<256><<<blocks, threads, 0, s>>>(p); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -17,12 +17,16 @@ copied verbatim into ``_host.py``.  The device half is torch:
 
 ``--convergent`` runs each bucket through ``sampler/convergent.py``
 instead, synchronously on the dispatch thread.  ``--linear-start`` seeds
-every chain of either stop rule with the host NNLS start.
+every chain of either stop rule with the host NNLS start.  A REASSIGN
+bucket of more than ``DEEP_READS`` reads builds no per-read tiles and
+runs the multinomial Gibbs step (``sampler/deep.py``), as the JAX
+package does.
 
-The port runs single-end events with every algorithm, either start and
-either stop rule, with full ``.miso`` output or ``--summary-only``.
-Every other mode raises ``NotImplementedError`` naming the ROADMAP item
-that will add it.
+The port runs single-end and paired-end events with every algorithm,
+either start and either stop rule, with full ``.miso`` output,
+``--summary-only`` or ``--pack-output``, under ``--profile`` too.  A
+bucket wider than the kernels' widest instance (``KERNEL_ISO``) on the
+card raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -42,10 +46,12 @@ from miso_tpu.io import sam as sam_io
 from miso_tpu.io.index import get_gene_ids_to_filenames
 from miso_tpu.io.settings import Settings
 from miso_tpu_torch._host import (RunConfig, _CompileStream, _LazyResult,
-                                  _ci_bound_indices, _write_events_batch)
+                                  _ci_bound_indices, _pack_events_batch,
+                                  _write_events_batch)
 from miso_tpu_torch.quantize import (quantize_psi, quantize_scores,
                                      summary_stats)
 from miso_tpu_torch.sampler.convergent import run_batch_convergent
+from miso_tpu_torch.sampler.deep import run_batch_multinomial
 from miso_tpu_torch.sampler.marginal_kernel import run_batch_marginal
 from miso_tpu_torch.sampler.mcmc import (EventBatch, SamplerConfig,
                                          _pow2_pad_events, batch_from_numpy)
@@ -53,20 +59,10 @@ from miso_tpu_torch.sampler.reassign_kernel import (KERNEL_ISO,
                                                     run_batch_reassign)
 
 # Above this many reads a REASSIGN bucket takes the multinomial Gibbs
-# step in the JAX package (pipeline.py:460); the port has no such step
-# yet.  MARGINAL and CLASSES read no per-read tiles at any depth.
+# step and builds no per-read tiles, as in the JAX package
+# (pipeline.py:460).  MARGINAL and CLASSES read no per-read tiles at any
+# depth.
 DEEP_READS = 16384
-
-
-def check_slice(cfg: RunConfig) -> None:
-    """Raise NotImplementedError for a run the port cannot do yet."""
-    todo = []
-    if cfg.paired_end:
-        todo.append("--paired-end (ROADMAP A.7)")
-    if cfg.pack_output:
-        todo.append("--pack-output (ROADMAP A.12)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + ", ".join(todo))
 
 
 def resolve_device(device) -> torch.device:
@@ -119,10 +115,13 @@ def _expand_read_tensors(weights, log_read, counts, R: int):
 def run_sampler(seed: int, batch: EventBatch, cfg: SamplerConfig,
                 start_psi, pad_reads: int):
     """One sampler run over a padded torch batch on its device: MARGINAL
-    and CLASSES read the class tensors only; REASSIGN first expands
-    ``pad_reads`` per-read slots on the device."""
+    and CLASSES read the class tensors only, and so does REASSIGN above
+    ``DEEP_READS`` reads (the multinomial Gibbs step); shallower REASSIGN
+    buckets first expand ``pad_reads`` per-read slots on the device."""
     if cfg.algorithm in ("marginal", "classes"):
         return run_batch_marginal(seed, batch, cfg, start_psi=start_psi)
+    if pad_reads > DEEP_READS:
+        return run_batch_multinomial(seed, batch, cfg, start_psi=start_psi)
     rw, rls = _expand_read_tensors(batch.weights, batch.log_read,
                                    batch.counts, pad_reads)
     return run_batch_reassign(
@@ -164,7 +163,6 @@ class StreamRunner:
 
     def __init__(self, cfg: RunConfig, seed: int = 0, device="cuda",
                  bucket_stats: Optional[list] = None, on_chunk=None):
-        check_slice(cfg)
         self.cfg = cfg
         self.seed = seed
         self.device = resolve_device(device)
@@ -249,11 +247,10 @@ class StreamRunner:
     def _dispatch(self, key, evs, tags) -> None:
         cfg = self.cfg
         pad_iso, pad_classes, pad_reads = key
-        if pad_reads > DEEP_READS and cfg.algorithm == "reassign":
-            raise NotImplementedError(
-                "not ported yet: REASSIGN events with more than %d reads "
-                "(the multinomial Gibbs step, ROADMAP A.10)" % DEEP_READS)
-        if self.device.type == "cuda" and pad_iso not in KERNEL_ISO:
+        # a deep REASSIGN bucket runs no kernel (run_sampler)
+        deep = pad_reads > DEEP_READS and cfg.algorithm == "reassign"
+        if (self.device.type == "cuda" and not deep
+                and pad_iso not in KERNEL_ISO):
             raise NotImplementedError(
                 "not ported yet: events with more than %d isoforms on the "
                 "CUDA kernels (ROADMAP B1, B2)" % max(KERNEL_ISO))
@@ -471,6 +468,25 @@ def run_events(events: List[CompiledEvent], cfg: RunConfig, seed: int = 0,
     return out
 
 
+def profile_run(fn, profile_dir: str, device, verbose: bool = True):
+    """Run ``fn()`` under ``torch.profiler`` -- host calls, and the card's
+    kernels and copies when ``device`` is CUDA -- and write the Chrome
+    trace into ``profile_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.device(device).type == "cuda"
+    os.makedirs(profile_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        fn()
+        if cuda:
+            torch.cuda.synchronize()
+    path = os.path.join(profile_dir, "miso_torch_trace.json")
+    prof.export_chrome_trace(path)
+    if verbose:
+        print("torch.profiler trace written to %s" % path)
+
+
 def compute_all_genes_psi(
     index_dir: str,
     alignments_path: str,
@@ -482,14 +498,21 @@ def compute_all_genes_psi(
     seed: int = 0,
     verbose: bool = True,
     device="cuda",
+    profile_dir: Optional[str] = None,
 ) -> int:
     """The ``miso --run`` engine on one device.  Returns the number of
-    events written.  A copy of pipeline.py:1304-1567 without the mesh,
-    the profiler and the multi-host labels (ROADMAP A.11, A.12)."""
+    events written.  A copy of pipeline.py:1304-1567 without the mesh
+    and the multi-host labels (ROADMAP A.11).  ``profile_dir`` wraps the
+    run's consume loop in ``torch.profiler`` and writes a Chrome trace
+    there (pipeline.py:1492-1497 does it with ``jax.profiler``)."""
     from miso_tpu.io.sanity import check_gff_and_bam, setup_logger
 
     settings = settings or Settings.get()
     cfg = cfg or RunConfig.from_settings(settings, read_len)
+    if cfg.summary_only and cfg.pack_output:
+        raise ValueError(
+            "--pack-output and --summary-only conflict: summary-only "
+            "runs store no posterior samples to pack")
     if cfg.summary_only:
         n_s = ((cfg.iters - cfg.burn_in) // cfg.lag) * cfg.chains
         if _ci_bound_indices(n_s) is None:
@@ -524,6 +547,10 @@ def compute_all_genes_psi(
     progress = {"done": 0, "t_last": t0}
     from miso_tpu.io.miso_file import summary_row_fields
     summary_rows: Dict[str, str] = {}
+    packer = None
+    if cfg.pack_output and not cfg.summary_only:
+        from miso_tpu.io.miso_db import DirectPacker
+        packer = DirectPacker(output_dir)
 
     def on_chunk(evs, results):
         rows_local = {}
@@ -534,7 +561,12 @@ def compute_all_genes_psi(
             if fields is not None:
                 rows_local[ev.name] = "\t".join(fields)
         with write_lock:
-            if not cfg.summary_only:
+            if packer is not None:
+                for lo in range(0, len(evs), 512):
+                    write_futures.append(write_pool.submit(
+                        _pack_events_batch, packer, cfg,
+                        evs[lo:lo + 512], results[lo:lo + 512]))
+            elif not cfg.summary_only:
                 for lo in range(0, len(evs), 512):
                     write_futures.append(write_pool.submit(
                         _write_events_batch, output_dir, cfg,
@@ -560,7 +592,8 @@ def compute_all_genes_psi(
             or _native.load() is None):
         workers = settings.get_num_processors() or 1
     stream = _CompileStream(items, alignments, cfg, output_dir, verbose,
-                            emit=ev_queue.put, workers=workers, done=None)
+                            emit=ev_queue.put, workers=workers,
+                            done=packer.done_names if packer else None)
 
     def produce():
         t = time.time()
@@ -602,12 +635,17 @@ def compute_all_genes_psi(
         runner.finish()
 
     try:
-        consume()
+        if profile_dir:
+            profile_run(consume, profile_dir, device, verbose)
+        else:
+            consume()
         written = 0
         for f in write_futures:
             written += f.result()
     finally:
         write_pool.shutdown()
+    if packer is not None:
+        packer.finish()
     if summary_rows or stream.resume_skipped:
         from miso_tpu.io.miso_file import write_summary_file
         label = os.path.basename(os.path.normpath(output_dir))

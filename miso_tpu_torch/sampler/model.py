@@ -5,7 +5,8 @@ citations: pysplicing/src/miso.c:97-307).  The functions keep the JAX
 shapes for one (event, chain) -- alpha (I-1,), psi (I,) -- and also take
 leading batch dimensions.  This module is the psi-space oracle for the
 alpha-space arithmetic of the REASSIGN kernel and its plain version
-(``reassign_kernel.py``); the main path does not call it.
+(``reassign_kernel.py``).  Of it, only ``gibbs_reassign`` runs on a main
+path: the Gibbs step of deep REASSIGN events (``deep.py``).
 
 Contractions stay elementwise sums (never ``@``): see ``score_marginal``.
 """
@@ -135,3 +136,42 @@ def gibbs_reassign_perread(u, psi, read_w, read_logscore,
     n = onehot.sum(-2)
     read_prob = (onehot * read_logscore.to(psi.dtype)).sum((-1, -2))
     return n, read_prob
+
+
+def gibbs_reassign(psi, weights, counts, generator=None):
+    """Per-class multinomial reassignment (pysplicing/src/miso.c:30-91):
+    the counts_c reads of class c each take isoform j with probability
+    p_cj = psi_j W_cj / sum_j psi_j W_cj, so the class's assignment counts
+    are multinomial.  psi (..., I), weights (..., C, I), counts (..., C)
+    -> draws (..., C, I).
+
+    The semantics of ``jax.random.multinomial`` as the JAX version calls
+    it: chained binomials over the isoforms with ratio_j = p_j / (sum of
+    p over isoforms j and after), 1 as divisor where that mass is 0,
+    clipped to [0, 1].  The last isoform of nonzero p has ratio exactly 1
+    and takes the remainder, so every class sums exactly to its count.
+    Classes with no compatible isoform draw zero.  The reverse sum is an
+    ordered loop over the short isoform axis, not ``torch.cumsum``."""
+    p = psi[..., None, :] * weights                        # (..., C, I)
+    I = p.shape[-1]
+    tot = p[..., 0]
+    for j in range(1, I):
+        tot = tot + p[..., j]
+    valid = tot > 0
+    zero = torch.zeros_like(tot)
+    probs = torch.where(valid[..., None],
+                        p / torch.where(valid, tot, 1.0)[..., None], 0.0)
+    rest = [probs[..., I - 1]]                             # reversed
+    for j in range(I - 2, -1, -1):
+        rest.append(probs[..., j] + rest[-1])
+    rest.reverse()
+    remainder = torch.where(valid, counts.to(p.dtype), zero).expand(
+        tot.shape).contiguous()
+    draws = []
+    for j in range(I):
+        ratio = (probs[..., j] / torch.where(rest[j] == 0, 1.0, rest[j])
+                 ).clamp(0.0, 1.0)
+        c = torch.binomial(remainder, ratio, generator=generator)
+        draws.append(c)
+        remainder = remainder - c
+    return torch.stack(draws, -1)

@@ -10,7 +10,9 @@ takes the same batch, ``start_psi`` (E, K, I) and result layout.
   (event, chain) lanes with a Python loop over iterations.  It computes
   what the kernel computes, in the same alpha-space form as the TPU
   kernel (``pallas_kernel.py:177-197,293-297``), and ``chip_smoke.py``
-  holds the kernel against it on the card.
+  holds the kernel against it on the card.  Its MH chain
+  (``_mh_chain``) takes the Gibbs step as a parameter: the deep route
+  (``deep.py``) runs the same chain around the multinomial step.
 
 What bounds the kernel on an H100: Philox and compare work over the R
 reads of every step (integer and FP32 ALU), no tensor-core work, and
@@ -36,8 +38,9 @@ FIXED_U = 0.4999
 NEG_BIG = -1e30
 TWO_PI = 2.0 * math.pi
 _U24 = 2.0 ** -24
-# the isoform widths the kernel is instantiated for (bucketed I)
-KERNEL_ISO = (2, 3, 4, 6, 8, 16, 32, 64)
+# the isoform widths both kernels are instantiated for: every bucketed I
+# (core/events._round_up_iso) of a gene with up to 256 isoforms
+KERNEL_ISO = (2, 3, 4, 6, 8, 16, 32, 64, 128, 256)
 
 
 def _event_consts(batch: EventBatch):
@@ -136,6 +139,19 @@ def _result(psi_out, ll_out, acc, final_n, final_psi, cfg):
         final_n=final_n, final_psi=final_psi)
 
 
+def _uniforms(seed, dev, fixed_uniform):
+    """(generator, uniform(*shape)) of a plain-version run: f32 uniforms
+    in [0, 1) from a ``torch.Generator`` seeded with ``seed``, or
+    ``fixed_uniform`` everywhere (generator None)."""
+    if fixed_uniform is not None:
+        return None, lambda *shape: torch.full(
+            shape, fixed_uniform, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed) % (1 << 63))
+    return gen, lambda *shape: torch.rand(
+        shape, generator=gen, dtype=torch.float32, device=dev)
+
+
 def _reassign_plain(seed, batch, cfg, consts, start_psi=None,
                     fixed_uniform=None) -> SamplerResult:
     """Plain PyTorch version of the kernel, batched over (E, K) lanes on
@@ -146,43 +162,11 @@ def _reassign_plain(seed, batch, cfg, consts, start_psi=None,
     E, R, I = batch.read_w.shape
     K = cfg.chains
     dev = batch.read_w.device
-    gen = None
-    if fixed_uniform is None:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed) % (1 << 63))
-
-    def uniform(*shape):
-        if gen is None:
-            return torch.full(shape, fixed_uniform, dtype=f32, device=dev)
-        return torch.rand(shape, generator=gen, dtype=f32, device=dev)
-
-    log_iso_w, h, amask, iso_mask, last, scal = (c[:, None] for c in consts)
+    gen, uniform = _uniforms(seed, dev, fixed_uniform)
     rw = batch.read_w.to(f32)[:, None]                 # (E, 1, R, I)
     rls = batch.read_logscore.to(f32)[:, None]
-    ns = scal[..., 0:1]                                # (E, 1, 1)
-    dir_const = scal[..., 1]                           # (E, 1)
-    real = iso_mask > 0
-    zero = torch.zeros_like(iso_mask)
-    eiw = torch.exp(log_iso_w) * iso_mask
-    a_liw = torch.where(real, log_iso_w, zero)
-    h1 = torch.where(real, h - 1.0, zero)
-    H1 = h1.sum(-1)
-    km1 = amask.sum(-1)
-    kk = km1 + 1.0
     valid = rw.sum(-1) > 0                             # (E, 1, R)
-    n_valid = valid.sum(-1).to(f32)                    # (E, 1)
     iso = torch.arange(I, device=dev)
-    H = (I + 1) // 2
-
-    def normal_rows():
-        u1 = uniform(E, K, H).clamp_min(_U24)
-        u2 = uniform(E, K, H)
-        r = torch.sqrt(-2.0 * torch.log(u1))
-        ang = TWO_PI * u2
-        return torch.cat([r * torch.cos(ang), r * torch.sin(ang)], -1)[..., :I]
-
-    def stats(alpha):
-        return _stats(alpha, amask, last, eiw)
 
     def gibbs(psi, want_rp):
         # cumulative weights over isoforms, summed in order as the kernel
@@ -203,6 +187,44 @@ def _reassign_plain(seed, batch, cfg, consts, start_psi=None,
         rp = ((onehot * rls).sum((-1, -2)) if want_rp
               else torch.zeros((E, K), dtype=f32, device=dev))
         return n, rp
+
+    return _mh_chain(cfg, consts, start_psi, uniform, gibbs,
+                     valid.sum(-1).to(f32))
+
+
+def _mh_chain(cfg, consts, start_psi, uniform, gibbs, n_valid):
+    """The REASSIGN chain of every (E, K) lane in the alpha-space form of
+    the kernel, around a Gibbs step: ``gibbs(psi, want_rp)`` returns the
+    per-isoform counts n (E, K, I) and, when a record will read it, the
+    read score rp (E, K).  ``n_valid`` (E, 1) is the reads that count
+    into some isoform; ``uniform(*shape)`` draws the proposal and accept
+    uniforms."""
+    f32 = torch.float32
+    log_iso_w, h, amask, iso_mask, last, scal = (c[:, None] for c in consts)
+    E, _, I = log_iso_w.shape
+    K = cfg.chains
+    dev = log_iso_w.device
+    ns = scal[..., 0:1]                                # (E, 1, 1)
+    dir_const = scal[..., 1]                           # (E, 1)
+    real = iso_mask > 0
+    zero = torch.zeros_like(iso_mask)
+    eiw = torch.exp(log_iso_w) * iso_mask
+    a_liw = torch.where(real, log_iso_w, zero)
+    h1 = torch.where(real, h - 1.0, zero)
+    H1 = h1.sum(-1)
+    km1 = amask.sum(-1)
+    kk = km1 + 1.0
+    H = (I + 1) // 2
+
+    def normal_rows():
+        u1 = uniform(E, K, H).clamp_min(_U24)
+        u2 = uniform(E, K, H)
+        r = torch.sqrt(-2.0 * torch.log(u1))
+        ang = TWO_PI * u2
+        return torch.cat([r * torch.cos(ang), r * torch.sin(ang)], -1)[..., :I]
+
+    def stats(alpha):
+        return _stats(alpha, amask, last, eiw)
 
     if start_psi is not None:
         sp = start_psi.to(f32)

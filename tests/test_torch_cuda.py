@@ -14,7 +14,9 @@ import torch
 from miso_tpu_torch.sampler import marginal_kernel as mk
 from miso_tpu_torch.sampler import reassign_kernel as rk
 from miso_tpu_torch.sampler.mcmc import SamplerConfig
-from miso_tpu_torch.testing import lane_test_batch, marginal_lane_batch
+from miso_tpu_torch.testing import (PAIRED_GENE, lane_test_batch,
+                                    marginal_lane_batch, padded_batch,
+                                    paired_event)
 
 pytestmark = pytest.mark.cuda
 
@@ -30,10 +32,22 @@ def cuda():
     return torch.device("cuda")
 
 
+def _assert_same_chain(got, ref):
+    got, ref = got.to_numpy(), ref.to_numpy()
+    np.testing.assert_allclose(got.psi_samples, ref.psi_samples, rtol=0,
+                               atol=PSI_ATOL)
+    np.testing.assert_allclose(got.loglik, ref.loglik, rtol=0, atol=LL_ATOL)
+    np.testing.assert_allclose(got.final_n, ref.final_n, rtol=0,
+                               atol=N_ATOL)
+    np.testing.assert_allclose(got.final_psi, ref.final_psi, rtol=0,
+                               atol=PSI_ATOL)
+    np.testing.assert_array_equal(got.accepted, ref.accepted)
+
+
 # (I, num_iso): every width the kernel is built for, some with padded
 # isoforms
 WIDTHS = [(2, 2), (3, 3), (4, 3), (6, 5), (8, 8), (16, 9), (32, 17),
-          (64, 33)]
+          (64, 33), (128, 70), (256, 130)]
 
 
 @pytest.mark.parametrize("given", [False, True])
@@ -48,19 +62,13 @@ def test_kernel_matches_plain_fixed_uniform(cuda, I, num_iso, given):
             np.ones(num_iso), size=(2, 2))
         start = torch.from_numpy(sp).to(cuda)
     ref = rk._reassign_plain(0, batch, cfg, rk._event_consts(batch), start,
-                             rk.FIXED_U).to_numpy()
+                             rk.FIXED_U)
     launches = rk.LAUNCHES["cuda"]
     got = rk.run_batch_reassign(0, batch, cfg, start_psi=start,
                                 fixed_uniform=rk.FIXED_U)
     torch.cuda.synchronize()
     assert rk.LAUNCHES["cuda"] == launches + 1
-    got = got.to_numpy()
-    np.testing.assert_allclose(got.psi_samples, ref.psi_samples, rtol=0,
-                               atol=PSI_ATOL)
-    np.testing.assert_allclose(got.loglik, ref.loglik, rtol=0, atol=LL_ATOL)
-    np.testing.assert_allclose(got.final_n, ref.final_n, rtol=0,
-                               atol=N_ATOL)
-    np.testing.assert_array_equal(got.accepted, ref.accepted)
+    _assert_same_chain(got, ref)
 
 
 def test_kernel_rejects_bad_input(cuda):
@@ -90,19 +98,13 @@ def test_marginal_kernel_matches_plain_fixed_uniform(cuda, I, num_iso,
             np.ones(num_iso), size=(2, 2))
         start = torch.from_numpy(sp).to(cuda)
     ref = mk._marginal_plain(0, batch, cfg, mk._marginal_consts(batch),
-                             start, mk.FIXED_U).to_numpy()
+                             start, mk.FIXED_U)
     launches = mk.LAUNCHES["cuda"]
     got = mk.run_batch_marginal(0, batch, cfg, start_psi=start,
                                 fixed_uniform=mk.FIXED_U)
     torch.cuda.synchronize()
     assert mk.LAUNCHES["cuda"] == launches + 1
-    got = got.to_numpy()
-    np.testing.assert_allclose(got.psi_samples, ref.psi_samples, rtol=0,
-                               atol=PSI_ATOL)
-    np.testing.assert_allclose(got.loglik, ref.loglik, rtol=0, atol=LL_ATOL)
-    np.testing.assert_allclose(got.final_psi, ref.final_psi, rtol=0,
-                               atol=PSI_ATOL)
-    np.testing.assert_array_equal(got.accepted, ref.accepted)
+    _assert_same_chain(got, ref)
 
 
 def test_marginal_kernel_rejects_bad_input(cuda):
@@ -120,3 +122,27 @@ def test_marginal_kernel_rejects_bad_input(cuda):
             (3, 3, 2), device=cuda))
     with pytest.raises(ValueError, match="takes I in"):
         mk.run_batch_marginal(0, marginal_lane_batch(5, 5, 0, cuda), cfg)
+
+
+@pytest.mark.parametrize("algorithm", ["reassign", "marginal"])
+@pytest.mark.parametrize("iters", [24, 5000])
+def test_kernels_match_plain_on_paired_events(cuda, algorithm, iters):
+    """Paired-end tiles (tests/test_pallas.py:230-235): fragment-
+    probability weights, log_iso_w = assscores near 11 and non-zero read
+    scores, on a small schedule and on the stock 5000 x 6 one."""
+    ev = paired_event(*PAIRED_GENE, [0.6, 0.4], 400, 40, 250.0, 15.0,
+                      seed=11)
+    batch = padded_batch([ev] * 2, cuda)
+    cfg = (SamplerConfig(iters=24, burn_in=6, lag=3, chains=2,
+                         algorithm=algorithm) if iters == 24
+           else SamplerConfig(algorithm=algorithm))
+    if algorithm == "reassign":
+        ref = rk._reassign_plain(0, batch, cfg, rk._event_consts(batch),
+                                 None, rk.FIXED_U)
+        got = rk.run_batch_reassign(0, batch, cfg, fixed_uniform=rk.FIXED_U)
+    else:
+        ref = mk._marginal_plain(0, batch, cfg, mk._marginal_consts(batch),
+                                 None, mk.FIXED_U)
+        got = mk.run_batch_marginal(0, batch, cfg, fixed_uniform=mk.FIXED_U)
+    torch.cuda.synchronize()
+    _assert_same_chain(got, ref)

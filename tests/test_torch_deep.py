@@ -1,0 +1,183 @@
+"""The port's deep REASSIGN route (miso_tpu_torch/sampler/deep.py and the
+multinomial Gibbs step ``model.gibbs_reassign``) against the JAX package
+on the CPU: the cases of tests/test_deep_events.py, the multinomial
+draws' own invariants, and the pipeline's routing of deep and wide
+buckets.
+"""
+import numpy as np
+import pytest
+import torch
+
+from exact_posterior import exact_posterior_mean_2iso
+from miso_tpu.core.events import pad_events
+import miso_tpu_torch.pipeline as tp
+from miso_tpu_torch._host import RunConfig
+from miso_tpu_torch.sampler import deep
+from miso_tpu_torch.sampler import reassign_kernel as rk
+from miso_tpu_torch.sampler.mcmc import SamplerConfig, batch_from_numpy
+from miso_tpu_torch.sampler.model import gibbs_reassign
+from miso_tpu_torch.testing import class_batch, deepened, simulated_event
+
+
+def _deep_event(scale=500, n_base=2000):
+    """tests/test_deep_events.py::_deep_event: a 2-isoform event of
+    n_base * scale reads (the class counts of n_base simulated reads,
+    scaled).  Returns (shallow, deep)."""
+    ev = simulated_event([100, 50, 100], [[1, 2, 3], [1, 3]], [0.3, 0.7],
+                         n_base, 25, seed=4)
+    return ev, deepened(ev, scale)
+
+
+def test_gibbs_reassign_sums_exactly_and_matches_its_mean():
+    """Each class's draws sum exactly to its count; padded isoforms and
+    a class with no compatible isoform get 0; over N lanes the mean
+    draw is counts * p within 5 binomial standard errors."""
+    N, C, I = 4000, 4, 4
+    psi = torch.tensor([0.5, 0.3, 0.2, 0.0]).expand(N, I)  # isoform 3 pad
+    W = torch.tensor([[1.0, 1.0, 1.0, 0.0],
+                      [0.0, 0.4, 0.9, 0.0],
+                      [0.0, 0.0, 0.0, 0.0],      # incompatible class
+                      [0.2, 0.0, 0.0, 0.0]])
+    counts = torch.tensor([1_000_000.0, 37.0, 50.0, 3.0])
+    gen = torch.Generator().manual_seed(0)
+    draws = gibbs_reassign(psi, W.expand(N, C, I), counts.expand(N, C),
+                           generator=gen)
+    assert draws.shape == (N, C, I)
+    assert torch.equal(draws, draws.round()) and (draws >= 0).all()
+    sums = draws.sum(-1)
+    assert torch.equal(sums[:, [0, 1, 3]], counts[[0, 1, 3]].expand(N, 3))
+    assert (draws[:, 2] == 0).all() and (draws[..., 3] == 0).all()
+    p = (psi[0] * W) / (psi[0] * W).sum(-1, keepdim=True).clamp_min(1e-30)
+    expect = (counts[:, None] * p).numpy()
+    sd = np.sqrt(counts[:, None].numpy() * p.numpy() * (1 - p.numpy()) / N)
+    got = draws.double().mean(0).numpy()
+    assert np.all(np.abs(got - expect) <= 5 * sd + 1e-9), (got, expect)
+
+
+def test_deep_event_skips_per_read_tensors(monkeypatch):
+    """The pipeline pads a million-read bucket without per-read tiles and
+    runs the deep route: _expand_read_tensors is never called and no
+    REASSIGN kernel or plain version launches."""
+    _, ev = _deep_event()
+    assert int(ev.counts.sum()) == 1_000_000
+
+    def refuse(*a, **k):
+        raise AssertionError("per-read tiles built for a deep bucket")
+
+    seen = {}
+    orig = tp.pad_events
+
+    def spy(events, **kw):
+        seen.update(kw)
+        return orig(events, **kw)
+
+    monkeypatch.setattr(tp, "_expand_read_tensors", refuse)
+    monkeypatch.setattr(tp, "pad_events", spy)
+    before = (dict(deep.LAUNCHES), dict(rk.LAUNCHES))
+    cfg = RunConfig(read_len=25, iters=40, burn_in=10, lag=5, chains=2)
+    out = tp.run_events([ev], cfg, seed=0, device="cpu")
+    assert seen["per_read"] is False and seen["pad_reads"] > tp.DEEP_READS
+    assert deep.LAUNCHES["deep"] == before[0]["deep"] + 1
+    assert rk.LAUNCHES == before[1]
+    assert out[0]["psi_ticks"].shape == (12, 2)
+
+
+def test_deep_event_final_counts_sum_to_its_reads():
+    """Every chain's final assignment counts sum exactly to 1,000,000,
+    and the .miso result (chain 0) does too."""
+    _, ev = _deep_event()
+    res = deep.run_batch_multinomial(
+        1, class_batch([ev], "cpu"),
+        SamplerConfig(iters=50, burn_in=10, lag=5, chains=4))
+    np.testing.assert_array_equal(res.final_n.sum(-1).numpy(),
+                                  np.full((1, 4), 1_000_000.0))
+    cfg = RunConfig(read_len=25, iters=50, burn_in=10, lag=5, chains=2)
+    out = tp.run_events([ev], cfg, seed=0, device="cpu")
+    assert float(np.sum(out[0]["final_n"])) == 1_000_000.0
+
+
+def test_deep_event_matches_exact_posterior():
+    """At 1M reads the posterior concentrates; the multinomial route's
+    mean lands within 0.02 of the grid-exact one."""
+    _, ev = _deep_event()
+    exact = exact_posterior_mean_2iso(ev)
+    res = deep.run_batch_multinomial(
+        0, class_batch([ev], "cpu"),
+        SamplerConfig(iters=800, burn_in=200, lag=4, chains=4))
+    mean = float(res.flat_samples()[0, :, 0].mean())
+    assert abs(mean - exact) < 0.02, (mean, exact)
+
+
+def test_multinomial_and_perread_gibbs_agree():
+    """On the shallow event, the multinomial route and the per-read plain
+    version both land within 0.02 of the exact posterior mean."""
+    ev, _ = _deep_event()
+    exact = exact_posterior_mean_2iso(ev)
+    cfg = SamplerConfig(iters=1500, burn_in=300, lag=4, chains=4)
+    per_read, _ = batch_from_numpy(pad_events([ev], read_dtype=np.float32),
+                                   "cpu")
+    means = {
+        "perread": rk.run_batch_reassign(1, per_read, cfg),
+        "multinomial": deep.run_batch_multinomial(
+            1, class_batch([ev], "cpu"), cfg),
+    }
+    for name, res in means.items():
+        mean = float(res.flat_samples()[0, :, 0].mean())
+        assert abs(mean - exact) < 0.02, (name, mean, exact)
+
+
+def test_deep_bucket_runs_under_convergent_stop():
+    _, ev = _deep_event(scale=20)                 # 40,000 reads
+    cfg = RunConfig(read_len=25, iters=60, burn_in=20, lag=5, chains=2,
+                    stop="convergent", max_iters=400)
+    before = deep.LAUNCHES["deep"]
+    out = tp.run_events([ev, ev], cfg, seed=0, device="cpu")
+    assert deep.LAUNCHES["deep"] > before
+    for res in out:
+        assert np.isfinite(res["samples"]).all()
+        assert float(np.sum(res["final_n"])) == 40_000.0
+        assert res["iters"] >= 60
+
+
+def _wide_deep_event(num_iso=70, n_base=300, scale=60):
+    """A gene of ``num_iso`` isoforms (70 of the 128 exon subsets that
+    keep the first and last of 9 exons), n_base simulated reads scaled
+    to n_base * scale."""
+    subsets = [[1] + [2 + b for b in range(7) if m >> b & 1] + [9]
+               for m in range(128)][:num_iso]
+    psi = np.random.default_rng(2).dirichlet(np.ones(num_iso))
+    return deepened(simulated_event([60] * 9, subsets, psi, n_base, 25,
+                                    seed=2), scale)
+
+
+def test_deep_bucket_wider_than_64_isoforms_runs():
+    """A deep bucket of 128 padded isoforms runs (no kernel width
+    applies to the deep route), with padded isoforms at 0."""
+    ev = _wide_deep_event()
+    assert tp._bucket_key(ev)[0] == 128 and tp._bucket_key(ev)[2] > \
+        tp.DEEP_READS
+    cfg = RunConfig(read_len=25, iters=20, burn_in=10, lag=5, chains=2)
+    out = tp.run_events([ev], cfg, seed=0, device="cpu")
+    assert out[0]["psi_ticks"].shape == (4, 70)
+    assert float(np.sum(out[0]["final_n"])) == float(ev.counts.sum())
+    res = deep.run_batch_multinomial(
+        0, class_batch([ev], "cpu"),
+        SamplerConfig(iters=10, burn_in=0, lag=5, chains=2))
+    assert (res.psi_samples[..., 70:] == 0).all()
+    assert (res.final_n[..., 70:] == 0).all()
+
+
+def test_card_refuses_only_shallow_buckets_above_its_widest_kernel():
+    """On a CUDA device, a shallow bucket wider than KERNEL_ISO raises
+    NotImplementedError naming its ROADMAP items before any tensor
+    moves; a deep one is routed past the width check."""
+    cfg = RunConfig(read_len=25, iters=20, burn_in=10, lag=5, chains=2)
+    runner = tp.StreamRunner(cfg, device="cpu")
+    try:
+        runner.device = torch.device("cuda")       # no card needed: the
+        ev, _ = _deep_event(n_base=100, scale=1)   # check raises first
+        with pytest.raises(NotImplementedError, match="ROADMAP B1, B2"):
+            runner._dispatch((512, 2, 128), [ev], [0])
+        assert max(tp.KERNEL_ISO) == 256
+    finally:
+        runner.abort()

@@ -22,6 +22,7 @@ import miso_tpu_torch.pipeline as tp
 from miso_tpu.core.events import _round_up_reads, pad_events
 from miso_tpu.sampler import mcmc as jmcmc
 from miso_tpu_torch._host import RunConfig
+from miso_tpu_torch.sampler import deep
 from miso_tpu_torch.sampler import marginal_kernel as mk
 from miso_tpu_torch.sampler.mcmc import SamplerConfig, batch_from_numpy
 from miso_tpu_torch.testing import (exact_marginal_mean_2iso,
@@ -183,7 +184,8 @@ def test_final_n_is_the_host_assignment_of_chain_0(monkeypatch, algorithm):
 
 def test_deep_marginal_event_runs_without_read_tiles(monkeypatch):
     """MARGINAL over 16,384 reads: no multinomial step is needed and no
-    per-read tile is built (REASSIGN still refuses such buckets)."""
+    per-read tile is built (REASSIGN takes the deep route there, without
+    tiles too)."""
     ev = simulated_event(*SE_GENE, [0.4, 0.6], 17000, 25, seed=3,
                          algorithm="marginal")
     assert _round_up_reads(int(ev.counts.sum())) > tp.DEEP_READS
@@ -198,6 +200,9 @@ def test_deep_marginal_event_runs_without_read_tiles(monkeypatch):
     assert res["psi_ticks"].shape == (60, 2)
     assert abs(res["samples"][:, 0].mean()
                - exact_marginal_mean_2iso(ev)) < 0.03
-    with pytest.raises(NotImplementedError, match="A.10"):
-        tp.run_events([ev], RunConfig(read_len=25, iters=20, burn_in=0,
-                                      lag=1, chains=2), device="cpu")
+    ev_r = simulated_event(*SE_GENE, [0.4, 0.6], 17000, 25, seed=3)
+    launches = deep.LAUNCHES["deep"]
+    res = tp.run_events([ev_r], RunConfig(read_len=25, iters=20, burn_in=0,
+                                          lag=1, chains=2), device="cpu")[0]
+    assert deep.LAUNCHES["deep"] == launches + 1
+    assert float(np.sum(res["final_n"])) == float(ev_r.counts.sum())

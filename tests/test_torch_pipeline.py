@@ -37,7 +37,7 @@ lag = 5
 num_iters = 600
 num_chains = 2
 """
-# posterior means of two independent runs at FAST_SETTINGS (220 samples
+# posterior means of two independent runs at FAST_SETTINGS (200 samples
 # per event) agree to this Monte-Carlo tolerance
 MEAN_TOL = 0.05
 
@@ -117,7 +117,8 @@ def test_quantisation_and_summary_match_jax(I):
 @pytest.mark.parametrize("name", [
     "RunConfig", "chrom_output_dir", "event_output_path",
     "compile_gene_event", "_LazyResult", "_ci_bound_indices",
-    "_write_event", "_iter_bodies", "_write_events_batch", "_CompileStream"])
+    "_write_event", "_iter_bodies", "_write_events_batch",
+    "_pack_events_batch", "_CompileStream"])
 def test_host_copy_has_not_drifted(name):
     """_host.py holds verbatim copies of miso_tpu/pipeline.py objects."""
     assert inspect.getsource(getattr(host, name)) == \
@@ -279,14 +280,57 @@ def test_new_modes_match_jax_cli(catalog, flags):
     _check_truth(means["torch"], catalog[1])
 
 
+def _header_fields(header):
+    fields = header.split("\n", 1)[0].lstrip("#").split("\t")
+    return [x for x in fields
+            if x.split("=", 1)[0] not in ("percent_accept",
+                                          "assigned_counts")]
+
+
+def test_pack_output_matches_jax_cli(catalog):
+    """--pack-output through both CLIs: no .miso tree, and .miso_db
+    files holding the same events with the same headers apart from
+    chain-dependent fields."""
+    from miso_tpu_torch.testing import packed_events
+
+    outs = _run_both(catalog, ["--pack-output"])
+    packed = {}
+    for name, out in outs.items():
+        assert not _miso_files(out)
+        packed[name] = packed_events(out)
+    assert len(packed["torch"]) == N_EVENTS
+    assert sorted(packed["torch"]) == sorted(packed["jax"])
+    for ev, (header, body) in packed["torch"].items():
+        jax_header, jax_body = packed["jax"][ev]
+        # (600 - 100) / 5 samples per chain, 2 chains
+        assert body.count("\n") == jax_body.count("\n") == 200, ev
+        assert _header_fields(header) == _header_fields(jax_header)
+    assert sorted(_summary(outs["torch"])) == sorted(_summary(outs["jax"]))
+
+
+def test_profile_writes_a_trace(catalog, capsys):
+    from miso_tpu_torch.cli.main import main as torch_main
+
+    root, fix, index_dir, settings = catalog
+    trace_dir = root / "trace"
+    assert torch_main(["--run", index_dir, fix["bam"], "--output-dir",
+                       str(root / "profiled"), "--read-len", "36",
+                       "--settings-filename", settings, "--summary-only",
+                       "--profile", str(trace_dir), "--device", "cpu"]) == 0
+    traces = list(trace_dir.glob("*.json"))
+    assert len(traces) == 1 and traces[0].stat().st_size > 0
+    assert str(traces[0]) in capsys.readouterr().out
+    assert len(_summary(str(root / "profiled"))) == N_EVENTS
+
+
 def test_cli_refuses_unported_flags_and_missing_cuda(catalog):
     from miso_tpu_torch.cli.main import main as torch_main
 
     root, fix, index_dir, settings = catalog
     base = ["--run", index_dir, fix["bam"], "--output-dir",
             str(root / "refused"), "--read-len", "36"]
-    for flags in (["--paired-end", "250", "15"], ["--pack-output"],
-                  ["--profile", str(root / "p")], ["--num-hosts", "2"]):
+    for flags in (["--num-hosts", "2"],
+                  ["--coordinator", "localhost:1234"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             torch_main(base + flags + ["--device", "cpu"])
     if not torch.cuda.is_available():
