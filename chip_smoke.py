@@ -5,7 +5,9 @@
 Builds the port's CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, in parallel), holds each against its plain PyTorch
 version -- at the main paths' shapes, at 128 isoforms and on paired-end
-events -- and against the grid-exact posterior, then runs ``miso --run``
+events; the REASSIGN kernel in every layout its launch plan can take
+(lane width T, home of the weights), whose Philox chains must also be
+bit-equal -- and against the grid-exact posterior, then runs ``miso --run``
 through the port (``miso_tpu_torch.cli.main``) at stock sampler
 settings: on a 2,000-gene single-end catalog REASSIGN, MARGINAL with the
 linear start, CLASSES, REASSIGN with convergent stop and REASSIGN with
@@ -19,9 +21,12 @@ one.
 
 The last lines are the deep route's launches and times (it is no
 kernel), ``{"kernels": [...]}`` -- per kernel, its launches in the
-main-path runs, its largest difference from the plain version, and both
-times at the main path's bucket shape -- and ``{"ok": true, "device":
-{...}}``.
+main-path runs, its largest difference from the plain version, both
+times at the main path's bucket shape, and the least time the card could
+take for that launch (``bound_ms``: the larger of bytes over 3.35 TB/s
+and operations over the FP32, integer and issue rates,
+``reassign_bound`` and ``marginal_bound``) -- and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -81,6 +86,18 @@ DEEP_GENES, DEEP_READS_PER_GENE = 16, 20000
 # the threshold measurement: 64 events of ~16,000 reads, B1 at R=16,384
 # against the deep route on the same events
 THRESH_E, THRESH_R = 64, 16384
+# the 2,000-gene REASSIGN run's four launches (512, 1024, 3 and 461
+# events, each padded to a power of two)
+CHUNK_E = (512, 1024, 4, 512)
+# each kernel's time at its main shape before the REASSIGN kernel's
+# redesign (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)
+EARLIER_MS = {"reassign": 90.36, "marginal": 7.44}
+EARLIER_CHUNKS_MS = 111.3    # the four launches together
+EARLIER_THRESH_MS = 404.59   # R=16,384, E=64
+# wider tiles (E, R, I) at which every layout is timed beside the plan's
+WIDE_SHAPES = ((2048, 320, 8), (512, 320, 8), (4, 320, 8), (2048, 1024, 8),
+               (2048, 320, 16), (2048, 640, 4), (1024, 4096, 8),
+               (2048, 320, 32), (1024, 16384, 2))
 
 
 def card() -> str:
@@ -175,10 +192,143 @@ def timed(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def dirichlet_start(num_iso, E, K):
-    """(E, K, num_iso) GIVEN start psi, seeded."""
-    sp = np.random.default_rng(9).dirichlet(np.ones(num_iso), size=(E, K))
-    return torch.as_tensor(sp.astype(np.float32)).to(DEV)
+def dirichlet_start(num_iso, E, K, pad_iso=None):
+    """(E, K, pad_iso) GIVEN start psi over ``num_iso`` real isoforms,
+    seeded."""
+    sp = np.zeros((E, K, pad_iso or num_iso), np.float32)
+    sp[..., :num_iso] = np.random.default_rng(9).dirichlet(
+        np.ones(num_iso), size=(E, K))
+    return torch.from_numpy(sp).to(DEV)
+
+
+def in_plan(seed, batch, cfg, plan, start=None, fixed=False):
+    """The REASSIGN kernel in one layout of its launch plan."""
+    return rk._reassign_cuda(seed, batch, cfg, rk._event_consts(batch),
+                             start, fixed, plan=plan)
+
+
+def tag(plan):
+    return "T=%d %s" % (plan.T, plan.home)
+
+
+def sliced(batch, E):
+    """The first E events of a batch."""
+    return EventBatch(*[t[:E].contiguous() for t in batch])
+
+
+def reassign_layouts(big, big_ref, pb, gpu):
+    """The REASSIGN kernel in every layout its plan can take: equal to
+    the plain version under fixed uniforms, one Philox chain whatever
+    the layout, and each layout's time.  Returns the numbers kept."""
+    small = SamplerConfig(**SMALL)
+    K = small.chains
+    max_err = 0.0
+    print("REASSIGN layouts, fixed uniforms (R=16 with padded reads, AUTO "
+          "and GIVEN):")
+    for I, num_iso in ((2, 2), (3, 3), (8, 5), (128, 70)):
+        b = lane_test_batch(I, num_iso, I, DEV)
+        consts = rk._event_consts(b)
+        seen = set()
+        for given in (False, True):
+            start = dirichlet_start(num_iso, 2, K, I) if given else None
+            ref = rk._reassign_plain(0, b, small, consts, start, rk.FIXED_U)
+            for plan in rk.all_plans(*b.read_w.shape, K):
+                got = in_plan(0, b, small, plan, start, True)
+                torch.cuda.synchronize()
+                max_err = max(max_err, compare(
+                    "I=%d %s %s" % (I, "GIVEN" if given else "AUTO",
+                                    tag(plan)), got, ref))
+                seen.add((plan.T, plan.home))
+        if seen != {(T, h) for T in rk.LANE_THREADS for h in rk.HOMES}:
+            raise AssertionError("I=%d: layouts run %s" % (I, sorted(seen)))
+    # deeper tiles: several groups of reads per thread
+    print("REASSIGN layouts, fixed uniforms, paired-end R=%d and the main "
+          "shape:" % pb.read_w.shape[1])
+    ref = rk._reassign_plain(0, pb, small, rk._event_consts(pb), None,
+                             rk.FIXED_U)
+    for plan in rk.all_plans(*pb.read_w.shape, K):
+        got = in_plan(0, pb, small, plan, None, True)
+        torch.cuda.synchronize()
+        max_err = max(max_err, compare("paired-end " + tag(plan), got, ref))
+    E, R, I = big.read_w.shape
+    plans = rk.all_plans(E, R, I, STOCK.chains)
+    chosen = rk.launch_plan(E, R, I, STOCK.chains)
+    if chosen.T >= 32 or chosen.home != "shared" or chosen not in plans:
+        raise AssertionError("main shape plan: %s" % (chosen,))
+    for plan in plans:
+        got = in_plan(0, big, STOCK, plan, None, True)
+        torch.cuda.synchronize()
+        max_err = max(max_err, compare("main shape " + tag(plan), got,
+                                       big_ref))
+    # Philox: the chain does not depend on the layout
+    print("REASSIGN layouts, Philox at the main shape (I=%d R=%d E=%d, "
+          "%d x %d): psi, final_n and acceptance bit-equal to the chosen "
+          "plan's (%s); times  [%s]" % (I, R, E, STOCK.iters, STOCK.chains,
+                                        tag(chosen), gpu))
+    first = in_plan(11, big, STOCK, chosen).to_numpy()
+    layout_ms = {}
+    for plan in plans:
+        got = in_plan(11, big, STOCK, plan).to_numpy()
+        same = (np.array_equal(got.psi_samples, first.psi_samples)
+                and np.array_equal(got.final_n, first.final_n)
+                and np.array_equal(got.accepted, first.accepted))
+        dll = float(np.abs(got.loglik - first.loglik).max())
+        ms = timed(lambda: in_plan(11, big, STOCK, plan), reps=2)
+        layout_ms[tag(plan)] = ms
+        print("  %-16s bit-equal %s  max|dll| %.3g  %8.2f ms  %d threads a "
+              "block%s"
+              % (tag(plan), same, dll, ms, plan.threads,
+                 "  <- chosen" if plan == chosen else ""))
+        if not same or dll > LL_ATOL:
+            raise AssertionError("Philox chain depends on the layout: %s"
+                                 % (plan,))
+    # the main path's four launches, one after the other
+    chunk_ms = [timed(lambda: rk.run_batch_reassign(3, sliced(big, e),
+                                                    STOCK), reps=2)
+                for e in CHUNK_E]
+    print("REASSIGN at the main path's chunk sizes E=%s: %s ms, %.2f ms in "
+          "all (earlier kernel: %.1f ms)  [%s]"
+          % (list(CHUNK_E), ["%.2f" % m for m in chunk_ms], sum(chunk_ms),
+             EARLIER_CHUNKS_MS, gpu))
+    # every layout at every chunk size: what the plan's rule rests on
+    print("REASSIGN ms by layout and E (stock schedule)  [%s]" % gpu)
+    sizes = sorted(set(CHUNK_E))
+    for plan in plans:
+        row = [timed(lambda: in_plan(3, sliced(big, e), STOCK, plan), reps=2)
+               for e in sizes]
+        print("  %-16s %s" % (tag(plan), "  ".join(
+            "E=%d %7.2f" % (e, m) for e, m in zip(sizes, row))))
+    return {"max_err": max_err, "layout_ms": layout_ms,
+            "chunk_ms": chunk_ms, "wide_ms": wide_layouts(gpu)}
+
+
+def wide_layouts(gpu):
+    """Every layout at tiles wider or deeper than the main shape's: I=8
+    at three launch sizes (the plan takes T=4, 16 and 32 there), shapes
+    where the narrowest lane's tiles would crowd an SM's shared memory
+    and the plan widens the lane (I=8 at R=1024, I=32), and deep tiles
+    of which an SM holds one (I=8 at R=4096, I=2 at R=16,384).  Returns
+    {shape: {layout: ms}} and prints how far the chosen layout is from
+    the fastest."""
+    cfg = SamplerConfig(iters=1000, burn_in=100, lag=10, chains=6)
+    out = {}
+    print("REASSIGN ms by layout at wide tiles, %d x %d  [%s]"
+          % (cfg.iters, cfg.chains, gpu))
+    for E, R, I in WIDE_SHAPES:
+        b = lane_test_batch(I, I - 3, 21, DEV, E=E, R=R)
+        chosen = rk.launch_plan(E, R, I, cfg.chains)
+        row = {}
+        for plan in rk.all_plans(E, R, I, cfg.chains):
+            in_plan(5, b, cfg, plan)
+            row[tag(plan)] = timed(lambda: in_plan(5, b, cfg, plan), reps=2)
+        best = min(row, key=row.get)
+        out["I=%d R=%d E=%d" % (I, R, E)] = row
+        print("  I=%d R=%d E=%d: %s; chosen %s %.2f ms, fastest %s %.2f ms "
+              "(chosen / fastest %.3f)"
+              % (I, R, E, ", ".join("%s %.2f" % kv for kv in row.items()),
+                 tag(chosen), row[tag(chosen)], best, row[best],
+                 row[tag(chosen)] / row[best]))
+    return out
 
 
 class Launches:
@@ -331,6 +481,35 @@ def three_iso(name, results, cfg):
                              % name)
 
 
+def threshold_events(scale=8):
+    """THRESH_E events of 2,000 reads, each class count times ``scale``:
+    16,000 reads each at the default, just under pipeline.DEEP_READS."""
+    rng = np.random.default_rng(3)
+    return [deepened(simulated_event(*SE_GENE, [p, 1.0 - p], 2000, 36,
+                                     seed=300 + i), scale)
+            for i, p in enumerate(rng.uniform(0.05, 0.95, THRESH_E))]
+
+
+def threshold_times(thr_rb, gpu):
+    """{home: ms} of the REASSIGN kernel at R=16,384 on THRESH_E events,
+    stock schedule, in each home its lane width can take."""
+    E, R, I = thr_rb.read_w.shape
+    chosen = rk.launch_plan(E, R, I, STOCK.chains)
+    out = {}
+    for plan in rk.all_plans(E, R, I, STOCK.chains):
+        if plan.T != chosen.T:
+            continue
+        in_plan(5, thr_rb, SamplerConfig(iters=10, burn_in=0, lag=5), plan)
+        out[plan.home] = timed(lambda: in_plan(5, thr_rb, STOCK, plan),
+                               reps=1)
+    print("REASSIGN at R=%d E=%d, %d x %d: %s; chosen %s (earlier kernel: "
+          "%.2f ms)  [%s]"
+          % (R, E, STOCK.iters, STOCK.chains,
+             ", ".join("%s %.2f ms" % kv for kv in out.items()), tag(chosen),
+             EARLIER_THRESH_MS, gpu))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -347,7 +526,7 @@ def main() -> int:
         "library already built" if nvcc_s is None
         else "nvcc %.2fs" % nvcc_s, time.time() - t))
     # ptxas -v: per kernel and isoform width I, registers and spills
-    entry = None
+    entry, registers = None, {}
     for line in kernels.BUILD_INFO["log"].splitlines():
         m = re.search(r"entry function '\S*?(reassign|marginal)_kernelILi"
                       r"(\d+)E", line)
@@ -355,6 +534,14 @@ def main() -> int:
             entry = "%s I=%s" % m.groups()
         elif entry and ("spill" in line or "registers" in line):
             print("  %s: %s" % (entry, line.split(":", 1)[-1].strip()))
+            used = re.search(r"Used (\d+) registers", line)
+            if used and entry.startswith("reassign"):
+                registers[int(entry.split("=")[1])] = int(used.group(1))
+    # the launch plan reckons an SM's resident blocks from these
+    if registers and registers != rk.KERNEL_REGISTERS:
+        raise AssertionError("ptxas gave the REASSIGN kernel %s registers, "
+                             "reassign_kernel.KERNEL_REGISTERS says %s"
+                             % (registers, rk.KERNEL_REGISTERS))
 
     # -- 2. fixed uniforms: each kernel follows its plain version's chain
     print("fixed-uniform match, kernel vs plain version on the card:")
@@ -368,9 +555,20 @@ def main() -> int:
                 *both(0, b, small, start, rk.FIXED_U))
     big = main_shape_batch()
     E, R, I = big.read_w.shape
+    big_got, big_ref = both(0, big, STOCK, None, rk.FIXED_U)
     max_err = compare("reassign I=%d R=%d E=%d stock %dx%d" % (
-        I, R, E, STOCK.iters, STOCK.chains),
-        *both(0, big, STOCK, None, rk.FIXED_U))
+        I, R, E, STOCK.iters, STOCK.chains), big_got, big_ref)
+    pe = [paired_event(*PAIRED_GENE, [p, 1.0 - p], 400, 40, 250.0, 15.0,
+                       seed=11 + i)
+          for i, p in enumerate((0.6, 0.3, 0.8, 0.45))]
+    pb = padded_batch(pe, DEV)
+
+    # -- (k) the REASSIGN kernel's layouts
+    layouts = reassign_layouts(big, big_ref, pb, gpu)
+    max_err = max(max_err, layouts["max_err"])
+    thr = threshold_events()
+    thr_rb = padded_batch(thr, DEV, pad_reads=THRESH_R)
+    thr_ms = threshold_times(thr_rb, gpu)
 
     # -- (a) the same for the MARGINAL kernel: an empty class and a
     # padding event, a CLASSES-sized class count, the main path's bucket
@@ -440,12 +638,7 @@ def main() -> int:
     # paired-end events: fragment-probability weights, log_iso_w =
     # assscores near 11, non-zero read scores; B2 on the same events
     for given in (False, True):
-        start = None
-        if given:
-            sp = np.zeros((2, 2, 128), np.float32)
-            sp[..., :70] = np.random.default_rng(9).dirichlet(
-                np.ones(70), size=(2, 2))
-            start = torch.from_numpy(sp).to(DEV)
+        start = dirichlet_start(70, 2, 2, 128) if given else None
         max_err = max(max_err, compare(
             "reassign I=128 (70 real) %s" % ("GIVEN" if given else "AUTO"),
             *both(0, lane_test_batch(128, 70, 128, DEV), small, start,
@@ -455,10 +648,6 @@ def main() -> int:
             *both(0, marginal_lane_batch(128, 70, 128, DEV), small_m,
                   None if start is None else torch.cat(
                       [start, torch.zeros_like(start[:1])]), mk.FIXED_U)))
-    pe = [paired_event(*PAIRED_GENE, [p, 1.0 - p], 400, 40, 250.0, 15.0,
-                       seed=11 + i)
-          for i, p in enumerate((0.6, 0.3, 0.8, 0.45))]
-    pb = padded_batch(pe, DEV)
     print("  paired batch: E=%d C=%d R=%d, log_iso_w %.3f..%.3f, read "
           "scores down to %.2f" % (pb.weights.shape[0], pb.weights.shape[1],
                                    pb.read_w.shape[1],
@@ -625,19 +814,13 @@ def main() -> int:
     # -- (j) the deep route at stock settings on 64 deep events, then the
     # 16,384-read threshold: B1 at R=16,384 against the deep route on the
     # same 64 events of ~16,000 reads
-    rng = np.random.default_rng(3)
-    base = [simulated_event(*SE_GENE, [p, 1.0 - p], 2000, 36, seed=300 + i)
-            for i, p in enumerate(rng.uniform(0.05, 0.95, THRESH_E))]
-    deep_b = class_batch([deepened(ev, 500) for ev in base], DEV)
+    deep_b = class_batch([deepened(ev, 500) for ev in threshold_events(1)],
+                         DEV)
     deep_ms = timed(lambda: deep.run_batch_multinomial(5, deep_b, STOCK),
                     reps=1)
-    thr = [deepened(ev, 8) for ev in base]        # 16,000 reads each
     thr_b = class_batch(thr, DEV)
-    thr_rb = padded_batch(thr, DEV, pad_reads=THRESH_R)
-    rk.run_batch_reassign(5, thr_rb, SamplerConfig(iters=10, burn_in=0,
-                                                   lag=5))   # warm-up
-    b1_thr_ms = timed(lambda: rk.run_batch_reassign(5, thr_rb, STOCK),
-                      reps=1)
+    b1_thr_ms = thr_ms[rk.launch_plan(THRESH_E, THRESH_R, 2,
+                                      STOCK.chains).home]
     deep_thr_ms = timed(lambda: deep.run_batch_multinomial(5, thr_b, STOCK),
                         reps=1)
     print("deep route at E=%d (1,000,000 reads each), %d iters x %d "
@@ -654,6 +837,24 @@ def main() -> int:
         "main_path_ms": lc_d.ms("deep"), "stock_ms_e64": deep_ms,
         "threshold": {"events": THRESH_E, "reads": int(thr[0].counts.sum()),
                       "b1_ms_r16384": b1_thr_ms, "deep_ms": deep_thr_ms}}}))
+    # the least time the card could take for each kernel's launch at its
+    # main shape, from this run's inputs: reads with a compatible isoform,
+    # classes with reads
+    bound = rk.reassign_bound(
+        E, R, I, STOCK.chains, STOCK.iters, STOCK.num_records,
+        valid_reads=int((big.read_w.sum(-1) > 0).sum()))
+    m_bound = mk.marginal_bound(
+        Em, Cm, Im, STOCK_M.chains, STOCK_M.iters, STOCK_M.num_records,
+        live_classes=int((big_m.counts > 0).sum()))
+    for name, b in (("reassign", bound), ("marginal", m_bound)):
+        print("%s bound at its main shape: %.3g bytes = %.4f ms, %.4g FP32 "
+              "and %.4g integer operations, the pipes side by side = %.3f "
+              "ms: bound by %s"
+              % (name, b["bytes"], b["bytes_ms"], b["fp32_ops"],
+                 b["int_ops"], b["ops_ms"], b["bound_by"]))
+    print("earlier kernels at the same shapes (PERF.md, not timed here): "
+          "reassign %.2f ms, marginal %.2f ms"
+          % (EARLIER_MS["reassign"], EARLIER_MS["marginal"]))
     print("chip_smoke: %.1fs in all" % (time.time() - T_START))
     print(json.dumps({"kernels": [{
         "name": "reassign", "route": "cuda",
@@ -662,13 +863,22 @@ def main() -> int:
         "launches": lc_r.counts["reassign"]["cuda"]
         + lc_v.counts["reassign"]["cuda"] + lc_k.counts["reassign"]["cuda"]
         + lc_p.counts["reassign"]["cuda"],
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}, {
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+        "library_ms": None,
+        "main_path_launches": lc_r.counts["reassign"]["cuda"],
+        "main_path_ms": lc_r.ms("reassign"),
+        "chunk_ms": layouts["chunk_ms"]}, {
         "name": "marginal", "route": "cuda",
         "source": "miso_tpu_torch/csrc/marginal_kernel.cu",
         "replaces": "miso_tpu/sampler/pallas_marginal.py:48",
         "launches": lc_m.counts["marginal"]["cuda"]
         + lc_c.counts["marginal"]["cuda"],
-        "max_abs_err": m_err, "ms": m_ms, "plain_ms": m_plain_ms}]}))
+        "max_abs_err": m_err, "ms": m_ms, "plain_ms": m_plain_ms,
+        "bound_ms": m_bound["bound_ms"], "bound_by": m_bound["bound_by"],
+        "library_ms": None,
+        "main_path_launches": lc_m.counts["marginal"]["cuda"],
+        "main_path_ms": lc_m.ms("marginal")}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -676,4 +886,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:]:
+        sys.exit("usage: python3 chip_smoke.py")
     sys.exit(main())

@@ -1,10 +1,13 @@
 """miso_tpu_torch: the PyTorch / CUDA port of miso_tpu for one NVIDIA H100.
 
-The JAX package ``miso_tpu`` stays the reference.  This package reuses its
-JAX-free host code (GFF/BAM ingest, event compile, the ``.miso`` writers)
-and replaces the device half: the REASSIGN sampler runs as a CUDA kernel
-written by hand for ``sm_90a`` (``csrc/reassign_kernel.cu``), with a plain
-PyTorch version beside it for CPU tensors.
+The JAX package ``miso_tpu`` stays the reference; this package imports
+nothing of it.  Its host half (``core/``, ``io/``, ``native/``,
+``stats/intervals.py``: GFF/BAM ingest, event compile, the ``.miso``
+writers) is a copy of the reference's modules of the same names, held to
+them by tests/test_torch_host_copy.py.  Its device half is its own: the
+REASSIGN and MARGINAL/CLASSES samplers run as CUDA kernels written by
+hand for ``sm_90a`` (``csrc/``), each with a plain PyTorch version beside
+it for CPU tensors.
 """
 import torch
 

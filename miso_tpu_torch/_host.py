@@ -1,12 +1,13 @@
-"""The host half of the ``miso --run`` pipeline, shared by the port.
+"""The host half of the ``miso --run`` pipeline.
 
-Verbatim JAX-free copies of ``miso_tpu/pipeline.py`` objects:
+Verbatim copies of ``miso_tpu/pipeline.py`` objects, importing the
+port's own host modules:
 RunConfig (:45-104), chrom_output_dir / event_output_path (:107-113),
 compile_gene_event (:116-146), _LazyResult (:196-218),
 _ci_bound_indices (:298-303), _write_event / _iter_bodies /
 _write_events_batch (:810-873), _pack_events_batch (:876-904) and
-_CompileStream (:927-1302).  They are
-copied because their home imports jax at module level (pipeline.py:42).
+_CompileStream (:927-1302).  Their home imports jax at module level
+(pipeline.py:42), so they live here and not in a file of the same name.
 tests/test_torch_pipeline.py checks that each copy still equals its
 original.
 """
@@ -19,15 +20,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from miso_tpu.core.events import (CompiledEvent, compile_paired_end,
-                                  compile_paired_end_many,
-                                  compile_single_end,
-                                  compile_single_end_many)
-from miso_tpu.core.gene import Gene
-from miso_tpu.io import sam as sam_io
-from miso_tpu.io.index import load_indexed_gene
-from miso_tpu.io.miso_file import write_miso_file
-from miso_tpu.io.settings import Settings
+from miso_tpu_torch.core.events import (CompiledEvent, compile_paired_end,
+                                        compile_paired_end_many,
+                                        compile_single_end,
+                                        compile_single_end_many)
+from miso_tpu_torch.core.gene import Gene
+from miso_tpu_torch.io import sam as sam_io
+from miso_tpu_torch.io.index import load_indexed_gene
+from miso_tpu_torch.io.miso_file import write_miso_file
+from miso_tpu_torch.io.settings import Settings
 
 
 @dataclasses.dataclass
@@ -163,7 +164,7 @@ def _ci_bound_indices(num_samples: int,
                       confidence_level: float = 0.95):
     """(lo, hi) sorted-sample indices, or None if the sample count is
     too small for the interval (the shared Chen-Shao rule)."""
-    from miso_tpu.stats.intervals import ci_bound_indices
+    from miso_tpu_torch.stats.intervals import ci_bound_indices
     return ci_bound_indices(num_samples, confidence_level)
 
 
@@ -199,7 +200,7 @@ def _iter_bodies(evs, results):
     overhead -- ~20 small array ops each -- dominated the write phase
     at catalog scale).  Events without the quantized payload
     (convergent results, wide-score fallbacks) yield body=None."""
-    from miso_tpu.io.miso_file import _format_quantized
+    from miso_tpu_torch.io.miso_file import _format_quantized
 
     groups: Dict[Tuple[int, int], list] = {}
     rest = []
@@ -237,7 +238,7 @@ def _pack_events_batch(packer, cfg: RunConfig, evs, results) -> int:
     """Stream a chunk slice straight into per-chromosome sqlite
     (`--pack-output`): same header/body bytes as the .miso writer, no
     text tree, no re-pack pass.  Ref: misopy/miso_db.py:144-193."""
-    from miso_tpu.io.miso_file import (_format_quantized,
+    from miso_tpu_torch.io.miso_file import (_format_quantized,
                                        _format_sample_block,
                                        event_header_str)
 
@@ -459,7 +460,7 @@ class _CompileStream:
         """(gene_id, entry) pairs for one directory group -- one batch
         unpickle per chromosome when the index has it (io/index.py),
         per-gene pickles otherwise."""
-        from miso_tpu.io.index import load_chrom_batch
+        from miso_tpu_torch.io.index import load_chrom_batch
         batch = load_chrom_batch(d)
         out = []
         for gene_id, fname in group:
@@ -520,7 +521,7 @@ class _CompileStream:
             # paired batch path: ONE native paired match+collapse call
             # per chromosome against the columnar pair scan (paired
             # scans are strandless; fr-firststrand only reorders mates)
-            from miso_tpu.io.index import load_compile_tables
+            from miso_tpu_torch.io.index import load_compile_tables
             tables = load_compile_tables(d)
             trow = tables["row"] if tables is not None else {}
             rest: List[Tuple[Gene, str, str]] = []
@@ -565,7 +566,7 @@ class _CompileStream:
             # (chromosome, strand) subgroup against the columnar scan,
             # driven by the index's precomputed compile tables when
             # available (zero per-gene Python assembly)
-            from miso_tpu.io.index import load_compile_tables
+            from miso_tpu_torch.io.index import load_compile_tables
             tables = load_compile_tables(d)
             trow = tables["row"] if tables is not None else {}
             by_strand: Dict[object, list] = {}

@@ -98,30 +98,34 @@ def build() -> str:
     return LIB_PATH
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of the kernel library on ``lib``."""
+    vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib.miso_reassign.restype = ci
+    lib.miso_reassign.argtypes = (
+        [vp] * 14          # 9 inputs (start may be null), 5 outputs
+        + [ci] * 8         # E, R, I, K, iters, burn_in, lag, rrec
+        + [cu, cu]         # seed words
+        + [ci] * 4         # fixed_u, T, lanes per block, home
+        + [ctypes.c_longlong, vp])   # shared bytes, stream
+    lib.miso_marginal.restype = ci
+    lib.miso_marginal.argtypes = (
+        [vp] * 10          # 6 inputs (start may be null), 4 outputs
+        + [ci] * 8         # E, C, I, K, iters, burn_in, lag, rrec
+        + [cu, cu]         # seed words
+        + [ci, vp])        # fixed_u, stream
+    lib.miso_cuda_error_string.restype = ctypes.c_char_p
+    lib.miso_cuda_error_string.argtypes = [ci]
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built at first use."""
     global _LIB
     with _LOCK:
-        if _LIB is not None:
-            return _LIB
-        lib = ctypes.CDLL(build())
-        vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        lib.miso_reassign.restype = ci
-        lib.miso_reassign.argtypes = (
-            [vp] * 14          # 9 inputs (start may be null), 5 outputs
-            + [ci] * 8         # E, R, I, K, iters, burn_in, lag, rrec
-            + [cu, cu]         # seed words
-            + [ci, vp])        # fixed_u, stream
-        lib.miso_marginal.restype = ci
-        lib.miso_marginal.argtypes = (
-            [vp] * 10          # 6 inputs (start may be null), 4 outputs
-            + [ci] * 8         # E, C, I, K, iters, burn_in, lag, rrec
-            + [cu, cu]         # seed words
-            + [ci, vp])        # fixed_u, stream
-        lib.miso_cuda_error_string.restype = ctypes.c_char_p
-        lib.miso_cuda_error_string.argtypes = [ci]
-        _LIB = lib
-        return lib
+        if _LIB is None:
+            _LIB = bind(ctypes.CDLL(build()))
+        return _LIB
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

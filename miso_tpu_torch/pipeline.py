@@ -1,8 +1,9 @@
 """End-to-end quantification pipeline on one GPU: indexed GFF + BAM -> .miso.
 
 The port of ``miso_tpu/pipeline.py``.  The host half (catalog walk, event
-compile, ``.miso`` formatting) is the JAX package's own code, reused or
-copied verbatim into ``_host.py``.  The device half is torch:
+compile, ``.miso`` formatting) is the JAX package's code, copied into
+``_host.py`` and the port's ``core/``, ``io/`` and ``native/``.  The
+device half is torch:
 
 1. ``StreamRunner._dispatch`` pads a bucket's class tensors and runs the
    sampler (``run_sampler``): REASSIGN expands the per-read tiles on the
@@ -40,11 +41,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from miso_tpu.core.events import (CompiledEvent, bucket_events, _round_up,
-                                  _round_up_iso, _round_up_reads, pad_events)
-from miso_tpu.io import sam as sam_io
-from miso_tpu.io.index import get_gene_ids_to_filenames
-from miso_tpu.io.settings import Settings
+from miso_tpu_torch.core.events import (CompiledEvent, bucket_events,
+                                        _round_up, _round_up_iso,
+                                        _round_up_reads, pad_events)
+from miso_tpu_torch.io import sam as sam_io
+from miso_tpu_torch.io.index import get_gene_ids_to_filenames
+from miso_tpu_torch.io.settings import Settings
 from miso_tpu_torch._host import (RunConfig, _CompileStream, _LazyResult,
                                   _ci_bound_indices, _pack_events_batch,
                                   _write_events_batch)
@@ -134,7 +136,7 @@ def linear_start(evs: List[CompiledEvent], cfg: RunConfig,
     """(n, K, pad_iso) f32 start psi: every chain of an event starts at
     its NNLS deconvolution (MISO_START_LINEAR, pipeline.py:485-497); an
     event whose NNLS fails starts uniform, as in the JAX package."""
-    from miso_tpu.core.assignment import linear_start_psi
+    from miso_tpu_torch.core.assignment import linear_start_psi
 
     sp = np.zeros((len(evs), cfg.chains, pad_iso), np.float32)
     for j, ev in enumerate(evs):
@@ -505,7 +507,7 @@ def compute_all_genes_psi(
     and the multi-host labels (ROADMAP A.11).  ``profile_dir`` wraps the
     run's consume loop in ``torch.profiler`` and writes a Chrome trace
     there (pipeline.py:1492-1497 does it with ``jax.profiler``)."""
-    from miso_tpu.io.sanity import check_gff_and_bam, setup_logger
+    from miso_tpu_torch.io.sanity import check_gff_and_bam, setup_logger
 
     settings = settings or Settings.get()
     cfg = cfg or RunConfig.from_settings(settings, read_len)
@@ -545,11 +547,11 @@ def compute_all_genes_psi(
     write_lock = threading.Lock()
 
     progress = {"done": 0, "t_last": t0}
-    from miso_tpu.io.miso_file import summary_row_fields
+    from miso_tpu_torch.io.miso_file import summary_row_fields
     summary_rows: Dict[str, str] = {}
     packer = None
     if cfg.pack_output and not cfg.summary_only:
-        from miso_tpu.io.miso_db import DirectPacker
+        from miso_tpu_torch.io.miso_db import DirectPacker
         packer = DirectPacker(output_dir)
 
     def on_chunk(evs, results):
@@ -586,7 +588,7 @@ def compute_all_genes_psi(
     ev_queue: "queue_mod.Queue" = queue_mod.Queue(maxsize=8192)
     compile_done = {}
 
-    from miso_tpu import native as _native
+    from miso_tpu_torch import native as _native
     workers = 1
     if (not hasattr(alignments, "scan_chrom_columnar")
             or _native.load() is None):
@@ -647,14 +649,14 @@ def compute_all_genes_psi(
     if packer is not None:
         packer.finish()
     if summary_rows or stream.resume_skipped:
-        from miso_tpu.io.miso_file import write_summary_file
+        from miso_tpu_torch.io.miso_file import write_summary_file
         label = os.path.basename(os.path.normpath(output_dir))
         summary_filename = os.path.join(output_dir, "summary",
                                         "%s.miso_summary" % label)
         if stream.resume_skipped and not cfg.summary_only:
             # resumed runs: backfill the skipped events' rows from their
             # stored samples so the summary is never silently partial
-            from miso_tpu.io.miso_file import (MISOSamples,
+            from miso_tpu_torch.io.miso_file import (MISOSamples,
                                                summary_row_from_data)
             have = set(summary_rows)
             if os.path.isfile(summary_filename):

@@ -39,11 +39,38 @@ import torch
 
 from miso_tpu_torch.sampler.mcmc import EventBatch, SamplerConfig
 from miso_tpu_torch.sampler.reassign_kernel import (FIXED_U, KERNEL_ISO,
-                                                    TWO_PI, _U24, _checked,
-                                                    _is_record, _result)
+                                                    PHILOX_INT_OPS, TWO_PI,
+                                                    _U24, _checked,
+                                                    _is_record, _result,
+                                                    bound)
 
 LAUNCHES = {"cuda": 0, "plain": 0}
 TINY = 1e-38
+# A logf / expf call beside an FP32 instruction: the special-function
+# unit takes 16 a clock on each SM, the FP32 pipe 128.
+SFU_COST = 8
+
+
+def marginal_bound(E: int, C: int, I: int, K: int, iters: int,
+                   num_records: int, live_classes=None):
+    """The least time an H100 could take for one MARGINAL/CLASSES launch,
+    as ``reassign_bound`` gives it for REASSIGN.  Per step (iters + 1)
+    and lane: for each class with reads (``live_classes`` in all,
+    default E * C) I multiplies, I - 1 adds, one log and one
+    multiply-add into the score; 2 I exp/log calls and about 12 I
+    FP32 operations for the logistic map and the two proposal
+    densities; one Philox call per normal pair and one for the accept
+    draw."""
+    if live_classes is None:
+        live_classes = E * C
+    steps = iters + 1
+    lanes = E * K
+    in_bytes = 4 * (E * C * I + E * C + E + E * I + 4 * E)
+    out_bytes = 4 * (E * num_records * K * (I + 1) + E * K * (I + 1))
+    fp_ops = steps * (K * live_classes * (2 * I + 1 + SFU_COST)
+                      + lanes * (2 * I * SFU_COST + 12 * I))
+    int_ops = steps * lanes * ((I + 1) // 2 + 1) * PHILOX_INT_OPS
+    return bound(in_bytes + out_bytes, fp_ops, int_ops)
 
 
 def _marginal_consts(batch: EventBatch):

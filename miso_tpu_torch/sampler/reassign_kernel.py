@@ -14,11 +14,16 @@ takes the same batch, ``start_psi`` (E, K, I) and result layout.
   (``_mh_chain``) takes the Gibbs step as a parameter: the deep route
   (``deep.py``) runs the same chain around the multinomial step.
 
-What bounds the kernel on an H100: Philox and compare work over the R
-reads of every step (integer and FP32 ALU), no tensor-core work, and
-L2-resident read tiles.  Its design answers that with one warp per
-(event, chain) lane, the reads split over the warp's threads, and the
-I-wide MH math done redundantly by every thread (see the .cu header).
+What bounds the kernel on an H100: operations, not bytes -- one Philox
+call per four reads (integer ALU) and a walk over each read's I
+cumulative weights (FP32 ALU) in every step, no tensor-core work, and
+tiles read once (``reassign_bound``).  Its design (see the .cu header)
+is fixed per launch by ``launch_plan``, plain Python that the CPU tests
+check: a lane is a group of T threads inside a warp, T the narrowest
+that still fills the card with warps; a thread's reads never change, so
+their weights live in shared memory, staged once per event, else behind
+the cache; the randoms that depend on (lane, step) alone are drawn ahead
+of the chain, one step per thread of the lane.
 
 ``fixed_uniform=0.4999`` replaces every uniform, as the TPU kernel's
 ``_DEBUG_NO_PRNG`` does, so both routes then reproduce the JAX kernel's
@@ -27,6 +32,7 @@ chain exactly; the proposal normals keep ``_normal_rows``' cos/sin split.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -41,6 +47,178 @@ _U24 = 2.0 ** -24
 # the isoform widths both kernels are instantiated for: every bucketed I
 # (core/events._round_up_iso) of a gene with up to 256 isoforms
 KERNEL_ISO = (2, 3, 4, 6, 8, 16, 32, 64, 128, 256)
+
+# The launch plan's constants; csrc/reassign_kernel.cu holds the same
+# values (kShared/kCache, kMaxThreads).
+HOMES = ("shared", "cache")
+LANE_THREADS = (4, 8, 16, 32)
+MAX_THREADS = 256         # the kernel's __launch_bounds__
+SHARED_LIMIT = 232448     # dynamic shared memory a block can ask an H100 for
+# Warps that fill an H100 for this kernel, about 12 on each of 132 SMs:
+# measured at I=2, R=320, K=6, every launch from 4 to 2,048 events was
+# fastest at the narrowest lane that still gave the card this many
+# (PERF.md).
+FILL_WARPS = 1536
+SMS = 132                 # an H100's streaming multiprocessors
+# Shared memory an SM has for its resident blocks (228 KB), of which
+# each block takes 1 KB beside what it asks for.
+SM_SHARED = 233472
+BLOCK_RESERVE = 1024
+# Registers: 65,536 on an SM, and what ptxas gives a thread of each
+# width's instance (the 128- and 256-wide keep their arrays in local
+# memory).  They cap the warps an SM holds whatever shared memory does;
+# chip_smoke.py holds this table to the build's own log.
+SM_REGISTERS = 65536
+KERNEL_REGISTERS = {2: 64, 3: 80, 4: 100, 6: 120, 8: 156, 16: 255, 32: 255,
+                    64: 255, 128: 40, 256: 40}
+
+
+class LaunchPlan(NamedTuple):
+    """How one launch of the kernel is laid out."""
+    T: int                 # threads of a lane (one (event, chain) chain)
+    lanes_per_block: int   # whole events wherever K * T allows it
+    threads: int           # lanes_per_block * T, a multiple of 32
+    home: str              # where a thread's weights live: one of HOMES
+    shared_bytes: int      # dynamic shared memory of a block
+    groups_per_thread: int  # groups of 4 reads a thread draws per step
+
+
+def _layouts(E: int, R: int, I: int, K: int, T: int):
+    """{home: LaunchPlan} of every home that E events of (R, I) tiles, K
+    chains and lanes of T threads can be laid out in, and whether shared
+    memory would leave an SM fewer blocks than fill it, than its
+    registers hold and than the launch gives it."""
+    per_thread = -(-(R // 4) // T)
+    events = 32 // math.gcd(K * T, 32)      # whole events per block
+    whole = events * K * T <= MAX_THREADS
+    lanes = events * K if whole else MAX_THREADS // T
+    tile_bytes = (lanes // K) * R * I * 4 if whole else 0
+    fits = {"shared": whole and tile_bytes <= SHARED_LIMIT, "cache": True}
+    blocks = -(-E * K // lanes)
+    threads = lanes * T
+    resident = SM_SHARED // (tile_bytes + BLOCK_RESERVE)
+    by_registers = SM_REGISTERS // (-(-KERNEL_REGISTERS[I] // 8) * 8
+                                    * threads)
+    fill = -(-FILL_WARPS // SMS)            # warps that fill one SM
+    wanted = min(-(-fill * 32 // threads), by_registers, -(-blocks // SMS))
+    crowded = resident < wanted
+    return crowded, {home: LaunchPlan(
+        T=T, lanes_per_block=lanes, threads=lanes * T, home=home,
+        shared_bytes=tile_bytes if home == "shared" else 0,
+        groups_per_thread=per_thread) for home in HOMES if fits[home]}
+
+
+def _check_tiles(E: int, R: int, I: int, K: int) -> None:
+    if I not in KERNEL_ISO:
+        raise ValueError("the REASSIGN kernel takes I in %s, got %d"
+                         % (KERNEL_ISO, I))
+    if E < 1 or R < 4 or R % 4 or K < 1:
+        raise ValueError("the REASSIGN kernel takes E and K positive and R "
+                         "a positive multiple of 4 (got E=%d, R=%d, K=%d)"
+                         % (E, R, K))
+
+
+def launch_plan(E: int, R: int, I: int, K: int) -> LaunchPlan:
+    """The kernel's launch for E events of (R, I) tiles and K chains.
+
+    T is at least the narrowest lane that gives the card ``FILL_WARPS``
+    warps (E * K * T / 32), and a whole warp where none does: a full
+    launch is bound by instruction throughput, and a narrow lane repeats the
+    I-wide proposal arithmetic fewer times; a small launch is bound by
+    the latency of a step, and a wide lane leaves each thread fewer
+    reads.  A block holds whole events (K lanes each), as many as make
+    its threads a multiple of 32; with K * T too wide for that it holds
+    ``MAX_THREADS // T`` lanes wherever they fall, and shared memory is
+    then no home.  The weights live in shared memory when the block's
+    tiles fit ``SHARED_LIMIT``.  A wider lane puts fewer events in a
+    block, so where the narrowest lane's tiles crowd the SM (its shared
+    memory would hold fewer blocks than fill it, than its registers hold
+    and than the launch gives it), T widens until they do not, and to
+    the widest lane whose tiles fit where every lane's crowd it.  Only
+    where no lane's tiles fit do the weights stay behind the cache, at
+    the narrowest lane."""
+    _check_tiles(E, R, I, K)
+    widths = [t for t in LANE_THREADS if E * K * t >= 32 * FILL_WARPS]
+    widths = widths or [LANE_THREADS[-1]]
+    shared = None
+    for T in widths:
+        crowded, layouts = _layouts(E, R, I, K, T)
+        shared = layouts.get("shared", shared)
+        if "shared" in layouts and not crowded:
+            break
+    return shared or _layouts(E, R, I, K, widths[0])[1]["cache"]
+
+
+def all_plans(E: int, R: int, I: int, K: int):
+    """Every plan the kernel can be launched with at this shape, one per
+    (T, home) that can be laid out: the card's checks run them all
+    (``_reassign_cuda(..., plan=...)``)."""
+    _check_tiles(E, R, I, K)
+    return [plan for T in LANE_THREADS
+            for plan in _layouts(E, R, I, K, T)[1].values()]
+
+
+# An H100's rates behind ``reassign_bound`` (NVIDIA's data sheet, SXM):
+# 3.35 TB/s of device memory; 67 TFLOP/s of FP32 outside the tensor cores
+# counts a fused multiply-add as two, so 33.5e12 FP32 instructions a
+# second over the card, and half of that for the integer pipe.  The two
+# pipes run side by side, fed by schedulers that issue 33.5e12
+# instructions a second of either kind.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 33.5e12
+INT_OPS_PER_S = 16.75e12
+ISSUE_OPS_PER_S = 33.5e12
+# One Philox4x32-10 call: 10 rounds of two 32x32->64 multiplies and two
+# three-way xors (the round keys are launch constants).
+PHILOX_INT_OPS = 40
+
+
+def bound(nbytes: int, fp_ops: int, int_ops: int):
+    """The bound's dict from a launch's bytes and operations: each pipe
+    works at its own rate beside the other, both share the schedulers'
+    issue rate, so the operations need the longest of the three times;
+    ``bound_ms`` is the larger of that and the bytes' time."""
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * max(fp_ops / FP32_OPS_PER_S, int_ops / INT_OPS_PER_S,
+                       (fp_ops + int_ops) / ISSUE_OPS_PER_S)
+    return {"bytes": nbytes, "fp32_ops": fp_ops, "int_ops": int_ops,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def reassign_bound(E: int, R: int, I: int, K: int, iters: int,
+                   num_records: int, valid_reads: Optional[int] = None):
+    """The least time an H100 could take for one REASSIGN launch, as a
+    dict: the bytes moved (each input read once, each output written
+    once), the FP32 and integer operations of the function itself, the
+    milliseconds each needs at the card's rates (``bound``), and
+    ``bound_ms`` (the larger) with ``bound_by``.
+
+    Per step (iters + 1 of them) and lane: every group of 4 reads costs
+    one Philox call; every read with a compatible isoform
+    (``valid_reads`` in all, default E * R) costs the uniform's
+    conversion (shift, or, int-to-float: 3 integer operations) and a
+    walk of I multiplies, I - 1 adds, one scale of the uniform, I - 1
+    compares and I count updates (3 I - 1 FP32 operations); a padded
+    read costs its I - 1 adds and one compare.  The proposal and MH
+    arithmetic (about 20 I operations and one Philox call per normal
+    pair, once per lane and step) is counted too; it is small beside
+    the reads."""
+    if valid_reads is None:
+        valid_reads = E * R
+    steps = iters + 1
+    lanes = E * K
+    in_bytes = 4 * (2 * E * R * I + 5 * E * I + 2 * E)
+    out_bytes = 4 * (E * num_records * K * (I + 1) + E * K * (2 * I + 1))
+    groups = E * (-(-R // 4))
+    int_ops = steps * K * (groups * PHILOX_INT_OPS + 3 * valid_reads)
+    fp_ops = steps * K * (valid_reads * (3 * I - 1)
+                          + (E * R - valid_reads) * I)
+    half = (I + 1) // 2
+    int_ops += steps * lanes * (half + 1) * PHILOX_INT_OPS
+    fp_ops += steps * lanes * 20 * I
+    return bound(in_bytes + out_bytes, fp_ops, int_ops)
 
 
 def _event_consts(batch: EventBatch):
@@ -277,8 +455,10 @@ def _checked(t, name, shape, dtype, dev):
     return t
 
 
-def _reassign_cuda(seed, batch, cfg, consts, start_psi, fixed):
-    """Launch csrc/reassign_kernel.cu on the batch's CUDA device."""
+def _reassign_cuda(seed, batch, cfg, consts, start_psi, fixed, plan=None):
+    """Launch csrc/reassign_kernel.cu on the batch's CUDA device, laid
+    out by ``launch_plan`` (``plan`` forces another layout: the card's
+    checks run every lane width and home of the weights)."""
     from miso_tpu_torch import kernels
 
     f32 = torch.float32
@@ -289,10 +469,19 @@ def _reassign_cuda(seed, batch, cfg, consts, start_psi, fixed):
     if I not in KERNEL_ISO:
         raise ValueError("the REASSIGN kernel takes I in %s, got %d"
                          % (KERNEL_ISO, I))
-    inputs = [
-        _checked(batch.read_w, "read_w", (E, R, I), f32, dev),
-        _checked(batch.read_logscore, "read_logscore", (E, R, I), f32, dev),
-    ]
+    read_w = _checked(batch.read_w, "read_w", (E, R, I), f32, dev)
+    read_ls = _checked(batch.read_logscore, "read_logscore", (E, R, I), f32,
+                       dev)
+    if R % 4:
+        # the kernel draws reads four at a time; zero-weight reads count
+        # into no isoform and the Philox counter is keyed by read / 4
+        pad = (0, 0, 0, 4 - R % 4)
+        read_w = torch.nn.functional.pad(read_w, pad).contiguous()
+        read_ls = torch.nn.functional.pad(read_ls, pad).contiguous()
+        R = read_w.shape[1]
+    if plan is None:
+        plan = launch_plan(E, R, I, K)
+    inputs = [read_w, read_ls]
     for name, c in zip(("log_iso_w", "hyper", "amask", "iso_mask",
                         "last_onehot"), consts[:5]):
         inputs.append(_checked(c, name, (E, I), f32, dev))
@@ -315,7 +504,9 @@ def _reassign_cuda(seed, batch, cfg, consts, start_psi, fixed):
             psi_out.data_ptr(), ll_out.data_ptr(), acc.data_ptr(),
             final_n.data_ptr(), final_psi.data_ptr(),
             E, R, I, K, cfg.iters, cfg.burn_in, cfg.lag, RREC,
-            seed & 0xFFFFFFFF, seed >> 32, int(bool(fixed)), stream)
-    kernels.check(lib, rc, "reassign kernel launch")
+            seed & 0xFFFFFFFF, seed >> 32, int(bool(fixed)),
+            plan.T, plan.lanes_per_block, HOMES.index(plan.home),
+            plan.shared_bytes, stream)
+    kernels.check(lib, rc, "reassign kernel launch (%s)" % (plan,))
     LAUNCHES["cuda"] += 1
     return _result(psi_out, ll_out, acc, final_n, final_psi, cfg)

@@ -1,23 +1,176 @@
 """Seeded inputs for the port's checks (``chip_smoke.py``): simulated
 single-end and paired-end events, padded batches on a device, indexed
-simulated catalogs, built with the JAX package's JAX-free host code, the
+simulated catalogs (the catalog helpers of ``miso_tpu/testing.py``,
+copied; tests/test_torch_host_copy.py holds the two together), the
 read-back of packed output, and the grid-exact posterior of the
 collapsed model."""
 from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Dict, List, Tuple
 
 import numpy as np
 
-from miso_tpu.cli.index_gff import main as index_gff_main
-from miso_tpu.core.events import (compile_paired_end, compile_single_end,
-                                  pad_events)
-from miso_tpu.core.gene import make_gene
-from miso_tpu.core.simulate import simulate_paired_reads, simulate_reads
-from miso_tpu.testing import (build_catalog_fixture,
-                              build_paired_catalog_fixture)
+from miso_tpu_torch.cli.index_gff import main as index_gff_main
+from miso_tpu_torch.core.events import (compile_paired_end,
+                                        compile_single_end, pad_events)
+from miso_tpu_torch.core.gene import Exon, Gene, Isoform, make_gene
+from miso_tpu_torch.core.simulate import (simulate_paired_reads,
+                                          simulate_reads)
+from miso_tpu_torch.io.gff import GFFRecord, write_gff
+from miso_tpu_torch.io.sam import AlignedRead, write_bam
 from miso_tpu_torch.sampler.mcmc import EventBatch, batch_from_numpy
+
+
+def make_se_catalog(
+    num_events: int,
+    rng: np.random.Generator,
+    chroms: int = 4,
+    exon_lens=(100, 50, 100),
+) -> Tuple[List[Gene], List[GFFRecord], np.ndarray]:
+    """num_events SE genes spaced along `chroms` chromosomes.
+    Returns (genes, gff_records, true_psi (num_events,))."""
+    genes: List[Gene] = []
+    records: List[GFFRecord] = []
+    true_psi = rng.uniform(0.05, 0.95, size=num_events)
+    spacing = sum(exon_lens) + 1000
+    for e in range(num_events):
+        chrom = "chr%d" % (1 + e % chroms)
+        offset = 1 + (e // chroms) * spacing
+        starts = np.cumsum([offset] + list(exon_lens[:-1])).tolist()
+        parts = [Exon(int(s), int(s + l - 1), label="%s.p%d" % ("ev%d" % e, i))
+                 for i, (s, l) in enumerate(zip(starts, exon_lens))]
+        gene = Gene(
+            parts=parts,
+            isoforms=[Isoform((0, 1, 2), label="ev%d.A" % e,
+                              desc=["up", "se", "dn"]),
+                      Isoform((0, 2), label="ev%d.B" % e,
+                              desc=["up", "dn"])],
+            label="ev%d" % e, chrom=chrom, strand="+")
+        genes.append(gene)
+        gid = gene.label
+        lo, hi = gene.genomic_span()
+        records.append(GFFRecord(chrom, "sim", "gene", lo, hi, None, "+",
+                                 None, {"ID": [gid]}))
+        for iso in gene.isoforms:
+            records.append(GFFRecord(chrom, "sim", "mRNA", lo, hi, None,
+                                     "+", None,
+                                     {"ID": [iso.label], "Parent": [gid]}))
+            for pi in iso.parts:
+                p = gene.parts[pi]
+                records.append(GFFRecord(
+                    chrom, "sim", "exon", p.start, p.end, None, "+", None,
+                    {"ID": ["%s.%s" % (iso.label, p.label)],
+                     "Parent": [iso.label]}))
+    return genes, records, true_psi
+
+
+def simulate_catalog_bam(
+    genes: List[Gene],
+    true_psi: np.ndarray,
+    reads_per_event: int,
+    read_len: int,
+    bam_path: str,
+    rng: np.random.Generator,
+) -> None:
+    """Simulate reads for every gene and write one coordinate-sorted BAM."""
+    reads: List[AlignedRead] = []
+    for e, gene in enumerate(genes):
+        psi = [float(true_psi[e]), 1.0 - float(true_psi[e])]
+        _, pos, cig = simulate_reads(gene, psi, reads_per_event, read_len,
+                                     rng)
+        for r in range(len(pos)):
+            reads.append(AlignedRead(
+                qname="sim_%d_%d" % (e, r), flag=0, rname=gene.chrom,
+                pos=int(pos[r]) - 1, mapq=255, cigar_str=cig[r],
+                rlen=read_len))
+    chroms = sorted({g.chrom for g in genes})
+    order = {c: i for i, c in enumerate(chroms)}
+    reads.sort(key=lambda r: (order[r.rname], r.pos))
+    lengths = [max(g.genomic_span()[1] for g in genes if g.chrom == c)
+               + 1000 for c in chroms]
+    write_bam(bam_path, chroms, lengths, reads)
+
+
+def simulate_catalog_bam_paired(
+    genes: List[Gene],
+    true_psi: np.ndarray,
+    pairs_per_event: int,
+    read_len: int,
+    mean_frag_len: float,
+    sd_frag_len: float,
+    bam_path: str,
+    rng: np.random.Generator,
+) -> None:
+    """Simulate proper mate pairs for every gene (FR orientation flags,
+    as the pairing QC requires, misopy/sam_utils.py:210-289) and write
+    one coordinate-sorted BAM."""
+    reads: List[AlignedRead] = []
+    for e, gene in enumerate(genes):
+        psi = [float(true_psi[e]), 1.0 - float(true_psi[e])]
+        _, pos, cig = simulate_paired_reads(
+            gene, psi, pairs_per_event, read_len, mean_frag_len,
+            sd_frag_len ** 2, rng=rng)
+        for r in range(len(pos)):
+            flag = 0x1 | 0x2 | (0x40 | 0x20 if r % 2 == 0
+                                else 0x80 | 0x10)
+            reads.append(AlignedRead(
+                qname="sim_%d_%d" % (e, r // 2), flag=flag,
+                rname=gene.chrom, pos=int(pos[r]) - 1, mapq=255,
+                cigar_str=cig[r], rlen=read_len))
+    chroms = sorted({g.chrom for g in genes})
+    order = {c: i for i, c in enumerate(chroms)}
+    reads.sort(key=lambda r: (order[r.rname], r.pos))
+    lengths = [max(g.genomic_span()[1] for g in genes if g.chrom == c)
+               + 1000 for c in chroms]
+    write_bam(bam_path, chroms, lengths, reads)
+
+
+def build_paired_catalog_fixture(
+    out_dir: str,
+    num_events: int = 2000,
+    pairs_per_event: int = 150,
+    read_len: int = 40,
+    mean_frag_len: float = 250.0,
+    sd_frag_len: float = 15.0,
+    seed: int = 0,
+) -> Dict[str, object]:
+    """Paired-end GFF + BAM + truth table (exons sized so the fragment
+    distribution fits both isoforms)."""
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    genes, records, true_psi = make_se_catalog(
+        num_events, rng, exon_lens=(300, 100, 300))
+    gff_path = os.path.join(out_dir, "catalog.gff")
+    write_gff(records, gff_path)
+    bam_path = os.path.join(out_dir, "catalog.bam")
+    simulate_catalog_bam_paired(genes, true_psi, pairs_per_event,
+                                read_len, mean_frag_len, sd_frag_len,
+                                bam_path, rng)
+    return {"gff": gff_path, "bam": bam_path, "true_psi": true_psi,
+            "genes": genes, "read_len": read_len,
+            "mean_frag_len": mean_frag_len, "sd_frag_len": sd_frag_len}
+
+
+def build_catalog_fixture(
+    out_dir: str,
+    num_events: int = 50,
+    reads_per_event: int = 300,
+    read_len: int = 36,
+    seed: int = 0,
+) -> Dict[str, object]:
+    """GFF + BAM + truth table under out_dir; returns paths + truth."""
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    genes, records, true_psi = make_se_catalog(num_events, rng)
+    gff_path = os.path.join(out_dir, "catalog.gff")
+    write_gff(records, gff_path)
+    bam_path = os.path.join(out_dir, "catalog.bam")
+    simulate_catalog_bam(genes, true_psi, reads_per_event, read_len,
+                         bam_path, rng)
+    return {"gff": gff_path, "bam": bam_path, "true_psi": true_psi,
+            "genes": genes, "read_len": read_len}
 
 
 def simulated_event(exon_lens, isoforms, psi, n_reads, read_len, seed,
@@ -95,11 +248,11 @@ def indexed_catalog(out_dir, num_events, reads_per_event, read_len, seed,
     return fix
 
 
-def lane_test_batch(I, num_iso, seed, device):
-    """The inputs of tests/test_pallas_interpret.py, widened to any I: E=2
-    events of ``num_iso`` real isoforms padded to I, R=16 reads with read
-    0 compatible with every real isoform and 3 all-zero padding reads."""
-    R, E = 16, 2
+def lane_test_batch(I, num_iso, seed, device, E=2, R=16):
+    """The inputs of tests/test_pallas_interpret.py, widened to any I (and
+    to any E and R): E=2 events of ``num_iso`` real isoforms padded to I,
+    R=16 reads with read 0 compatible with every real isoform and 3
+    all-zero padding reads."""
     rng = np.random.default_rng(seed)
     real = np.arange(I) < num_iso
     read_w = ((rng.random((E, R, I)) < 0.7) & real).astype(np.float32)
@@ -146,7 +299,7 @@ def packed_events(out_dir):
     ``MISODatabase``."""
     import glob
 
-    from miso_tpu.io.miso_db import MISODatabase
+    from miso_tpu_torch.io.miso_db import MISODatabase
 
     found = {}
     for path in glob.glob(os.path.join(out_dir, "*.miso_db")):

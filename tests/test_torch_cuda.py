@@ -71,6 +71,88 @@ def test_kernel_matches_plain_fixed_uniform(cuda, I, num_iso, given):
     _assert_same_chain(got, ref)
 
 
+# every lane width and home of the weights the kernel can be laid out in
+# at R = 16 (lane_test_batch), by isoform width: plain Python, the same
+# list on every machine
+LAYOUTS = [(I, num_iso, plan.T, plan.home)
+           for I, num_iso in ((2, 2), (3, 3), (8, 5), (128, 70))
+           for plan in rk.all_plans(2, 16, I, 2)]
+
+
+def _plan(E, R, I, K, T, home):
+    return next(p for p in rk.all_plans(E, R, I, K)
+                if (p.T, p.home) == (T, home))
+
+
+@pytest.mark.parametrize("given", [False, True])
+@pytest.mark.parametrize("I,num_iso,T,home", LAYOUTS)
+def test_kernel_matches_plain_in_every_layout(cuda, I, num_iso, T, home,
+                                              given):
+    cfg = SamplerConfig(iters=24, burn_in=6, lag=3, chains=2)
+    batch = lane_test_batch(I, num_iso, I, cuda)
+    consts = rk._event_consts(batch)
+    start = None
+    if given:
+        sp = np.zeros((2, 2, I), np.float32)
+        sp[..., :num_iso] = np.random.default_rng(9).dirichlet(
+            np.ones(num_iso), size=(2, 2))
+        start = torch.from_numpy(sp).to(cuda)
+    ref = rk._reassign_plain(0, batch, cfg, consts, start, rk.FIXED_U)
+    got = rk._reassign_cuda(0, batch, cfg, consts, start, True,
+                            plan=_plan(2, 16, I, 2, T, home))
+    torch.cuda.synchronize()
+    _assert_same_chain(got, ref)
+
+
+def test_layouts_cover_every_lane_width_and_home():
+    for width in (2, 3, 8, 128):
+        assert {(T, home) for I, _, T, home in LAYOUTS if I == width} == {
+            (T, home) for T in rk.LANE_THREADS for home in rk.HOMES}
+
+
+def test_philox_chain_is_the_same_in_every_layout(cuda):
+    """One seed, one chain: psi, final_n and acceptance bit-equal for
+    every lane width and home; only the read score's summing order, and
+    with it the recorded log-likelihood's last bits, may differ."""
+    ev = paired_event(*PAIRED_GENE, [0.6, 0.4], 400, 40, 250.0, 15.0,
+                      seed=11)
+    batch = padded_batch([ev] * 5, cuda)       # 5 events: a ragged grid
+    E, R, I = batch.read_w.shape
+    cfg = SamplerConfig(iters=300, burn_in=50, lag=5, chains=3)
+    consts = rk._event_consts(batch)
+    plans = rk.all_plans(E, R, I, cfg.chains)
+    assert {p.T for p in plans} == set(rk.LANE_THREADS)
+    assert {p.home for p in plans} == set(rk.HOMES)
+    first = None
+    for plan in plans:
+        got = rk._reassign_cuda(17, batch, cfg, consts, None, False,
+                                plan=plan).to_numpy()
+        if first is None:
+            first = got
+            continue
+        np.testing.assert_array_equal(got.psi_samples, first.psi_samples)
+        np.testing.assert_array_equal(got.final_n, first.final_n)
+        np.testing.assert_array_equal(got.accepted, first.accepted)
+        np.testing.assert_allclose(got.loglik, first.loglik, rtol=0,
+                                   atol=LL_ATOL)
+    assert 0.05 < first.accepted.sum() / (E * cfg.iters * cfg.chains) < 0.95
+
+
+def test_reads_are_padded_to_a_multiple_of_four(cuda):
+    """R = 14: the wrapper adds two zero-weight reads, which count into
+    no isoform."""
+    cfg = SamplerConfig(iters=24, burn_in=6, lag=3, chains=2)
+    batch = lane_test_batch(3, 3, 1, cuda)
+    batch = batch._replace(read_w=batch.read_w[:, :14].contiguous(),
+                           read_logscore=batch.read_logscore[:, :14]
+                           .contiguous())
+    ref = rk._reassign_plain(0, batch, cfg, rk._event_consts(batch), None,
+                             rk.FIXED_U)
+    got = rk.run_batch_reassign(0, batch, cfg, fixed_uniform=rk.FIXED_U)
+    torch.cuda.synchronize()
+    _assert_same_chain(got, ref)
+
+
 def test_kernel_rejects_bad_input(cuda):
     cfg = SamplerConfig(iters=4, burn_in=0, lag=1, chains=2)
     batch = lane_test_batch(2, 2, 0, cuda)
@@ -80,6 +162,12 @@ def test_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="start_psi"):
         rk.run_batch_reassign(0, batch, cfg, start_psi=torch.zeros(
             (2, 3, 2), device=cuda))
+    # a plan the kernel cannot be laid out in: the launcher refuses it
+    plan = rk.launch_plan(2, 16, 2, 2)._replace(lanes_per_block=3,
+                                                threads=12)
+    with pytest.raises(RuntimeError, match="reassign kernel launch"):
+        rk._reassign_cuda(0, batch, cfg, rk._event_consts(batch), None,
+                          True, plan=plan)
 
 
 @pytest.mark.parametrize("given", [False, True])

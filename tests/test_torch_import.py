@@ -1,36 +1,129 @@
-"""The port never imports jax: the card's machine has none.
+"""The port imports neither jax nor the JAX package: the card's machine
+has no jax, and the port's host half is its own copy.
 
-tests/conftest.py imports jax before any test runs, so the import check
-runs in a fresh interpreter.
+tests/conftest.py imports jax before any test runs, so the import checks
+run in a fresh interpreter.
 """
 import os
+import pkgutil
 import re
 import subprocess
 import sys
+
+import pytest
 
 import miso_tpu_torch
 
 PKG = os.path.dirname(os.path.abspath(miso_tpu_torch.__file__))
 ROOT = os.path.dirname(PKG)
 
+# printed by the fresh interpreter: the modules it must not hold
+FOREIGN = ("print('FOREIGN', sorted(m for m in sys.modules if "
+           "m.split('.')[0] in ('jax', 'jaxlib', 'miso_tpu')))")
+SETTINGS = """\
+[data]
+min_event_reads = 20
 
-def test_port_imports_leave_jax_out():
-    code = ("import sys, miso_tpu_torch, miso_tpu_torch.pipeline, "
-            "miso_tpu_torch.cli.main, miso_tpu_torch.kernels, "
-            "miso_tpu_torch.sampler.model, miso_tpu_torch.testing, "
-            "miso_tpu_torch.sampler.marginal_kernel, "
-            "miso_tpu_torch.sampler.convergent, miso_tpu_torch.stats.rhat; "
-            "print(sorted(m for m in sys.modules "
-            "if m == 'jax' or m.startswith('jax.')))")
+[sampler]
+burn_in = 20
+lag = 5
+num_iters = 220
+num_chains = 2
+"""
+
+
+def _fresh(code, timeout=600):
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]"
+                         capture_output=True, text=True, timeout=timeout)
+    assert out.returncode == 0, out.stderr[-4000:]
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("FOREIGN ")]
+    assert lines, out.stdout[-2000:]
+    return lines[-1]
+
+
+def port_modules():
+    """Every Python module of the port (its built libraries are no
+    modules, though they lie in its packages)."""
+    return sorted(m.name for m in pkgutil.walk_packages(
+        [PKG], prefix="miso_tpu_torch.")
+        if not m.name.rsplit(".", 1)[1].startswith("lib"))
+
+
+def test_port_imports_leave_jax_out():
+    names = port_modules()
+    assert {"miso_tpu_torch.pipeline", "miso_tpu_torch.core.events",
+            "miso_tpu_torch.io.sam", "miso_tpu_torch.native",
+            "miso_tpu_torch.cli.main", "miso_tpu_torch.kernels",
+            "miso_tpu_torch.sampler.reassign_kernel"} <= set(names)
+    code = "import sys, miso_tpu_torch, %s; %s" % (", ".join(names), FOREIGN)
+    assert _fresh(code) == "FOREIGN []"
+
+
+@pytest.mark.parametrize("flags", [[], ["--paired-end", "250", "15"],
+                                   ["--algorithm", "marginal",
+                                    "--linear-start", "--pack-output"]],
+                         ids=["single_end", "paired_end", "marginal_packed"])
+def test_a_run_of_the_port_leaves_jax_and_the_jax_package_out(tmp_path,
+                                                              flags):
+    """Catalog, index and ``miso_torch --run --device cpu`` in a fresh
+    interpreter: neither jax nor miso_tpu is imported on the way."""
+    settings = tmp_path / "settings.txt"
+    settings.write_text(SETTINGS)
+    paired = "--paired-end" in flags
+    code = """
+import os, sys
+from miso_tpu_torch.cli.main import main
+from miso_tpu_torch.testing import indexed_catalog
+fix = indexed_catalog({cat!r}, num_events=6, reads_per_event={reads},
+                      read_len={read_len}, seed=3, paired={paired})
+rc = main(["--run", fix["index"], fix["bam"], "--output-dir", {out!r},
+           "--read-len", "{read_len}", "--settings-filename", {settings!r},
+           "--device", "cpu"] + {flags!r})
+assert rc == 0
+with open(os.path.join({out!r}, "summary", "out.miso_summary")) as f:
+    assert len(f.read().splitlines()) == 7
+{foreign}
+""".format(cat=str(tmp_path / "cat"), out=str(tmp_path / "out"),
+           settings=str(settings), flags=flags, paired=paired,
+           reads=150 if paired else 200, read_len=40 if paired else 36,
+           foreign=FOREIGN)
+    assert _fresh(code) == "FOREIGN []"
+
+
+def test_an_index_of_the_jax_package_loads_without_it(tmp_path):
+    """An index written by the JAX package's ``index_gff`` pickles that
+    package's Gene class; the port reads it into its own."""
+    from miso_tpu.cli.index_gff import main as index_main
+    from miso_tpu.testing import build_catalog_fixture
+
+    fix = build_catalog_fixture(str(tmp_path / "fix"), num_events=5,
+                                reads_per_event=120, seed=5)
+    index_dir = str(tmp_path / "index")
+    assert index_main(["--index", fix["gff"], index_dir]) == 0
+    settings = tmp_path / "settings.txt"
+    settings.write_text(SETTINGS)
+    code = """
+import sys
+from miso_tpu_torch.cli.main import main
+from miso_tpu_torch.io.index import (get_gene_ids_to_filenames,
+                                     load_indexed_gene)
+for gene_id, fname in get_gene_ids_to_filenames({index!r}).items():
+    gene = load_indexed_gene(fname)[gene_id]["gene_object"]
+    assert type(gene).__module__ == "miso_tpu_torch.core.gene", type(gene)
+rc = main(["--run", {index!r}, {bam!r}, "--output-dir", {out!r},
+           "--read-len", "36", "--settings-filename", {settings!r},
+           "--device", "cpu", "--summary-only"])
+assert rc == 0
+{foreign}
+""".format(index=index_dir, bam=fix["bam"], out=str(tmp_path / "out"),
+           settings=str(settings), foreign=FOREIGN)
+    assert _fresh(code) == "FOREIGN []"
 
 
 def test_no_port_source_imports_jax():
-    pat = re.compile(r"^\s*(import jax\b|from jax\b)", re.M)
+    pat = re.compile(r"^\s*(import|from) (jax|miso_tpu)(\.|\s|$)", re.M)
     offenders = []
     for d, _, files in os.walk(PKG):
         for fn in files:
@@ -40,8 +133,7 @@ def test_no_port_source_imports_jax():
                     if pat.search(f.read()):
                         offenders.append(os.path.relpath(path, ROOT))
     assert not offenders
-    # the smoke script reaches the JAX package's host code only through
-    # the port
+    # nor does the smoke script
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         assert not re.search(r"^\s*(import|from) (jax|miso_tpu)\b",
                              f.read(), re.M)

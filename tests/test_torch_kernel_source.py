@@ -1,0 +1,216 @@
+"""The CUDA kernel sources, run on the CPU.
+
+There is no ``nvcc`` and no card where these tests run, so a wrong index
+or a wrong shuffle in ``miso_tpu_torch/csrc/*.cu`` would show only on the
+card.  Here each source is compiled by the host's C++20 compiler against
+``miso_tpu_torch/csrc/host_shim/cuda_runtime.h`` (a block's threads as
+``std::thread``s, warp shuffles through a barrier), loaded in the
+kernels' place, and the port's own wrappers launch it on CPU tensors: the
+REASSIGN kernel in every layout of its launch plan, both kernels against
+their plain versions under fixed uniforms with the card's tolerances.
+What ``nvcc`` makes of the source, and every time, stay the card's to
+show.
+"""
+import contextlib
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import miso_tpu_torch
+from miso_tpu_torch import kernels
+from miso_tpu_torch.sampler import marginal_kernel as mk
+from miso_tpu_torch.sampler import reassign_kernel as rk
+from miso_tpu_torch.sampler.mcmc import SamplerConfig
+from miso_tpu_torch.testing import (PAIRED_GENE, lane_test_batch,
+                                    marginal_lane_batch, padded_batch,
+                                    paired_event)
+
+SHIM = os.path.join(kernels.CSRC, "host_shim")
+# the tolerances of tests/test_torch_cuda.py
+PSI_ATOL, LL_ATOL, N_ATOL = 2e-4, 2e-3, 1e-5
+SMALL = dict(iters=24, burn_in=6, lag=3, chains=2)
+
+
+def host_source(text):
+    """A kernel source as the shim takes it: launches as calls, dynamic
+    shared memory as a pointer."""
+    def launch(m):
+        grid, block, shared = [a.strip() for a in m.group(2).split(",")][:3]
+        return "shim_launch(%s, %s, %s, %s, %s);" % (
+            m.group(1), grid, block, shared, m.group(3))
+
+    text, launches = re.subn(
+        r"(\w+(?:<[^<>;]*>)?)<<<([^;]*?)>>>\(([^;]*?)\);", launch, text)
+    assert launches >= 1
+    return re.sub(r"extern __shared__ [^;]*?(\w+)\[\];",
+                  r"float* \1 = shim_dynamic_shared();", text)
+
+
+@pytest.fixture(scope="module")
+def shim_library(tmp_path_factory):
+    cxx = shutil.which(os.environ.get("CXX", "g++")) or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a C++ compiler")
+    work = tmp_path_factory.mktemp("kernel_source")
+    probe = work / "probe.cpp"
+    probe.write_text("#include <barrier>\nstd::barrier<> b(1);\n")
+    flags = ["-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+             "-ffp-contract=off", "-I", SHIM]
+    if subprocess.run([cxx] + flags + [str(probe), "-o",
+                                       str(work / "probe.so")],
+                      capture_output=True).returncode != 0:
+        pytest.skip("needs a C++20 compiler with <barrier>")
+    sources = []
+    for name in sorted(os.listdir(kernels.CSRC)):
+        if name.endswith(".cu"):
+            with open(os.path.join(kernels.CSRC, name)) as f:
+                out = work / (name[:-3] + ".cpp")
+                out.write_text(host_source(f.read()))
+                sources.append(str(out))
+    lib_path = str(work / "libmiso_kernels_host.so")
+    built = subprocess.run([cxx] + flags + sources + ["-o", lib_path],
+                           capture_output=True, text=True)
+    assert built.returncode == 0, built.stderr[-4000:]
+    return kernels.bind(ctypes.CDLL(lib_path))
+
+
+@pytest.fixture
+def on_cpu(shim_library, monkeypatch):
+    """The wrappers' CUDA routes, launching the host build on CPU
+    tensors."""
+    monkeypatch.setattr(kernels, "load", lambda: shim_library)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    return shim_library
+
+
+def _assert_same_chain(got, ref):
+    got, ref = got.to_numpy(), ref.to_numpy()
+    np.testing.assert_allclose(got.psi_samples, ref.psi_samples, rtol=0,
+                               atol=PSI_ATOL)
+    np.testing.assert_allclose(got.loglik, ref.loglik, rtol=0, atol=LL_ATOL)
+    np.testing.assert_allclose(got.final_n, ref.final_n, rtol=0,
+                               atol=N_ATOL)
+    np.testing.assert_allclose(got.final_psi, ref.final_psi, rtol=0,
+                               atol=PSI_ATOL)
+    np.testing.assert_array_equal(got.accepted, ref.accepted)
+
+
+def _start(num_iso, E, K, I):
+    sp = np.zeros((E, K, I), np.float32)
+    sp[..., :num_iso] = np.random.default_rng(9).dirichlet(
+        np.ones(num_iso), size=(E, K))
+    return torch.from_numpy(sp)
+
+
+# every lane width and home of the weights at R = 16, by isoform width:
+# the vector loads (I <= 8), the scalar ones, and the rolled loops
+# (I > 64; narrow lanes only: a wide one shuffles 128 counts through the
+# shim's barriers five times a step)
+LAYOUTS = [(I, num_iso, plan.T, plan.home)
+           for I, num_iso in ((2, 2), (3, 3), (8, 5), (16, 9), (128, 70))
+           for plan in rk.all_plans(2, 16, I, 2) if I <= 64 or plan.T == 4]
+
+
+@pytest.mark.parametrize("I,num_iso,T,home", LAYOUTS)
+def test_reassign_source_matches_plain_in_every_layout(on_cpu, I, num_iso,
+                                                       T, home):
+    cfg = SamplerConfig(**SMALL)
+    batch = lane_test_batch(I, num_iso, I, "cpu")
+    consts = rk._event_consts(batch)
+    plan = next(p for p in rk.all_plans(2, 16, I, 2)
+                if (p.T, p.home) == (T, home))
+    for start in (None, _start(num_iso, 2, 2, I)):
+        ref = rk._reassign_plain(0, batch, cfg, consts, start, rk.FIXED_U)
+        got = rk._reassign_cuda(0, batch, cfg, consts, start, True,
+                                plan=plan)
+        _assert_same_chain(got, ref)
+
+
+def test_reassign_source_through_the_wrapper(on_cpu):
+    """The public entry point on a tensor that claims no device: here
+    only ``_reassign_cuda`` is rerouted, so call it as the wrapper does,
+    with the plan the wrapper would choose, on reads that need padding
+    to a multiple of four."""
+    cfg = SamplerConfig(**SMALL)
+    batch = lane_test_batch(3, 3, 1, "cpu")
+    batch = batch._replace(read_w=batch.read_w[:, :14].contiguous(),
+                           read_logscore=batch.read_logscore[:, :14]
+                           .contiguous())
+    consts = rk._event_consts(batch)
+    launches = rk.LAUNCHES["cuda"]
+    ref = rk._reassign_plain(0, batch, cfg, consts, None, rk.FIXED_U)
+    got = rk._reassign_cuda(0, batch, cfg, consts, None, True)
+    assert rk.LAUNCHES["cuda"] == launches + 1
+    _assert_same_chain(got, ref)
+
+
+def test_reassign_source_draws_one_philox_chain_in_every_layout(on_cpu):
+    ev = paired_event(*PAIRED_GENE, [0.6, 0.4], 150, 40, 250.0, 15.0,
+                      seed=11)
+    batch = padded_batch([ev] * 3, "cpu")      # 3 events: a ragged grid
+    E, R, I = batch.read_w.shape
+    cfg = SamplerConfig(iters=60, burn_in=10, lag=5, chains=3)
+    consts = rk._event_consts(batch)
+    plans = rk.all_plans(E, R, I, cfg.chains)
+    assert {(p.T, p.home) for p in plans} == {
+        (T, h) for T in rk.LANE_THREADS for h in rk.HOMES}
+    first = None
+    for plan in plans:
+        got = rk._reassign_cuda(17, batch, cfg, consts, None, False,
+                                plan=plan).to_numpy()
+        if first is None:
+            first = got
+            continue
+        np.testing.assert_array_equal(got.psi_samples, first.psi_samples)
+        np.testing.assert_array_equal(got.final_n, first.final_n)
+        np.testing.assert_array_equal(got.accepted, first.accepted)
+        np.testing.assert_allclose(got.loglik, first.loglik, rtol=0,
+                                   atol=LL_ATOL)
+    # a chain that moves, and counts every compatible read once
+    assert 0 < first.accepted.sum() < E * cfg.iters * cfg.chains
+    valid = (batch.read_w.sum(-1) > 0).sum(-1).numpy()
+    np.testing.assert_array_equal(first.final_n.sum(-1),
+                                  np.repeat(valid[:, None], 3, axis=1))
+    # another seed, another chain
+    other = rk._reassign_cuda(18, batch, cfg, consts, None, False,
+                              plan=plans[0]).to_numpy()
+    assert not np.array_equal(other.psi_samples, first.psi_samples)
+
+
+def test_launcher_refuses_a_plan_it_cannot_lay_out(on_cpu):
+    cfg = SamplerConfig(**SMALL)
+    batch = lane_test_batch(2, 2, 0, "cpu")
+    consts = rk._event_consts(batch)
+    good = rk.launch_plan(2, 16, 2, 2)
+    for bad in (good._replace(lanes_per_block=3, threads=12),
+                good._replace(T=5),
+                good._replace(home="shared", shared_bytes=good.shared_bytes
+                              + 4)):
+        with pytest.raises(RuntimeError, match="reassign kernel launch"):
+            rk._reassign_cuda(0, batch, cfg, consts, None, True, plan=bad)
+
+
+@pytest.mark.parametrize("given", [False, True])
+@pytest.mark.parametrize("I,num_iso", [(2, 2), (3, 3), (8, 5), (128, 70)])
+def test_marginal_source_matches_plain(on_cpu, I, num_iso, given):
+    """B2 with padded isoforms, an empty class and a padding event."""
+    cfg = SamplerConfig(algorithm="marginal", **SMALL)
+    batch = marginal_lane_batch(I, num_iso, I, "cpu")
+    consts = mk._marginal_consts(batch)
+    start = None
+    if given:
+        start = torch.cat([_start(num_iso, 2, 2, I),
+                           torch.zeros((1, 2, I))])
+    ref = mk._marginal_plain(0, batch, cfg, consts, start, mk.FIXED_U)
+    got = mk._marginal_cuda(0, batch, cfg, consts, start, True)
+    _assert_same_chain(got, ref)

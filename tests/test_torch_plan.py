@@ -1,0 +1,230 @@
+"""The REASSIGN kernel's launch plan and both kernels' bounds: the plain
+Python around the CUDA sources (miso_tpu_torch/sampler/reassign_kernel.py,
+marginal_kernel.py), checked without a card."""
+import re
+import os
+
+import pytest
+
+import miso_tpu_torch
+from miso_tpu_torch.sampler import marginal_kernel as mk
+from miso_tpu_torch.sampler import reassign_kernel as rk
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(miso_tpu_torch.__file__)),
+                    "csrc", "reassign_kernel.cu")
+DEPTHS = (32, 320, 1024, 4096, 16384)
+
+
+def _well_formed(plan, R, I, K):
+    assert plan.T in (4, 8, 16, 32)
+    assert plan.threads == plan.lanes_per_block * plan.T
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+    assert plan.threads <= rk.MAX_THREADS
+    assert plan.home in rk.HOMES
+    assert 0 <= plan.shared_bytes <= 232448
+    assert plan.groups_per_thread == -(-(R // 4) // plan.T)
+    if plan.home == "shared":
+        # whole events in the block, one tile each
+        assert plan.lanes_per_block % K == 0
+        assert plan.shared_bytes == (plan.lanes_per_block // K) * R * I * 4
+    else:
+        assert plan.shared_bytes == 0
+
+
+@pytest.mark.parametrize("R", DEPTHS)
+@pytest.mark.parametrize("I", rk.KERNEL_ISO)
+def test_a_plan_exists_for_every_width_and_depth(I, R):
+    for E in (1, 3, 512, 4096):
+        for K in (1, 2, 4, 6):
+            plan = rk.launch_plan(E, R, I, K)
+            _well_formed(plan, R, I, K)
+            assert plan in rk.all_plans(E, R, I, K)
+            # at least the narrowest lane that fills the card, else a
+            # whole warp; wider only to uncrowd the tiles in shared memory
+            fill = next((t for t in rk.LANE_THREADS
+                         if E * K * t >= 32 * rk.FILL_WARPS), 32)
+            assert plan.T >= fill
+            widths = [T for T in rk.LANE_THREADS if T >= fill]
+            state = {T: rk._layouts(E, R, I, K, T) for T in widths}
+            roomy = [T for T in widths
+                     if "shared" in state[T][1] and not state[T][0]]
+            fitting = [T for T in widths if "shared" in state[T][1]]
+            if roomy:       # the narrowest lane whose tiles crowd no SM
+                assert (plan.T, plan.home) == (roomy[0], "shared")
+            elif fitting:   # the fewest events in a block
+                assert (plan.T, plan.home) == (fitting[-1], "shared")
+            else:
+                assert (plan.T, plan.home) == (fill, "cache")
+
+
+def test_main_path_chunks_get_the_lane_that_fills_the_card():
+    """The 2,000-gene run's launches (512, 1024, 3 and 461 events, padded
+    to powers of two) and the whole bucket, at I=2, R=320, K=6."""
+    got = {E: rk.launch_plan(E, 320, 2, 6) for E in (4, 512, 1024, 2048)}
+    assert {E: p.T for E, p in got.items()} == {4: 32, 512: 16, 1024: 8,
+                                                2048: 4}
+    assert all(p.home == "shared" and p.threads in (96, 192)
+               for p in got.values())
+    main = got[2048]
+    assert main.T < 32 and main.lanes_per_block == 24   # four events
+    assert main.shared_bytes == 4 * 320 * 2 * 4
+    # the paired-end catalog's bucket
+    assert rk.launch_plan(2048, 160, 2, 6).T == 4
+
+
+@pytest.mark.parametrize("E,R,I,home", [
+    (64, 1024, 2, "shared"), (64, 16384, 2, "shared"),
+    (2048, 320, 8, "shared"), (64, 16384, 4, "cache"),
+    (64, 4096, 16, "cache"), (64, 1024, 128, "cache"),
+    (4096, 16384, 2, "shared")])
+def test_tiles_beyond_shared_memory_go_to_the_cache(E, R, I, home):
+    plan = rk.launch_plan(E, R, I, 6)
+    assert plan.home == home
+    if home == "cache":     # one event's tile is beyond shared memory
+        assert R * I * 4 > rk.SHARED_LIMIT
+
+
+def test_every_lane_width_and_home_can_be_forced_where_it_fits():
+    for I in (2, 128):
+        plans = rk.all_plans(2, 16, I, 2)
+        assert {(p.T, p.home) for p in plans} == {
+            (T, h) for T in rk.LANE_THREADS for h in rk.HOMES}
+        for plan in plans:
+            _well_formed(plan, 16, I, 2)
+    # one event's 128 KB tile fits, four events' do not
+    assert {p.T for p in rk.all_plans(64, 16384, 2, 6)
+            if p.home == "shared"} == {16, 32}
+
+
+def test_many_chains_leave_whole_events_and_shared_memory():
+    plan = rk.launch_plan(4, 1024, 2, 9)    # 9 * 32 threads > a block
+    assert plan.home == "cache"
+    assert plan.threads == rk.MAX_THREADS
+    assert all(p.home != "shared" for p in rk.all_plans(4, 1024, 2, 9)
+               if p.T == 32)
+
+
+def test_shared_memory_must_not_cost_resident_blocks():
+    # 64 blocks on 132 SMs: one block's 128 KB tile crowds nothing out
+    assert rk.launch_plan(64, 16384, 2, 6).shared_bytes == 131072
+    # four events' 128 KB of tiles would leave an SM one block of three
+    # warps; one event's 32 KB leave it six blocks of lanes of 16
+    wide = rk.launch_plan(2048, 1024, 8, 6)
+    assert (wide.T, wide.home, wide.shared_bytes) == (16, "shared", 32768)
+    assert any(p.home == "shared" and p.shared_bytes == 131072
+               for p in rk.all_plans(2048, 1024, 8, 6) if p.T == 4)
+    # at 255 registers a thread an SM holds two blocks of 96 threads:
+    # four events' 80 KB of tiles cost it none, 160 KB would
+    wider = rk.launch_plan(2048, 320, 16, 6)
+    assert (wider.T, wider.home, wider.shared_bytes) == (4, "shared", 81920)
+    widest = rk.launch_plan(2048, 320, 32, 6)
+    assert (widest.T, widest.home, widest.shared_bytes) == (8, "shared",
+                                                            81920)
+    # one event's 128 KB at any lane width: an SM holds one block, and
+    # the widest lane gives that block the most warps
+    deep = rk.launch_plan(2048, 4096, 8, 6)
+    assert (deep.T, deep.home, deep.threads) == (32, "shared", 192)
+    # the same tiles in a launch of 64 blocks stay in shared memory
+    assert rk.launch_plan(256, 1024, 8, 6).home == "shared"
+    # a block takes 1 KB of the SM's 228 beside its own
+    assert rk.SM_SHARED // (32768 + rk.BLOCK_RESERVE) == 6   # not 7
+
+
+@pytest.mark.parametrize("E,R,I,K", [(8, 318, 2, 6), (8, 0, 2, 6),
+                                     (8, 320, 5, 6), (8, 320, 2, 0),
+                                     (0, 320, 2, 6)])
+def test_plan_rejects_what_the_kernel_does_not_take(E, R, I, K):
+    with pytest.raises(ValueError):
+        rk.launch_plan(E, R, I, K)
+    with pytest.raises(ValueError):
+        rk.all_plans(E, R, I, K)
+
+
+def test_plan_constants_equal_the_kernel_source():
+    with open(CSRC) as f:
+        src = f.read()
+
+    def const(name):
+        return int(re.search(r"constexpr int [^;]*\b%s = (\d+)" % name,
+                             src).group(1))
+
+    assert [const("k" + h.capitalize()) for h in rk.HOMES] == [0, 1]
+    assert const("kMaxThreads") == rk.MAX_THREADS
+    widths = sorted({int(w) for w in re.findall(r"case (\d+): return", src)})
+    assert tuple(widths) == rk.KERNEL_ISO
+    assert tuple(rk.KERNEL_REGISTERS) == rk.KERNEL_ISO
+    assert all(0 < r <= 255 for r in rk.KERNEL_REGISTERS.values())
+
+
+# ------------------------------------------------------------- the bounds
+def test_reassign_bound_arithmetic():
+    E, R, I, K, iters, rec = 2048, 320, 2, 6, 5000, 450
+    b = rk.reassign_bound(E, R, I, K, iters, rec)
+    steps, lanes, reads = iters + 1, E * K, E * R
+    assert b["bytes"] == 4 * (2 * reads * I + 5 * E * I + 2 * E
+                              + E * rec * K * (I + 1) + lanes * (2 * I + 1))
+    assert b["int_ops"] == steps * (
+        K * (E * (R // 4) * 40 + 3 * reads) + lanes * 2 * 40)
+    assert b["fp32_ops"] == steps * (K * reads * (3 * I - 1)
+                                     + lanes * 20 * I)
+    assert b["bytes_ms"] == pytest.approx(1e3 * b["bytes"] / 3.35e12)
+    # the integer pipe, at half the FP32 rate, takes longest here
+    assert b["ops_ms"] == pytest.approx(1e3 * b["int_ops"] / 16.75e12)
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == b["ops_ms"] > 100 * b["bytes_ms"]
+    assert 15.0 < b["bound_ms"] < 16.0
+
+
+@pytest.mark.parametrize("fp_ops,int_ops,ms", [
+    (33.5e9, 0, 1.0),           # the FP32 pipe alone
+    (0, 16.75e9, 1.0),          # the integer pipe alone, at half the rate
+    (33.5e9, 16.75e9, 1.5),     # both: the schedulers issue one or the other
+    (3.35e9, 16.75e9, 1.0),     # FP32 work in the integer pipe's shadow
+    (16.75e9, 16.75e9, 1.0)])   # both pipes busy, every issue slot taken
+def test_the_pipes_run_side_by_side(fp_ops, int_ops, ms):
+    b = rk.bound(0, int(fp_ops), int(int_ops))
+    assert b["ops_ms"] == pytest.approx(ms)
+    assert b["bound_ms"] == b["ops_ms"] and b["bound_by"] == "operations"
+    assert b["ops_ms"] <= 1e3 * (fp_ops / 33.5e12 + int_ops / 16.75e12)
+
+
+def test_reassign_bound_counts_what_the_data_needs():
+    full = rk.reassign_bound(64, 320, 2, 6, 5000, 450)
+    part = rk.reassign_bound(64, 320, 2, 6, 5000, 450,
+                             valid_reads=64 * 300)
+    assert part["bytes"] == full["bytes"]
+    assert part["int_ops"] == full["int_ops"] - 5001 * 6 * 3 * 64 * 20
+    # a padded read keeps its I adds, loses the rest of its walk
+    assert part["fp32_ops"] == full["fp32_ops"] - 5001 * 6 * 64 * 20 * 3
+    assert part["bound_ms"] < full["bound_ms"]
+    # twice the chains or the steps, twice the work
+    twice = rk.reassign_bound(64, 320, 2, 12, 5000, 450)
+    assert twice["int_ops"] == 2 * full["int_ops"]
+    assert twice["fp32_ops"] == 2 * full["fp32_ops"]
+
+
+def test_a_launch_with_no_steps_is_bound_by_bytes():
+    b = rk.reassign_bound(2048, 16384, 2, 1, 0, 0)
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == b["bytes_ms"] > b["ops_ms"]
+
+
+def test_marginal_bound_arithmetic():
+    E, C, I, K, iters, rec = 2048, 4, 2, 6, 5000, 450
+    b = mk.marginal_bound(E, C, I, K, iters, rec)
+    steps, lanes = iters + 1, E * K
+    assert b["bytes"] == 4 * (E * C * I + E * C + E + E * I + 4 * E
+                              + E * rec * K * (I + 1) + lanes * (I + 1))
+    assert b["fp32_ops"] == steps * (
+        K * E * C * (2 * I + 1 + mk.SFU_COST)
+        + lanes * (2 * I * mk.SFU_COST + 12 * I))
+    assert b["int_ops"] == steps * lanes * 2 * 40
+    assert b["bound_by"] == "operations"
+    # issue-bound: FP32 and integer instructions share the schedulers
+    assert b["bound_ms"] == pytest.approx(
+        1e3 * (b["fp32_ops"] + b["int_ops"]) / 33.5e12)
+    assert 0.3 < b["bound_ms"] < 0.4
+    fewer = mk.marginal_bound(E, C, I, K, iters, rec, live_classes=E * 3)
+    assert fewer["fp32_ops"] == b["fp32_ops"] - steps * K * E * (
+        2 * I + 1 + mk.SFU_COST)
+    assert fewer["int_ops"] == b["int_ops"]
