@@ -6,8 +6,9 @@
 // result to the plain PyTorch versions.  A block's threads run as std::threads,
 // block after block.  A warp is 32 consecutive threads; a shuffle goes
 // through a buffer and a barrier of the warp, so every thread of a warp
-// must take every shuffle (the kernels' own rule), and `__syncthreads`
-// is a barrier of the block.  Nothing here measures anything.
+// must take every shuffle and vote (the kernels' own rule), and
+// `__syncthreads` is a barrier of the block.  Nothing here measures
+// anything.
 #pragma once
 #include <barrier>
 #include <cmath>
@@ -44,8 +45,9 @@ template <class T> inline T __ldg(const T* p) { return *p; }
 
 struct ShimWarp {
   std::barrier<> bar;
+  int threads;
   float buf[32];
-  explicit ShimWarp(int threads) : bar(threads) {}
+  explicit ShimWarp(int threads_) : bar(threads_), threads(threads_) {}
 };
 static thread_local ShimWarp* shim_warp;
 static thread_local std::barrier<>* shim_block;
@@ -64,6 +66,15 @@ inline float __shfl_xor_sync(unsigned, float v, int offset, int = 32) {
 inline float __shfl_sync(unsigned, float v, int src, int width = 32) {
   const int lane = (int)(threadIdx.x & 31u);
   return shim_exchange(v, (lane & ~(width - 1)) | (src & (width - 1)));
+}
+inline int __any_sync(unsigned, int pred) {
+  shim_warp->buf[threadIdx.x & 31u] = pred ? 1.f : 0.f;
+  shim_warp->bar.arrive_and_wait();
+  int any = 0;
+  for (int t = 0; t < shim_warp->threads; ++t)
+    any |= shim_warp->buf[t] != 0.f;
+  shim_warp->bar.arrive_and_wait();
+  return any;
 }
 inline void __syncthreads() { shim_block->arrive_and_wait(); }
 // the block's dynamic shared memory (`extern __shared__ ... name[];`)

@@ -113,7 +113,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         [vp] * 10          # 6 inputs (start may be null), 4 outputs
         + [ci] * 8         # E, C, I, K, iters, burn_in, lag, rrec
         + [cu, cu]         # seed words
-        + [ci, vp])        # fixed_u, stream
+        + [ci] * 3         # fixed_u, T, lanes per block
+        + [vp])            # stream
     lib.miso_cuda_error_string.restype = ctypes.c_char_p
     lib.miso_cuda_error_string.argtypes = [ci]
     return lib

@@ -16,12 +16,16 @@ result layout.  The collapsed algorithms have no Gibbs step, so
   (``pallas_marginal.py:86-161``), and ``chip_smoke.py`` holds the kernel
   against it on the card.
 
-What bounds the kernel on an H100: a serial chain of scalar work per lane
-(2*C*I products, C logs, a few I-wide exps and logs per step), 5,000
-dependent steps, and parallelism only across the E*K lanes.  Its design
-answers that with one thread per lane, the K chains of an event on
-neighbouring threads sharing the event's W through the cache, and the
-current score carried from the accepted state (see the .cu header).
+What bounds the kernel on an H100: the dependent chain of a step (alpha
+-> exp -> division -> log -> dot product -> log -> ordered sum ->
+compare, all precise f32) times 5,001 dependent steps, then operations;
+parallelism exists only across the E*K lanes.  Its design (see the .cu
+header) is fixed per launch by ``marginal_plan``, plain Python that the
+CPU tests check: a lane is a group of T threads inside a warp, which
+split the event's classes and draw the randoms of T steps ahead of the
+chain; the I-wide arithmetic they repeat, so T narrows as the card fills
+and stays at two from 16 isoforms on; the current score and the state's
+part of the proposal density are carried from the accepted state.
 
 Both routes sum in a fixed order -- s_c = sum_i W_ci psi_i over isoforms,
 then sum_c counts_c log s_c over classes -- and never through ``@``: a
@@ -34,11 +38,13 @@ both routes reproduce the JAX kernel's chain.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from miso_tpu_torch.sampler.mcmc import EventBatch, SamplerConfig
-from miso_tpu_torch.sampler.reassign_kernel import (FIXED_U, KERNEL_ISO,
+from miso_tpu_torch.sampler.reassign_kernel import (FILL_WARPS, FIXED_U,
+                                                    KERNEL_ISO,
                                                     PHILOX_INT_OPS, TWO_PI,
                                                     _U24, _checked,
                                                     _is_record, _result,
@@ -49,6 +55,72 @@ TINY = 1e-38
 # A logf / expf call beside an FP32 instruction: the special-function
 # unit takes 16 a clock on each SM, the FP32 pipe 128.
 SFU_COST = 8
+
+
+# The launch plan's constants; csrc/marginal_kernel.cu holds the same
+# block size (kMaxThreads, its __launch_bounds__).
+LANE_THREADS = (1, 2, 4, 8, 16, 32)
+MAX_THREADS = 128
+# A lane wider than the event's classes only draws the randoms further
+# ahead: worth its redundant work up to half of FILL_WARPS.
+AHEAD_WARPS = FILL_WARPS // 2
+# (from this many isoforms on, the widest lane): a thread's I-wide state
+# fills the register file from 16 isoforms on (206 to 255 registers,
+# spills from 32) and lies in local memory from 128 on; wider lanes lost
+# at every such width timed (PERF.md).
+WIDE_ISO = ((128, 1), (16, 2))
+
+
+class MarginalPlan(NamedTuple):
+    """How one launch of the kernel is laid out."""
+    T: int                 # threads of a lane (one (event, chain) chain)
+    lanes_per_block: int
+    threads: int           # lanes_per_block * T, a multiple of 32
+
+
+def _check_shape(E: int, C: int, I: int, K: int) -> None:
+    if I not in KERNEL_ISO:
+        raise ValueError("the MARGINAL kernel takes I in %s, got %d"
+                         % (KERNEL_ISO, I))
+    if E < 1 or C < 1 or K < 1:
+        raise ValueError("the MARGINAL kernel takes E, C and K positive "
+                         "(got E=%d, C=%d, K=%d)" % (E, C, K))
+
+
+def _layout(T: int) -> MarginalPlan:
+    return MarginalPlan(T=T, lanes_per_block=MAX_THREADS // T,
+                        threads=MAX_THREADS)
+
+
+def marginal_plan(E: int, C: int, I: int, K: int) -> MarginalPlan:
+    """The kernel's launch for E events of (C, I) class weights and K
+    chains.
+
+    A lane's threads split the event's classes and draw the randoms of
+    as many steps ahead; everything I-wide they repeat.  A small launch
+    is bound by the latency of a step and repeats for nothing, a full
+    one pays for every repeated instruction.  So T is the widest lane
+    whose launch stays within ``FILL_WARPS`` warps (E * K * T / 32), one
+    thread where none does; a lane with more threads than classes stays
+    within ``AHEAD_WARPS``; and wide isoform counts cap the lane
+    (``WIDE_ISO``)."""
+    _check_shape(E, C, I, K)
+    lanes = E * K
+    cap = next((t for i, t in WIDE_ISO if I >= i), LANE_THREADS[-1])
+    T = 1
+    for wider in LANE_THREADS[1:]:
+        fill = AHEAD_WARPS if wider >= 2 * C else FILL_WARPS
+        if wider <= cap and lanes * wider <= 32 * fill:
+            T = wider
+    return _layout(T)
+
+
+def all_marginal_plans(E: int, C: int, I: int, K: int):
+    """Every plan the kernel can be launched with at this shape, one per
+    lane width: the card's checks run them all
+    (``_marginal_cuda(..., plan=...)``)."""
+    _check_shape(E, C, I, K)
+    return [_layout(T) for T in LANE_THREADS]
 
 
 def marginal_bound(E: int, C: int, I: int, K: int, iters: int,
@@ -241,8 +313,10 @@ def _marginal_plain(seed, batch, cfg, consts, start_psi=None,
     return _result(psi_out, ll_out, acc, final_n, psi, cfg)
 
 
-def _marginal_cuda(seed, batch, cfg, consts, start_psi, fixed):
-    """Launch csrc/marginal_kernel.cu on the batch's CUDA device."""
+def _marginal_cuda(seed, batch, cfg, consts, start_psi, fixed, plan=None):
+    """Launch csrc/marginal_kernel.cu on the batch's CUDA device, laid
+    out by ``marginal_plan`` (``plan`` forces another lane width: the
+    card's checks run them all)."""
     from miso_tpu_torch import kernels
 
     f32 = torch.float32
@@ -250,9 +324,9 @@ def _marginal_cuda(seed, batch, cfg, consts, start_psi, fixed):
     K = cfg.chains
     RREC = max(cfg.num_records, 0)
     dev = batch.weights.device
-    if I not in KERNEL_ISO:
-        raise ValueError("the MARGINAL kernel takes I in %s, got %d"
-                         % (KERNEL_ISO, I))
+    _check_shape(E, C, I, K)
+    if plan is None:
+        plan = marginal_plan(E, C, I, K)
     inputs = [
         _checked(batch.weights, "weights", (E, C, I), f32, dev),
         _checked(batch.counts, "counts", (E, C), f32, dev),
@@ -277,8 +351,8 @@ def _marginal_cuda(seed, batch, cfg, consts, start_psi, fixed):
             psi_out.data_ptr(), ll_out.data_ptr(), acc.data_ptr(),
             final_psi.data_ptr(), E, C, I, K, cfg.iters, cfg.burn_in,
             cfg.lag, RREC, seed & 0xFFFFFFFF, seed >> 32, int(bool(fixed)),
-            stream)
-    kernels.check(lib, rc, "marginal kernel launch")
+            plan.T, plan.lanes_per_block, stream)
+    kernels.check(lib, rc, "marginal kernel launch (%s)" % (plan,))
     LAUNCHES["cuda"] += 1
     final_n = torch.zeros((E, K, I), dtype=f32, device=dev)
     return _result(psi_out, ll_out, acc, final_n, final_psi, cfg)

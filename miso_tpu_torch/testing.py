@@ -271,19 +271,20 @@ def lane_test_batch(I, num_iso, seed, device, E=2, R=16):
     return batch
 
 
-def marginal_lane_batch(I, num_iso, seed, device):
+def marginal_lane_batch(I, num_iso, seed, device, C=4):
     """The MARGINAL inputs of tests/test_pallas_interpret.py, widened to
-    any I: E=2 events of ``num_iso`` real isoforms padded to I, C=4
-    classes of random weights with the last class empty and counts
-    (30, 20, 10, 0), then one padding event (num_iso = 0) as
-    ``_pow2_pad_events`` adds them."""
-    E, C = 3, 4
+    any I (and any class count C): E=2 events of ``num_iso`` real
+    isoforms padded to I, C=4 classes of random weights with the last
+    class empty and counts (30, 20, 10, 0) (repeated for a wider C),
+    then one padding event (num_iso = 0) as ``_pow2_pad_events`` adds
+    them."""
+    E = 3
     rng = np.random.default_rng(seed)
     weights = np.zeros((E, C, I), np.float32)
     weights[:2, :, :num_iso] = rng.random((2, C, num_iso))
     weights[:, -1, :] = 0.0
     counts = np.zeros((E, C), np.float32)
-    counts[:2] = [30.0, 20.0, 10.0, 0.0]
+    counts[:2] = np.resize([30.0, 20.0, 10.0, 0.0], C)
     num_iso_v = np.array([num_iso, num_iso, 0], np.int32)
     batch, _ = batch_from_numpy(EventBatch(
         weights=weights, log_read=np.zeros((E, C, I)), counts=counts,

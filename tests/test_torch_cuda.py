@@ -195,6 +195,61 @@ def test_marginal_kernel_matches_plain_fixed_uniform(cuda, I, num_iso,
     _assert_same_chain(got, ref)
 
 
+# every lane width by isoform width and class count (C = 4: a class a
+# thread at T = 4; 5: no lane width divides it; 40: above the widest
+# lane): plain Python, the same list on every machine
+M_LAYOUTS = [(I, num_iso, C, plan.T)
+             for I, num_iso in ((2, 2), (3, 3), (8, 5), (128, 70))
+             for C in (4, 5, 40)
+             for plan in mk.all_marginal_plans(3, C, I, 2)]
+
+
+@pytest.mark.parametrize("given", [False, True])
+@pytest.mark.parametrize("I,num_iso,C,T", M_LAYOUTS)
+def test_marginal_kernel_matches_plain_in_every_plan(cuda, I, num_iso, C, T,
+                                                     given):
+    cfg = SamplerConfig(iters=24, burn_in=6, lag=3, chains=2,
+                        algorithm="marginal")
+    batch = marginal_lane_batch(I, num_iso, I, cuda, C=C)
+    consts = mk._marginal_consts(batch)
+    start = None
+    if given:
+        sp = np.zeros((3, 2, I), np.float32)
+        sp[:2, :, :num_iso] = np.random.default_rng(9).dirichlet(
+            np.ones(num_iso), size=(2, 2))
+        start = torch.from_numpy(sp).to(cuda)
+    plan = next(p for p in mk.all_marginal_plans(3, C, I, 2) if p.T == T)
+    ref = mk._marginal_plain(0, batch, cfg, consts, start, mk.FIXED_U)
+    got = mk._marginal_cuda(0, batch, cfg, consts, start, True, plan=plan)
+    torch.cuda.synchronize()
+    _assert_same_chain(got, ref)
+
+
+def test_marginal_philox_chain_is_the_same_in_every_plan(cuda):
+    """One seed, one chain: psi, loglik and acceptance bit-equal for
+    every lane width (the score is summed in class order in all)."""
+    batch = marginal_lane_batch(3, 3, 5, cuda, C=40)
+    E, C, I = batch.weights.shape
+    cfg = SamplerConfig(iters=300, burn_in=50, lag=5, chains=3,
+                        algorithm="classes")
+    consts = mk._marginal_consts(batch)
+    first = None
+    for plan in mk.all_marginal_plans(E, C, I, cfg.chains):
+        got = mk._marginal_cuda(17, batch, cfg, consts, None, False,
+                                plan=plan).to_numpy()
+        if first is None:
+            first = got
+            continue
+        np.testing.assert_array_equal(got.psi_samples, first.psi_samples)
+        np.testing.assert_array_equal(got.loglik, first.loglik)
+        np.testing.assert_array_equal(got.final_psi, first.final_psi)
+        np.testing.assert_array_equal(got.accepted, first.accepted)
+    real = first.accepted[:2] / (cfg.iters * cfg.chains)
+    assert np.all((0.02 < real) & (real < 0.98))
+    other = mk._marginal_cuda(18, batch, cfg, consts, None, False).to_numpy()
+    assert not np.array_equal(other.psi_samples, first.psi_samples)
+
+
 def test_marginal_kernel_rejects_bad_input(cuda):
     cfg = SamplerConfig(iters=4, burn_in=0, lag=1, chains=2,
                         algorithm="classes")
@@ -210,6 +265,11 @@ def test_marginal_kernel_rejects_bad_input(cuda):
             (3, 3, 2), device=cuda))
     with pytest.raises(ValueError, match="takes I in"):
         mk.run_batch_marginal(0, marginal_lane_batch(5, 5, 0, cuda), cfg)
+    # a plan the kernel cannot be laid out in: the launcher refuses it
+    plan = mk.marginal_plan(3, 4, 2, 2)._replace(T=8, lanes_per_block=3)
+    with pytest.raises(RuntimeError, match="marginal kernel launch"):
+        mk._marginal_cuda(0, batch, cfg, mk._marginal_consts(batch), None,
+                          True, plan=plan)
 
 
 @pytest.mark.parametrize("algorithm", ["reassign", "marginal"])

@@ -6,8 +6,9 @@ card.  Here each source is compiled by the host's C++20 compiler against
 ``miso_tpu_torch/csrc/host_shim/cuda_runtime.h`` (a block's threads as
 ``std::thread``s, warp shuffles through a barrier), loaded in the
 kernels' place, and the port's own wrappers launch it on CPU tensors: the
-REASSIGN kernel in every layout of its launch plan, both kernels against
-their plain versions under fixed uniforms with the card's tolerances.
+REASSIGN and MARGINAL kernels in every layout of their launch plans,
+against their plain versions under fixed uniforms with the card's
+tolerances, and one Philox chain whatever the layout.
 What ``nvcc`` makes of the source, and every time, stay the card's to
 show.
 """
@@ -91,6 +92,23 @@ def on_cpu(shim_library, monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: types.SimpleNamespace(cuda_stream=0))
     return shim_library
+
+
+@pytest.mark.parametrize("entry,source", [
+    ("miso_reassign", "reassign_kernel.cu"),
+    ("miso_marginal", "marginal_kernel.cu")])
+def test_binding_declares_every_argument(shim_library, entry, source):
+    """ctypes passes an argument it has no type for as a 32-bit int: one
+    declared type too few and the stream pointer, the last argument, is
+    cut."""
+    with open(os.path.join(kernels.CSRC, source)) as f:
+        params = re.search(r'extern "C" int %s\((.*?)\)\s*{' % entry,
+                           f.read(), re.S).group(1)
+    declared = getattr(shim_library, entry).argtypes
+    assert len(declared) == params.count(",") + 1
+    assert declared[-1] is ctypes.c_void_p      # the stream
+    pointers = sum("*" in p for p in params.split(","))
+    assert list(declared).count(ctypes.c_void_p) == pointers
 
 
 def _assert_same_chain(got, ref):
@@ -203,7 +221,8 @@ def test_launcher_refuses_a_plan_it_cannot_lay_out(on_cpu):
 @pytest.mark.parametrize("given", [False, True])
 @pytest.mark.parametrize("I,num_iso", [(2, 2), (3, 3), (8, 5), (128, 70)])
 def test_marginal_source_matches_plain(on_cpu, I, num_iso, given):
-    """B2 with padded isoforms, an empty class and a padding event."""
+    """B2 with padded isoforms, an empty class and a padding event, in
+    the plan the wrapper chooses."""
     cfg = SamplerConfig(algorithm="marginal", **SMALL)
     batch = marginal_lane_batch(I, num_iso, I, "cpu")
     consts = mk._marginal_consts(batch)
@@ -212,5 +231,80 @@ def test_marginal_source_matches_plain(on_cpu, I, num_iso, given):
         start = torch.cat([_start(num_iso, 2, 2, I),
                            torch.zeros((1, 2, I))])
     ref = mk._marginal_plain(0, batch, cfg, consts, start, mk.FIXED_U)
+    launches = mk.LAUNCHES["cuda"]
     got = mk._marginal_cuda(0, batch, cfg, consts, start, True)
+    assert mk.LAUNCHES["cuda"] == launches + 1
     _assert_same_chain(got, ref)
+
+
+# every lane width by isoform width and class count: C = 4 (one class a
+# thread at T = 4), 5 (no lane width divides it) and 40 (more classes
+# than the widest lane has threads); the rolled loops (I > 64) at the
+# narrow lanes only: a wide lane shuffles 128 normals through the shim's
+# barriers every step
+M_LAYOUTS = [(I, num_iso, C, plan.T)
+             for I, num_iso in ((2, 2), (3, 3), (8, 5), (128, 70))
+             for C in (4, 5, 40)
+             for plan in mk.all_marginal_plans(3, C, I, 2)
+             if I <= 64 or plan.T <= 4]
+
+
+@pytest.mark.parametrize("I,num_iso,C,T", M_LAYOUTS)
+def test_marginal_source_matches_plain_in_every_plan(on_cpu, I, num_iso, C,
+                                                     T):
+    cfg = SamplerConfig(algorithm="marginal", **SMALL)
+    batch = marginal_lane_batch(I, num_iso, I, "cpu", C=C)
+    consts = mk._marginal_consts(batch)
+    plan = next(p for p in mk.all_marginal_plans(3, C, I, 2) if p.T == T)
+    given = torch.cat([_start(num_iso, 2, 2, I), torch.zeros((1, 2, I))])
+    for start in (None, given):
+        ref = mk._marginal_plain(0, batch, cfg, consts, start, mk.FIXED_U)
+        got = mk._marginal_cuda(0, batch, cfg, consts, start, True,
+                                plan=plan)
+        _assert_same_chain(got, ref)
+
+
+def test_marginal_source_draws_one_philox_chain_in_every_plan(on_cpu):
+    batch = marginal_lane_batch(3, 3, 5, "cpu", C=5)   # 3 events, 9 lanes
+    E, C, I = batch.weights.shape
+    cfg = SamplerConfig(algorithm="classes", iters=61, burn_in=10, lag=5,
+                        chains=3)
+    consts = mk._marginal_consts(batch)
+    plans = mk.all_marginal_plans(E, C, I, cfg.chains)
+    assert [p.T for p in plans] == list(mk.LANE_THREADS)
+    first = None
+    for plan in plans:
+        got = mk._marginal_cuda(17, batch, cfg, consts, None, False,
+                                plan=plan).to_numpy()
+        if first is None:
+            first = got
+            continue
+        np.testing.assert_array_equal(got.psi_samples, first.psi_samples)
+        np.testing.assert_array_equal(got.loglik, first.loglik)
+        np.testing.assert_array_equal(got.final_psi, first.final_psi)
+        np.testing.assert_array_equal(got.accepted, first.accepted)
+    # a chain that moves on the real events; the padding event's proposals
+    # change nothing and are all accepted
+    real = first.accepted[:2]
+    assert np.all(0 < real) and np.all(real < cfg.iters * cfg.chains)
+    assert np.all(np.isfinite(first.loglik))
+    np.testing.assert_array_equal(first.final_n, 0.0)
+    # another seed, another chain
+    other = mk._marginal_cuda(18, batch, cfg, consts, None, False,
+                              plan=plans[0]).to_numpy()
+    assert not np.array_equal(other.psi_samples, first.psi_samples)
+
+
+@pytest.mark.parametrize("change", [
+    dict(T=3), dict(T=64, lanes_per_block=2), dict(T=0),
+    dict(T=8, lanes_per_block=3), dict(lanes_per_block=0),
+    dict(T=4, lanes_per_block=64)])
+def test_marginal_launcher_refuses_a_plan_it_cannot_lay_out(on_cpu, change):
+    cfg = SamplerConfig(algorithm="marginal", **SMALL)
+    batch = marginal_lane_batch(2, 2, 0, "cpu")
+    consts = mk._marginal_consts(batch)
+    bad = mk.marginal_plan(3, 4, 2, 2)._replace(**change)
+    launches = mk.LAUNCHES["cuda"]
+    with pytest.raises(RuntimeError, match="marginal kernel launch"):
+        mk._marginal_cuda(0, batch, cfg, consts, None, True, plan=bad)
+    assert mk.LAUNCHES["cuda"] == launches

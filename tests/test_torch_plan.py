@@ -1,6 +1,6 @@
-"""The REASSIGN kernel's launch plan and both kernels' bounds: the plain
-Python around the CUDA sources (miso_tpu_torch/sampler/reassign_kernel.py,
-marginal_kernel.py), checked without a card."""
+"""Both kernels' launch plans and bounds: the plain Python around the CUDA
+sources (miso_tpu_torch/sampler/reassign_kernel.py, marginal_kernel.py),
+checked without a card."""
 import re
 import os
 
@@ -10,8 +10,9 @@ import miso_tpu_torch
 from miso_tpu_torch.sampler import marginal_kernel as mk
 from miso_tpu_torch.sampler import reassign_kernel as rk
 
-CSRC = os.path.join(os.path.dirname(os.path.abspath(miso_tpu_torch.__file__)),
-                    "csrc", "reassign_kernel.cu")
+CSRC_DIR = os.path.join(
+    os.path.dirname(os.path.abspath(miso_tpu_torch.__file__)), "csrc")
+CSRC = os.path.join(CSRC_DIR, "reassign_kernel.cu")
 DEPTHS = (32, 320, 1024, 4096, 16384)
 
 
@@ -156,6 +157,97 @@ def test_plan_constants_equal_the_kernel_source():
     assert all(0 < r <= 255 for r in rk.KERNEL_REGISTERS.values())
 
 
+# ------------------------------------------------ the MARGINAL kernel's plan
+def _m_well_formed(plan):
+    assert plan.T in mk.LANE_THREADS
+    assert plan.lanes_per_block >= 1
+    assert plan.threads == plan.lanes_per_block * plan.T
+    assert plan.threads % 32 == 0 and plan.threads <= mk.MAX_THREADS
+
+
+@pytest.mark.parametrize("C", [1, 4, 5, 32, 256])
+@pytest.mark.parametrize("I", rk.KERNEL_ISO)
+def test_a_marginal_plan_exists_for_every_width_and_class_count(I, C):
+    for E in (1, 3, 512, 2048, 65536):
+        for K in (1, 2, 4, 6):
+            plan = mk.marginal_plan(E, C, I, K)
+            _m_well_formed(plan)
+            assert plan in mk.all_marginal_plans(E, C, I, K)
+            # within the warps that fill the card, or one thread a lane
+            assert plan.T == 1 or E * K * plan.T <= 32 * rk.FILL_WARPS
+            # threads beyond the classes only draw ahead: half the fill
+            if plan.T >= 2 * C:
+                assert E * K * plan.T <= 32 * mk.AHEAD_WARPS
+            if I >= 16:
+                assert plan.T <= (1 if I >= 128 else 2)
+
+
+def test_marginal_main_path_chunks_get_their_lane():
+    """The 2,000-gene run's launches (512, 1024, 3 and 461 events, padded
+    to powers of two) and the whole bucket, at I=2, C=4, K=6.  On an
+    NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py, 5000 x 6) T=4 was
+    the fastest lane at E=2048 (4.03 ms; T=2 5.01, T=8 6.13) and at
+    E=1024 (3.57; T=8 3.67), T=8 at E=512 (3.29; T=4 3.36, T=16 3.48),
+    and T=32 at E=4 (2.89; T=4 3.33)."""
+    got = {E: mk.marginal_plan(E, 4, 2, 6).T for E in (4, 512, 1024, 2048)}
+    assert got == {4: 32, 512: 8, 1024: 4, 2048: 4}
+    # a CLASSES-sized event and a paired-end one fill the same warps
+    assert mk.marginal_plan(2048, 32, 4, 6).T == 4
+    assert mk.marginal_plan(2048, 256, 2, 6).T == 4
+    # with classes for every thread the lane widens to the whole fill
+    assert mk.marginal_plan(512, 32, 4, 6).T == 16
+    assert mk.marginal_plan(512, 4, 2, 6).T == 8
+
+
+def test_marginal_lane_narrows_as_the_launch_grows():
+    widths = [mk.marginal_plan(E, 256, 2, 6).T
+              for E in (1, 64, 256, 512, 1024, 2048, 4096, 8192, 65536)]
+    assert widths == sorted(widths, reverse=True)
+    assert widths[0] == 32 and widths[-1] == 1
+    assert mk.marginal_plan(4096, 256, 2, 6).T == 2     # the largest chunk
+    # wide isoform counts: two threads, then one
+    assert [mk.marginal_plan(E, 8, 32, 6).T
+            for E in (4, 2048, 4096, 8192)] == [2, 2, 2, 1]
+    assert mk.marginal_plan(2048, 8, 16, 6).T == 2
+    assert mk.marginal_plan(2048, 24, 8, 6).T == 4
+    # arrays in local memory: one thread (T = 1 is reachable at any E)
+    assert [mk.marginal_plan(E, 8, 128, 6).T for E in (4, 512)] == [1, 1]
+    assert mk.marginal_plan(4, 8, 64, 6).T == 2
+    assert mk.WIDE_ISO == ((128, 1), (16, 2))
+
+
+def test_every_marginal_lane_width_can_be_forced():
+    for I, C in ((2, 4), (128, 5), (256, 40)):
+        plans = mk.all_marginal_plans(3, C, I, 2)
+        assert [p.T for p in plans] == [1, 2, 4, 8, 16, 32]
+        for plan in plans:
+            _m_well_formed(plan)
+
+
+@pytest.mark.parametrize("E,C,I,K", [(8, 4, 5, 6), (8, 0, 2, 6),
+                                     (0, 4, 2, 6), (8, 4, 2, 0),
+                                     (8, 4, 512, 6)])
+def test_marginal_plan_rejects_what_the_kernel_does_not_take(E, C, I, K):
+    with pytest.raises(ValueError):
+        mk.marginal_plan(E, C, I, K)
+    with pytest.raises(ValueError):
+        mk.all_marginal_plans(E, C, I, K)
+
+
+def test_marginal_plan_constants_equal_the_kernel_source():
+    with open(os.path.join(CSRC_DIR, "marginal_kernel.cu")) as f:
+        src = f.read()
+    assert int(re.search(r"constexpr int kMaxThreads = (\d+)",
+                         src).group(1)) == mk.MAX_THREADS
+    assert mk.MAX_THREADS % 32 == 0
+    widths = sorted({int(w) for w in re.findall(r"case (\d+): return", src)})
+    assert tuple(widths) == rk.KERNEL_ISO
+    assert mk.AHEAD_WARPS * 2 == rk.FILL_WARPS
+    # the source is built without FMA contraction
+    from miso_tpu_torch import kernels
+    assert kernels.SOURCE_FLAGS["marginal_kernel.cu"] == ["-fmad=false"]
+
+
 # ------------------------------------------------------------- the bounds
 def test_reassign_bound_arithmetic():
     E, R, I, K, iters, rec = 2048, 320, 2, 6, 5000, 450
@@ -228,3 +320,13 @@ def test_marginal_bound_arithmetic():
     assert fewer["fp32_ops"] == b["fp32_ops"] - steps * K * E * (
         2 * I + 1 + mk.SFU_COST)
     assert fewer["int_ops"] == b["int_ops"]
+
+
+def test_marginal_bound_does_not_depend_on_the_plan():
+    """The bound counts the function's operations: 0.32 ms at the main
+    shape's inputs (three of an event's four classes hold reads),
+    whatever the lane width."""
+    b = mk.marginal_bound(2048, 4, 2, 6, 5000, 450, live_classes=2048 * 3)
+    assert round(b["bound_ms"], 2) == 0.32
+    assert b["fp32_ops"] == 5001 * (6 * 2048 * 3 * 13 + 12288 * (32 + 24))
+    assert "plan" not in mk.marginal_bound.__code__.co_varnames
