@@ -9,11 +9,17 @@
                                            # path and prints no verdict:
                                            # its exit code 0 is not the
                                            # smoke's
+    python3 chip_smoke.py hosts      # likewise a development aid: the
+                                     # 2,000-gene REASSIGN run, then the
+                                     # multi-host run (three times, for
+                                     # the spread of its walls), the host
+                                     # tools, the wide buckets and the
+                                     # probes alone
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, in parallel), holds each against its plain PyTorch
-version -- at the main paths' shapes, at 128 isoforms and on paired-end
-events; each kernel in every layout its launch plan can take (REASSIGN:
+version -- at the main paths' shapes, at 128, 512 and 1,024 isoforms and
+on paired-end events; each kernel in every layout its launch plan can take (REASSIGN:
 lane width T and home of the weights; MARGINAL: lane width T), whose
 Philox chains must also be bit-equal -- and against the grid-exact
 posterior, then runs ``miso --run`` through the port
@@ -21,11 +27,24 @@ posterior, then runs ``miso --run`` through the port
 single-end catalog REASSIGN, MARGINAL with the linear start, CLASSES,
 REASSIGN with convergent stop and REASSIGN with ``--pack-output``; on a
 2,000-gene paired-end catalog with ``--paired-end 250 15``, REASSIGN and
-MARGINAL (the latter once more with the plain version in the kernel's
+MARGINAL (the latter's largest launch is held against the plain version
+on the run's own tensors, and the run is made once more on a 500-gene
+catalog, beside a run of it with the plain version in the kernel's
 place: the two runs' biases against the truth must agree); and on a
 16-gene catalog of 20,000 reads per gene, whose deep
 events take the multinomial route, once more under ``--profile``.  It checks each run's output against the simulation
-truth.  Every phase that fails raises, so the script exits non-zero and
+truth.  Then the rest of the user's path on the single-end catalog: two
+``miso_torch --run --coordinator ... --num-hosts 2`` processes at once on
+the one card into one output tree (beside one such process alone, for
+the walls); a second sample with psi moved by 0.5 in every other gene,
+then the port's ``summarize``, ``compare`` and ``filter_events`` CLIs
+over the two trees; ``run_miso.py --compute-gene-psi`` for a handful of
+genes; one bucket of 512 isoforms through ``StreamRunner`` at stock
+settings for REASSIGN and MARGINAL (each launches its kernel's 512-wide
+instance, which is held against the plain version at that bucket's shape
+and against the exact posterior); and the port's ``module_availability``
+and ``test_miso``.
+Every phase that fails raises, so the script exits non-zero and
 never prints its last line.  It needs one CUDA device and fails without
 one.
 
@@ -44,6 +63,7 @@ import glob
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -62,7 +82,14 @@ sys.path.insert(0, ROOT)
 
 from miso_tpu_torch import kernels  # noqa: E402
 from miso_tpu_torch import pipeline as tp  # noqa: E402
+from miso_tpu_torch.cli import compare as compare_cli  # noqa: E402
+from miso_tpu_torch.cli import filter_events as filter_cli  # noqa: E402
+from miso_tpu_torch.cli import module_availability  # noqa: E402
+from miso_tpu_torch.cli import run_miso as run_miso_cli  # noqa: E402
+from miso_tpu_torch.cli import summarize as summarize_cli  # noqa: E402
+from miso_tpu_torch.cli import test_miso as test_miso_cli  # noqa: E402
 from miso_tpu_torch.cli.main import main as miso_torch_main  # noqa: E402
+from miso_tpu_torch.io.index import get_gene_ids_to_filenames  # noqa: E402
 from miso_tpu_torch.sampler import deep  # noqa: E402
 from miso_tpu_torch.sampler import marginal_kernel as mk  # noqa: E402
 from miso_tpu_torch.sampler import reassign_kernel as rk  # noqa: E402
@@ -71,7 +98,8 @@ from miso_tpu_torch.sampler.mcmc import (  # noqa: E402
 from miso_tpu_torch.testing import (  # noqa: E402
     PAIRED_GENE, class_batch, deepened, exact_marginal_mean_2iso,
     indexed_catalog, lane_test_batch, marginal_lane_batch, packed_events,
-    padded_batch, paired_event, simulated_event)
+    pad_events, padded_batch, paired_event, simulate_catalog_bam,
+    simulated_event, wide_event)
 
 # tests/exact_posterior.py is numpy/scipy only
 sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -88,6 +116,12 @@ SE_GENE = ([100, 50, 100], [[1, 2, 3], [1, 3]])  # make_se_catalog's gene
 G3_GENE = ([100, 50, 80, 100], [[1, 2, 3, 4], [1, 3, 4], [1, 4]])
 MAIN_E, MAIN_R = 2048, 320          # the 2,000-gene run's bucket: I=2, R=320
 N_GENES = 2000
+# the paired-end MARGINAL run that puts the plain version in the
+# kernel's place takes a catalog of this many genes
+PLAIN_GENES = 500
+# the second sample of the compare phase: psi moved by this much (up
+# where it was below 0.5, else down) in every other gene
+MOVED_BY = 0.5
 SMALL = dict(iters=24, burn_in=6, lag=3, chains=2)
 PHILOX = dict(iters=1500, burn_in=300, lag=5, chains=4)
 # the deep catalog: 16 genes whose 20,000 reads each pad to a bucket of
@@ -114,6 +148,14 @@ EARLIER_B2_MS = {
     "classes I=4 C=32 E=2048": 6.101, "paired I=2 C=256 E=2048": 21.121,
     "I=8 C=24 E=2048": 7.643, "I=32 C=8 E=2048": 17.962,
     "main tile E=16384": 3.255}
+# the widest instances of both kernels, (I, real isoforms): held against
+# the plain version in every layout
+WIDE_ISO = ((512, 300), (1024, 600))
+# the wide bucket of the main path: genes of this many isoforms pad to a
+# bucket of 512; its plain version takes a launch or more per isoform and
+# iteration, so the two are timed side by side on this short schedule
+WIDE_GENE_ISO, WIDE_BUCKET_ISO = 300, 512
+WIDE_SHORT = dict(iters=60, burn_in=20, lag=2, chains=2)
 # wider tiles (E, R, I) at which every layout is timed beside the plan's
 WIDE_SHAPES = ((2048, 320, 8), (512, 320, 8), (4, 320, 8), (2048, 1024, 8),
                (2048, 320, 16), (2048, 640, 4), (1024, 4096, 8),
@@ -260,7 +302,7 @@ def reassign_layouts(big, big_ref, pb, gpu):
     max_err = 0.0
     print("REASSIGN layouts, fixed uniforms (R=16 with padded reads, AUTO "
           "and GIVEN):")
-    for I, num_iso in ((2, 2), (3, 3), (8, 5), (128, 70)):
+    for I, num_iso in ((2, 2), (3, 3), (8, 5), (128, 70)) + WIDE_ISO:
         b = lane_test_batch(I, num_iso, I, DEV)
         consts = rk._event_consts(b)
         seen = set()
@@ -274,7 +316,10 @@ def reassign_layouts(big, big_ref, pb, gpu):
                     "I=%d %s %s" % (I, "GIVEN" if given else "AUTO",
                                     tag(plan)), got, ref))
                 seen.add((plan.T, plan.home))
-        if seen != {(T, h) for T in rk.LANE_THREADS for h in rk.HOMES}:
+        # every lane width in both homes; at 1,024 isoforms the narrowest
+        # lane's four events a block are beyond shared memory
+        every = {(T, h) for T in rk.LANE_THREADS for h in rk.HOMES}
+        if seen != every - ({(4, "shared")} if I == 1024 else set()):
             raise AssertionError("I=%d: layouts run %s" % (I, sorted(seen)))
     # deeper tiles: several groups of reads per thread
     print("REASSIGN layouts, fixed uniforms, paired-end R=%d and the main "
@@ -456,7 +501,7 @@ def marginal_layouts(big_m, pb, gpu):
     m_err = 0.0
     print("MARGINAL plans, fixed uniforms (an empty class and a padding "
           "event; AUTO and GIVEN):")
-    for I, num_iso in ((2, 2), (3, 3), (8, 5), (128, 70)):
+    for I, num_iso in ((2, 2), (3, 3), (8, 5), (128, 70)) + WIDE_ISO:
         b = marginal_lane_batch(I, num_iso, I, DEV)
         consts = mk._marginal_consts(b)
         plans, _ = m_plans(b, K)
@@ -579,6 +624,8 @@ class Launches:
         self.spans = {"reassign": [], "marginal": [], "deep": []}
         self.given = {"reassign": 0, "marginal": 0, "deep": 0}
         self.counts = None
+        # each route's launch of the most events: its arguments
+        self.largest = {}
 
     def _wrap(self, name, launch):
         def timed_launch(*args, **kw):
@@ -590,6 +637,10 @@ class Launches:
             self.spans[name].append((t0, t1))
             start_psi = args[4] if len(args) > 4 else kw.get("start_psi")
             self.given[name] += start_psi is not None
+            kept = self.largest.get(name)
+            if kept is None or (args[1].weights.shape[0]
+                                > kept[1].weights.shape[0]):
+                self.largest[name] = args
             return out
         return timed_launch
 
@@ -769,6 +820,364 @@ def threshold_times(thr_rb, gpu):
     return out
 
 
+# what a host process of the multi-host phase runs: the CLI's main(), then
+# its own launch counters on a line the parent reads
+HOST_PROGRAM = """
+import json, sys
+from miso_tpu_torch.cli.main import main
+from miso_tpu_torch.sampler import reassign_kernel as rk
+rc = main(sys.argv[1:])
+print("LAUNCHES " + json.dumps(rk.LAUNCHES))
+sys.exit(rc)
+"""
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def host_processes(fix, out, num_hosts):
+    """``miso_torch --run`` in ``num_hosts`` processes started together on
+    the one card, all writing into ``out``: with more than one, each gets
+    ``--coordinator 127.0.0.1:PORT --num-hosts N --host-id k``.  Returns
+    (seconds from the first start to the last exit, [each one's output]);
+    raises if one fails, and leaves none running."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    port = free_port()
+    procs = []
+    t = time.time()
+    try:
+        for hid in range(num_hosts):
+            flags = [] if num_hosts == 1 else [
+                "--coordinator", "127.0.0.1:%d" % port,
+                "--num-hosts", str(num_hosts), "--host-id", str(hid)]
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", HOST_PROGRAM, "--run", fix["index"],
+                 fix["bam"], "--output-dir", out, "--read-len", "36"]
+                + flags, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        outputs = [p.communicate(timeout=600)[0] for p in procs]
+        wall = time.time() - t
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for hid, (p, o) in enumerate(zip(procs, outputs)):
+        if p.returncode != 0:
+            raise AssertionError("host %d of %d exited %d:\n%s"
+                                 % (hid, num_hosts, p.returncode, o[-4000:]))
+    return wall, outputs
+
+
+def host_report(output):
+    """(events quantified, the run's own seconds, device, B1 launches,
+    plain launches, genes of the shard or None) from one host's output."""
+    m = re.search(r"Quantified (\d+) events \(\d+ skipped\) in ([\d.]+)s "
+                  r"on (\S+)", output)
+    counts = json.loads(re.search(r"^LAUNCHES (.*)$", output, re.M).group(1))
+    shard = re.search(r"Host shard: (\d+) genes", output)
+    return (int(m.group(1)), float(m.group(2)), m.group(3), counts["cuda"],
+            counts["plain"], None if shard is None else int(shard.group(1)))
+
+
+def summary_rows(path):
+    with open(path) as f:
+        return f.readline(), [ln for ln in f if ln.strip()]
+
+
+def two_hosts(fix, tmp, lc_r, gpu, reps=1):
+    """Two host processes on one card into one tree, beside one process
+    alone; ``reps`` times over, in turns, for the spread of the walls.
+    Returns the first merged tree."""
+    ratios = []
+    for rep in range(reps):
+        alone_wall, (alone_out,) = host_processes(
+            fix, os.path.join(tmp, "one_host_%d" % rep), 1)
+        alone = host_report(alone_out)
+        out = os.path.join(tmp, "two_hosts" + ("_%d" % rep if rep else ""))
+        pair_wall, outputs = host_processes(fix, out, 2)
+        reports = [host_report(o) for o in outputs]
+        shards = [r[5] for r in reports]
+        if (alone[0] != N_GENES or alone[5] is not None or None in shards
+                or min(shards) < 1 or sum(shards) != N_GENES
+                or [r[0] for r in reports] != shards):
+            raise AssertionError("host shards: alone %s, pair %s"
+                                 % (alone, reports))
+        for n, _, dev, b1, plain, _ in reports + [alone]:
+            if not dev.startswith("cuda") or b1 < 1 or plain != 0:
+                raise AssertionError("a host did not run B1 on the card: %s"
+                                     % ((n, dev, b1, plain),))
+        files = glob.glob(os.path.join(out, "chr*", "*.miso"))
+        per_host = sorted(glob.glob(os.path.join(out, "summary",
+                                                 "*.host*.miso_summary")))
+        names = [ln.split("\t", 1)[0] for f in per_host
+                 for ln in summary_rows(f)[1]]
+        if (len(files) != N_GENES or len(per_host) != 2 or sorted(names)
+                != sorted("ev%d" % e for e in range(N_GENES))):
+            raise AssertionError("two hosts: %d .miso files, summaries %s "
+                                 "with %d rows" % (len(files), per_host,
+                                                   len(names)))
+        ratios.append((max(r[1] for r in reports) / alone[1],
+                       pair_wall / alone_wall))
+        print("two hosts, one card: shards %s, B1 launches %s; each host's "
+              "own run %s s, the pair from first start to last exit %.2fs; "
+              "one such process alone: run %.2fs, start to exit %.2fs; the "
+              "one-host REASSIGN run inside this process %.2fs  [%s]"
+              % (shards, [r[3] for r in reports],
+                 ["%.2f" % r[1] for r in reports], pair_wall, alone[1],
+                 alone_wall, lc_r.wall, gpu))
+        for o in outputs + [alone_out]:
+            print("    " + re.search(r"^Quantified .*$", o, re.M).group(0))
+    print("two hosts over one, %d time(s) in turns: the slower host's run %s "
+          "of the lone process's, the pair's wall %s of the lone process's"
+          % (reps, ["%.3f" % a for a, _ in ratios],
+             ["%.3f" % b for _, b in ratios]))
+    return os.path.join(tmp, "two_hosts")
+
+
+def staged(name, fn, argv):
+    """A host CLI of the port, timed; raises unless it returns 0."""
+    t = time.time()
+    rc = fn(argv)
+    if rc != 0:
+        raise AssertionError("%s %s returned %d" % (name, " ".join(argv), rc))
+    return time.time() - t
+
+
+def users_path(fix, tmp, merged, gpu):
+    """run -> summarize -> compare -> filter: a second sample over the
+    same genes with psi moved by MOVED_BY in every other gene runs on the
+    card; the port's summarize CLI reads the merged two-host tree, its
+    compare CLI both trees, its filter the Bayes factors."""
+    truth = fix["true_psi"]
+    moved = np.arange(N_GENES) % 2 == 0
+    psi2 = np.where(moved, np.where(truth < 0.5, truth + MOVED_BY,
+                                    truth - MOVED_BY), truth)
+    t = time.time()
+    bam2 = os.path.join(tmp, "sample2.bam")
+    simulate_catalog_bam(fix["genes"], psi2, 300, 36, bam2,
+                         np.random.default_rng(17))
+    build_s = time.time() - t
+    fix2 = dict(fix, bam=bam2, true_psi=psi2)
+    lc2, _ = run_main_path(fix2, tmp, "sample2", [], gpu)
+    # summarize the merged two-host tree: the union of the hosts' rows
+    summ_dir = os.path.join(tmp, "summarized")
+    summ_s = staged("summarize", summarize_cli.main,
+                    ["--summarize-samples", merged, summ_dir])
+    head, rows = summary_rows(os.path.join(
+        summ_dir, "summary", "two_hosts.miso_summary"))
+    union = []
+    for f in sorted(glob.glob(os.path.join(merged, "summary",
+                                           "*.host*.miso_summary"))):
+        h, r = summary_rows(f)
+        if h != head:
+            raise AssertionError("summary headers differ: %s" % f)
+        union += r
+    if len(rows) != N_GENES or sorted(rows) != sorted(union):
+        raise AssertionError("summarize: %d rows, the hosts' %d; equal %s"
+                             % (len(rows), len(union),
+                                sorted(rows) == sorted(union)))
+    cmp_dir = os.path.join(tmp, "compared")
+    sample2 = os.path.join(tmp, "sample2")
+    cmp_s = staged("compare", compare_cli.main,
+                   ["--compare-samples", merged, sample2, cmp_dir])
+    bf_file = os.path.join(cmp_dir, "two_hosts_vs_sample2", "bayes-factors",
+                           "two_hosts_vs_sample2.miso_bf")
+    _, bf_rows = filter_cli.read_bf_file(bf_file)
+    by_event = {r["event_name"]: r for r in bf_rows}
+    if len(bf_rows) != N_GENES or len(by_event) != N_GENES:
+        raise AssertionError(".miso_bf: %d rows" % len(bf_rows))
+    diff = np.array([float(by_event["ev%d" % e]["diff"])
+                     for e in range(N_GENES)])
+    bf = np.array([float(by_event["ev%d" % e]["bayes_factor"])
+                   for e in range(N_GENES)])
+    # sample 1 - sample 2: the moved genes' diff is -+MOVED_BY
+    want = np.where(truth < 0.5, -MOVED_BY, MOVED_BY)
+    found = moved & (np.abs(diff) > 0.35) & (np.sign(diff) == np.sign(want)) \
+        & (bf > 20)
+    quiet = ~moved & (np.abs(diff) < 0.3)
+    filt_dir = os.path.join(tmp, "filtered")
+    filt_s = staged("filter_events", filter_cli.main,
+                    ["--filter", bf_file, "--output-dir", filt_dir,
+                     "--bayes-factor", "20", "--delta-psi", "0.3"])
+    _, kept_rows = filter_cli.read_bf_file(os.path.join(
+        filt_dir, "two_hosts_vs_sample2.miso_bf.filtered"))
+    kept = np.zeros(N_GENES, bool)
+    kept[[int(r["event_name"][2:]) for r in kept_rows]] = True
+    print("run -> summarize -> compare -> filter: second sample built in "
+          "%.2fs, run %.2fs, summarize %.2fs (%d rows = the two hosts' "
+          "rows), compare %.2fs (%d rows), filter %.2fs; moved genes with "
+          "|diff| > 0.35, its sign and Bayes factor > 20: %d of %d; unmoved "
+          "with |diff| < 0.3: %d of %d; the filter keeps %d moved and %d "
+          "unmoved  [%s]"
+          % (build_s, lc2.wall, summ_s, len(rows), cmp_s, len(bf_rows),
+             filt_s, found.sum(), moved.sum(), quiet.sum(), (~moved).sum(),
+             (kept & moved).sum(), (kept & ~moved).sum(), gpu))
+    # a diff is the difference of two posterior means from 300 reads each
+    # (sd ~0.07): 0.35 lies ~2 sd under MOVED_BY and 0.3 ~4 sd above 0,
+    # so not every one of 1,000 genes can be asked for
+    if not (found.sum() >= 0.95 * moved.sum()
+            and quiet.sum() >= 0.99 * (~moved).sum()
+            and (kept & moved).sum() >= 0.95 * moved.sum()
+            and (kept & ~moved).sum() <= 0.01 * (~moved).sum()):
+        raise AssertionError("compare / filter miss the moved genes")
+    return lc2
+
+
+def worker_cli(fix, tmp, heads_r, gpu):
+    """``run_miso.py --compute-gene-psi`` on the card for a handful of
+    genes: B1 launches, no plain version, and each header equal to the
+    ``--run`` one's but for its chain-dependent fields."""
+    out = os.path.join(tmp, "run_miso")
+    pickles = get_gene_ids_to_filenames(fix["index"])
+    genes = ["ev%d" % e for e in sorted({0, 7, N_GENES // 48,
+                                         N_GENES // 2 - 1, N_GENES - 2})]
+    with Launches() as lc:
+        t = time.time()
+        for gene in genes:
+            staged("run_miso.py", run_miso_cli.main,
+                   ["--compute-gene-psi", gene, pickles[gene], fix["bam"],
+                    out, "--read-len", "36"])
+        wall = time.time() - t
+    if lc.counts["reassign"]["cuda"] < len(genes) \
+            or lc.counts["reassign"]["plain"] != 0:
+        raise AssertionError("run_miso.py launches: %s" % lc.counts)
+    for gene in genes:
+        (path,) = glob.glob(os.path.join(out, "chr*", gene + ".miso"))
+        with open(path) as f:
+            if settled(f.readline().rstrip("\n")) != settled(heads_r[gene]):
+                raise AssertionError("run_miso.py header of %s differs from "
+                                     "the --run one's" % gene)
+    print("run_miso.py --compute-gene-psi: %d genes in %.2fs, B1 launches "
+          "%d, plain 0, headers equal to the --run ones (chain-dependent "
+          "fields aside)  [%s]" % (len(genes), wall,
+                                   lc.counts["reassign"]["cuda"], gpu))
+    return lc
+
+
+def wide_two_iso(algorithm):
+    """Eight copies of a two-isoform event of 2,000 reads in a bucket of
+    WIDE_BUCKET_ISO isoforms, and its grid-exact posterior mean."""
+    ev = simulated_event(*SE_GENE, [0.7, 0.3], 2000, 25, seed=42,
+                         algorithm=algorithm)
+    exact = (exact_posterior_mean_2iso(ev) if algorithm == "reassign"
+             else exact_marginal_mean_2iso(ev))
+    batch, _ = batch_from_numpy(pad_events(
+        [ev] * 8, pad_iso=WIDE_BUCKET_ISO, read_dtype=np.float32), DEV)
+    return batch, exact
+
+
+def wide_buckets(gpu):
+    """One bucket of WIDE_BUCKET_ISO isoforms through StreamRunner on the
+    card at stock settings, REASSIGN then MARGINAL: one launch of the
+    kernel's instance of that width and of nothing else, psi sums to one.
+    That instance is then held against the plain version on the bucket's
+    own events under fixed uniforms, and with Philox draws against the
+    exact posterior of a two-isoform event padded to the bucket's width.
+    Returns {algorithm: the numbers kept}."""
+    out = {}
+    for algorithm in ("reassign", "marginal"):
+        mod = rk if algorithm == "reassign" else mk
+        evs = [wide_event(algorithm, num_iso=WIDE_GENE_ISO, seed=3 + j)
+               for j in range(4)]
+        cfg = tp.RunConfig(read_len=25, algorithm=algorithm)
+        with Launches() as lc:
+            t = time.time()
+            results = tp.run_events(evs, cfg, seed=0, device=DEV)
+            wall = time.time() - t
+        sums = np.array([r["samples"][:, :WIDE_GENE_ISO].sum(axis=1)
+                         for r in results])
+        mine = {"cuda": 1, "plain": 0}
+        idle = {"cuda": 0, "plain": 0}
+        ok = (lc.counts["reassign"] == (mine if mod is rk else idle)
+              and lc.counts["marginal"] == (mine if mod is mk else idle)
+              and lc.counts["deep"]["deep"] == 0
+              and lc.largest[algorithm][1].weights.shape[2]
+              == WIDE_BUCKET_ISO
+              and np.all(np.abs(sums - 1.0) < 0.03)
+              and all(np.isfinite(r["loglik"]).all() for r in results))
+        print("wide bucket, %s: %d events of %d isoforms in a bucket of %d, "
+              "%d x %d: %.2fs, kernel %.1f ms; launches %s; psi sums "
+              "%.4f..%.4f  [%s]"
+              % (algorithm, len(evs), WIDE_GENE_ISO, WIDE_BUCKET_ISO,
+                 cfg.iters, cfg.chains, wall, lc.ms(algorithm), lc.counts,
+                 sums.min(), sums.max(), gpu))
+        if not ok:
+            raise AssertionError("wide %s bucket: launches or psi"
+                                 % algorithm)
+        # the instance against the plain version at the bucket's shape
+        b = padded_batch(evs, DEV)
+        if b.weights.shape[2] != WIDE_BUCKET_ISO:
+            raise AssertionError("wide bucket pads to %d isoforms"
+                                 % b.weights.shape[2])
+        short = SamplerConfig(algorithm=algorithm, **WIDE_SHORT)
+        err = 0.0
+        for given in (False, True):
+            start = (dirichlet_start(WIDE_GENE_ISO, len(evs), short.chains,
+                                     WIDE_BUCKET_ISO) if given else None)
+            err = max(err, compare(
+                "%s wide bucket I=%d (%d real) %s" % (
+                    algorithm, WIDE_BUCKET_ISO, WIDE_GENE_ISO,
+                    "GIVEN" if given else "AUTO"),
+                *both(0, b, short, start, mod.FIXED_U)))
+        run = rk.run_batch_reassign if mod is rk else mk.run_batch_marginal
+        plain = ((lambda: rk._reassign_plain(
+            3, b, short, rk._event_consts(b))) if mod is rk else
+            (lambda: mk._marginal_plain(3, b, short,
+                                        mk._marginal_consts(b))))
+        short_ms = timed(lambda: run(3, b, short), reps=3)
+        plain_ms = timed(plain, reps=1)
+        stock_ms = lc.ms(algorithm)     # the launch of the run above
+        # Philox draws through the same instance: the exact posterior
+        tb, exact = wide_two_iso(algorithm)
+        res = run(1, tb, SamplerConfig(algorithm=algorithm, **PHILOX))
+        means = res.to_numpy().flat_samples()[:, :, 0].mean(axis=1)
+        print("wide bucket, %s kernel at I=%d E=%d: %d x %d %.2f ms (plain "
+              "version %.2f ms), %d x %d %.2f ms; a two-isoform event in "
+              "that bucket: exact %.4f, kernel means %s  [%s]"
+              % (algorithm, WIDE_BUCKET_ISO, len(evs), short.iters,
+                 short.chains, short_ms, plain_ms, cfg.iters, cfg.chains,
+                 stock_ms, exact, np.array2string(means, precision=4), gpu))
+        if not np.all(np.abs(means - exact) < 0.02):
+            raise AssertionError("the %d-wide %s instance misses the exact "
+                                 "posterior" % (WIDE_BUCKET_ISO, algorithm))
+        out[algorithm] = {"launches": lc.counts[algorithm]["cuda"],
+                          "max_err": err, "short_ms": short_ms,
+                          "plain_short_ms": plain_ms, "stock_ms": stock_ms}
+    return out
+
+
+def probes():
+    """The port's module_availability and test_miso on the card.
+    matplotlib is the one module no phase here needs: where it is
+    missing the probe must count exactly it."""
+    try:
+        import matplotlib  # noqa: F401
+        missing = 0
+    except ImportError:
+        missing = 1
+    rc = module_availability.main([])
+    if rc != missing:
+        raise AssertionError("module_availability returned %d, %d expected"
+                             % (rc, missing))
+    staged("test_miso", test_miso_cli.main, [])
+
+
+def rest_of_path(fix, tmp, lc_r, heads_r, gpu, reps=1):
+    """What a user does around and after the one-host run ``lc_r`` of
+    ``fix``: two hosts on the one card, summarize, compare and filter
+    over their merged tree and a second sample, and the worker CLI.
+    Returns the Launches of the two runs made inside this process."""
+    merged = two_hosts(fix, tmp, lc_r, gpu, reps)
+    return (users_path(fix, tmp, merged, gpu),
+            worker_cli(fix, tmp, heads_r, gpu))
+
+
 def main(only=None, sass_dir=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -810,6 +1219,20 @@ def main(only=None, sass_dir=None) -> int:
         print("SASS of the I=2 instance: %s instructions, written to %s"
               % (dump_sass("marginal_kernelILi2E", sass), sass))
         print("chip_smoke marginal: %.1fs in all  [%s]"
+              % (time.time() - T_START, gpu))
+        return 0
+
+    if only == "hosts":
+        # the multi-host run and the host tools alone
+        with tempfile.TemporaryDirectory(prefix="miso_smoke_") as tmp:
+            fix = indexed_catalog(os.path.join(tmp, "cat"),
+                                  num_events=N_GENES, reads_per_event=300,
+                                  read_len=36, seed=1)
+            lc_r, heads_r = run_main_path(fix, tmp, "out", [], gpu)
+            rest_of_path(fix, tmp, lc_r, heads_r, gpu, reps=3)
+        wide_buckets(gpu)
+        probes()
+        print("chip_smoke hosts: %.1fs in all  [%s]"
               % (time.time() - T_START, gpu))
         return 0
 
@@ -971,6 +1394,11 @@ def main(only=None, sass_dir=None) -> int:
         print("pack-output: %d .miso_db events, headers equal to the .miso "
               "run's (chain-dependent fields aside)" % len(packed))
 
+        # -- (l) the rest of the user's path: two hosts on the one card,
+        # then summarize, compare and filter over their merged tree and a
+        # second sample, and the worker CLI
+        lc_s, lc_w = rest_of_path(fix, tmp, lc_r, heads_r, gpu)
+
         # -- (g) the paired-end main path
         t = time.time()
         fix_p = indexed_catalog(os.path.join(tmp, "cat_pe"),
@@ -989,23 +1417,42 @@ def main(only=None, sass_dir=None) -> int:
                  torch.cuda.max_memory_allocated() / 2 ** 20, gpu))
         # the same catalog through MARGINAL: B2 at its widest class counts
         # (one class per fragment length).  Its means sit further above
-        # the truth than the other runs' limit of 0.06 allows, so the run
-        # is made once more with the plain version in the kernel's place:
-        # the two biases must agree, which makes the offset the collapsed
-        # sampler's on this catalog and not the kernel's
+        # the truth than the other runs' limit of 0.06 allows (the
+        # collapsed chains sample the fragment fraction, as in the JAX
+        # package: tests/test_torch_bias.py), so a quarter-size catalog
+        # is run twice, once with the plain version in the kernel's
+        # place: the two biases must agree, which makes the offset the
+        # collapsed sampler's and not the kernel's
         flags_q = ["--paired-end", "250", "15", "--algorithm", "marginal"]
         lc_q, _ = run_main_path(fix_p, tmp, "paired_marginal", flags_q, gpu,
                                 read_len=40, max_bias=0.08)
-        lc_qp, _ = run_main_path(fix_p, tmp, "paired_marginal_plain",
+        # that run's largest launch once more on its own tensors and
+        # schedule, under fixed uniforms, beside the plain version
+        _, qb, qcfg, qconsts, qstart, _ = lc_q.largest["marginal"]
+        t = time.time()
+        m_err = max(m_err, compare(
+            "marginal paired-end main path E=%d C=%d I=%d, %d x %d"
+            % (tuple(qb.weights.shape) + (qcfg.iters, qcfg.chains)),
+            mk.run_batch_marginal(0, qb, qcfg, start_psi=qstart,
+                                  fixed_uniform=mk.FIXED_U),
+            mk._marginal_plain(0, qb, qcfg, qconsts, qstart, mk.FIXED_U)))
+        print("  (held in %.1fs)" % (time.time() - t))
+        del qb, qconsts
+        fix_q = indexed_catalog(os.path.join(tmp, "cat_pe_quarter"),
+                                num_events=PLAIN_GENES, reads_per_event=150,
+                                read_len=40, seed=1, paired=True)
+        lc_qk, _ = run_main_path(fix_q, tmp, "paired_marginal_quarter",
+                                 flags_q, gpu, read_len=40, max_bias=0.08)
+        lc_qp, _ = run_main_path(fix_q, tmp, "paired_marginal_plain",
                                  flags_q, gpu, read_len=40, max_bias=0.08,
                                  plain_marginal=True)
         print("paired-end MARGINAL main path: wall %.2fs, B2 %.1f ms over "
-              "%d launches; bias %+.4f, with the plain version in the "
-              "kernel's place %+.4f (wall %.2fs)  [%s]"
+              "%d launches, bias %+.4f; on %d genes bias %+.4f, with the "
+              "plain version in the kernel's place %+.4f (wall %.2fs)  [%s]"
               % (lc_q.wall, lc_q.ms("marginal"),
-                 lc_q.counts["marginal"]["cuda"], lc_q.bias, lc_qp.bias,
-                 lc_qp.wall, gpu))
-        if abs(lc_q.bias - lc_qp.bias) > 0.005:
+                 lc_q.counts["marginal"]["cuda"], lc_q.bias, PLAIN_GENES,
+                 lc_qk.bias, lc_qp.bias, lc_qp.wall, gpu))
+        if abs(lc_qk.bias - lc_qp.bias) > 0.005:
             raise AssertionError("paired-end MARGINAL: the kernel's bias "
                                  "is not the plain version's")
 
@@ -1052,8 +1499,11 @@ def main(only=None, sass_dir=None) -> int:
         (lc_c, "marginal", lc_c.counts["reassign"]["cuda"] == 0),
         (lc_v, "reassign", lc_v.counts["marginal"]["cuda"] == 0),
         (lc_k, "reassign", lc_k.counts["marginal"]["cuda"] == 0),
+        (lc_s, "reassign", lc_s.counts["marginal"]["cuda"] == 0),
+        (lc_w, "reassign", lc_w.counts["marginal"]["cuda"] == 0),
         (lc_p, "reassign", lc_p.counts["marginal"]["cuda"] == 0),
         (lc_q, "marginal", lc_q.counts["reassign"]["cuda"] == 0),
+        (lc_qk, "marginal", lc_qk.counts["reassign"]["cuda"] == 0),
         (lc_d, "deep", lc_d.counts["reassign"]["cuda"] == 0),
         (lc_f, "deep", lc_f.counts["reassign"]["cuda"] == 0),
     ]
@@ -1067,6 +1517,12 @@ def main(only=None, sass_dir=None) -> int:
     print("convergent: %d of %d events needed a continuation round "
           "(final iters %s)" % ((iters > STOCK.iters).sum(), len(iters),
                                 sorted(set(iters.tolist()))))
+
+    # -- (m) a bucket of 512 isoforms, and the port's probes
+    wide = wide_buckets(gpu)
+    max_err = max(max_err, wide["reassign"]["max_err"])
+    m_err = max(m_err, wide["marginal"]["max_err"])
+    probes()
 
     # -- 5 and (d). kernel and plain version at the main paths' buckets
     ms = timed(lambda: rk.run_batch_reassign(3, big, STOCK), reps=3)
@@ -1134,24 +1590,28 @@ def main(only=None, sass_dir=None) -> int:
         "replaces": "miso_tpu/sampler/pallas_kernel.py:120",
         "launches": lc_r.counts["reassign"]["cuda"]
         + lc_v.counts["reassign"]["cuda"] + lc_k.counts["reassign"]["cuda"]
-        + lc_p.counts["reassign"]["cuda"],
+        + lc_p.counts["reassign"]["cuda"] + lc_s.counts["reassign"]["cuda"]
+        + lc_w.counts["reassign"]["cuda"] + wide["reassign"]["launches"],
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
         "library_ms": None,
         "main_path_launches": lc_r.counts["reassign"]["cuda"],
         "main_path_ms": lc_r.ms("reassign"),
-        "chunk_ms": layouts["chunk_ms"]}, {
+        "chunk_ms": layouts["chunk_ms"],
+        "wide_bucket": wide["reassign"]}, {
         "name": "marginal", "route": "cuda",
         "source": "miso_tpu_torch/csrc/marginal_kernel.cu",
         "replaces": "miso_tpu/sampler/pallas_marginal.py:48",
         "launches": lc_m.counts["marginal"]["cuda"]
-        + lc_c.counts["marginal"]["cuda"] + lc_q.counts["marginal"]["cuda"],
+        + lc_c.counts["marginal"]["cuda"] + lc_q.counts["marginal"]["cuda"]
+        + lc_qk.counts["marginal"]["cuda"] + wide["marginal"]["launches"],
         "max_abs_err": m_err, "ms": m_ms, "plain_ms": m_plain_ms,
         "bound_ms": m_bound["bound_ms"], "bound_by": m_bound["bound_by"],
         "library_ms": None,
         "main_path_launches": lc_m.counts["marginal"]["cuda"],
         "main_path_ms": lc_m.ms("marginal"),
-        "chunk_ms": m_layouts["chunk_ms"], "plan": m_layouts["plan"]}]}))
+        "chunk_ms": m_layouts["chunk_ms"], "plan": m_layouts["plan"],
+        "wide_bucket": wide["marginal"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1159,6 +1619,7 @@ def main(only=None, sass_dir=None) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] not in ([], ["marginal"]) or len(sys.argv) > 3:
-        sys.exit("usage: python3 chip_smoke.py [marginal [SASS_DIR]]")
+    if sys.argv[1:2] not in ([], ["marginal"], ["hosts"]) \
+            or len(sys.argv) > (3 if sys.argv[1:2] == ["marginal"] else 2):
+        sys.exit("usage: python3 chip_smoke.py [marginal [SASS_DIR] | hosts]")
     sys.exit(main(*sys.argv[1:]))

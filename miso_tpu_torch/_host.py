@@ -5,8 +5,8 @@ port's own host modules:
 RunConfig (:45-104), chrom_output_dir / event_output_path (:107-113),
 compile_gene_event (:116-146), _LazyResult (:196-218),
 _ci_bound_indices (:298-303), _write_event / _iter_bodies /
-_write_events_batch (:810-873), _pack_events_batch (:876-904) and
-_CompileStream (:927-1302).  Their home imports jax at module level
+_write_events_batch (:810-873), _pack_events_batch (:876-904),
+write_event_results (:907-924) and _CompileStream (:927-1302).  Their home imports jax at module level
 (pipeline.py:42), so they live here and not in a file of the same name.
 tests/test_torch_pipeline.py checks that each copy still equals its
 original.
@@ -263,6 +263,26 @@ def _pack_events_batch(packer, cfg: RunConfig, evs, results) -> int:
         packer.add(ev.gene.chrom, ev.name, header, body.decode())
         n += 1
     return n
+
+
+def write_event_results(
+    events: List[CompiledEvent],
+    results: List[Optional[dict]],
+    output_dir: str,
+    cfg: RunConfig,
+    workers: int = 4,
+) -> int:
+    def write_one(pair):
+        _write_event(output_dir, cfg, *pair)
+        return 1
+
+    todo = [(ev, res) for ev, res in zip(events, results)
+            if res is not None]
+    if workers > 1 and len(todo) > 64:
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            return sum(pool.map(write_one, todo))
+    return sum(map(write_one, todo))
 
 
 class _CompileStream:

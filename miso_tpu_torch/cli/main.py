@@ -1,15 +1,18 @@
-"""`miso_torch` -- `miso --run` on one GPU through the PyTorch port.
+"""`miso_torch` -- `miso --run` on a GPU through the PyTorch port.
 
 The same flags as ``miso`` (its own copy of the parser of
 ``miso_tpu/cli/main.py``; tests/test_torch_host_copy.py holds the two
 together) plus
 ``--device`` (default ``cuda``; a run that asks for CUDA where there is
-none raises).  The port runs every single-device mode of ``miso --run``:
+none raises).  The port runs every mode of ``miso --run`` but the
+in-process device mesh:
 ``--paired-end MEAN SD``, ``--algorithm reassign|marginal|classes``,
 ``--linear-start``, ``--convergent`` (with ``--convergent-growth``),
 ``--summary-only``, ``--pack-output`` and ``--profile DIR`` (a
-``torch.profiler`` Chrome trace).  The multi-host flags raise
-NotImplementedError naming the ROADMAP item that will add them.
+``torch.profiler`` Chrome trace), and ``--coordinator HOST:PORT
+--num-hosts N --host-id K`` (every host runs the same command on its
+own device, takes its round-robin shard of the genes and writes into
+the shared output tree; ``parallel/distributed.py``).
 """
 from __future__ import annotations
 
@@ -122,8 +125,8 @@ def view_gene(pickle_path: str) -> None:
 def main(argv=None) -> int:
     from miso_tpu_torch.io.settings import Settings
     from miso_tpu_torch import __version__
-    from miso_tpu_torch.pipeline import (RunConfig, compute_all_genes_psi,
-                                         resolve_device)
+    from miso_tpu_torch.parallel import distributed
+    from miso_tpu_torch.pipeline import resolve_device
 
     args = build_parser().parse_args(argv)
     if args.version:
@@ -142,9 +145,6 @@ def main(argv=None) -> int:
     if args.read_len is None:
         print("Error: need --read-len.", file=sys.stderr)
         return 1
-    if args.coordinator or args.num_hosts:
-        raise NotImplementedError("not ported yet: --coordinator/"
-                                  "--num-hosts (ROADMAP A.11)")
     device = resolve_device(args.device)
 
     for path, what in [(args.compute_genes_psi[0], "index directory"),
@@ -160,8 +160,22 @@ def main(argv=None) -> int:
               % args.settings_filename, file=sys.stderr)
         return 1
     settings = Settings.load(args.settings_filename)
+    multihost = False
+    if args.coordinator or args.num_hosts:
+        multihost = distributed.initialize_distributed(
+            args.coordinator, args.num_hosts, args.host_id)
+    try:
+        return _run(args, settings, device, multihost)
+    finally:
+        distributed.shutdown()
+
+
+def _run(args, settings, device, multihost: bool) -> int:
+    """The run itself, once the hosts have met
+    (miso_tpu/cli/main.py:157-200)."""
+    from miso_tpu_torch.pipeline import RunConfig, compute_all_genes_psi
+
     index_dir, reads = args.compute_genes_psi
-    # miso_tpu/cli/main.py:158-171
     paired = args.paired_end is not None
     overhang = 1
     if args.overhang_len is not None and not paired:
@@ -182,10 +196,17 @@ def main(argv=None) -> int:
     index_dir = os.path.abspath(os.path.expanduser(index_dir))
     reads = os.path.abspath(os.path.expanduser(reads))
     gene_ids = None
+    if multihost:
+        from miso_tpu_torch.io.index import get_gene_ids_to_filenames
+        from miso_tpu_torch.parallel.distributed import host_shard
+        gene_ids = host_shard(sorted(get_gene_ids_to_filenames(index_dir)))
+        print("Host shard: %d genes on this host" % len(gene_ids))
     if args.prefilter:
         from miso_tpu_torch.io.sanity import get_ids_passing_filter
-        gene_ids = get_ids_passing_filter(
+        passing = get_ids_passing_filter(
             index_dir, reads, min_reads=settings.get_min_event_reads())
+        gene_ids = (passing if gene_ids is None
+                    else [g for g in gene_ids if g in set(passing)])
         print("Prefilter: %d genes pass the coverage filter"
               % len(gene_ids))
     compute_all_genes_psi(

@@ -25,9 +25,14 @@ package does.
 
 The port runs single-end and paired-end events with every algorithm,
 either start and either stop rule, with full ``.miso`` output,
-``--summary-only`` or ``--pack-output``, under ``--profile`` too.  A
-bucket wider than the kernels' widest instance (``KERNEL_ISO``) on the
-card raises ``NotImplementedError`` naming its ROADMAP item.
+``--summary-only`` or ``--pack-output``, under ``--profile`` too, on one
+host or on several (``parallel/distributed.py``: each host runs its
+shard of the genes and writes its own summary into the shared tree).
+
+The kernels have an instance for every bucket of up to 1,024 isoforms
+(``KERNEL_ISO``).  On a CUDA device a wider bucket is refused before any
+tensor moves, unless it is a deep REASSIGN bucket, which runs no kernel;
+nothing takes a kernel's place on the card.
 """
 from __future__ import annotations
 
@@ -47,9 +52,14 @@ from miso_tpu_torch.core.events import (CompiledEvent, bucket_events,
 from miso_tpu_torch.io import sam as sam_io
 from miso_tpu_torch.io.index import get_gene_ids_to_filenames
 from miso_tpu_torch.io.settings import Settings
+# compile_gene_event, event_output_path and write_event_results are not
+# used here: cli/run_miso.py imports them from this module, as the JAX
+# package's does from its pipeline.py
 from miso_tpu_torch._host import (RunConfig, _CompileStream, _LazyResult,
                                   _ci_bound_indices, _pack_events_batch,
-                                  _write_events_batch)
+                                  _write_events_batch, compile_gene_event,
+                                  event_output_path, write_event_results)
+from miso_tpu_torch.parallel import distributed
 from miso_tpu_torch.quantize import (quantize_psi, quantize_scores,
                                      summary_stats)
 from miso_tpu_torch.sampler.convergent import run_batch_convergent
@@ -84,14 +94,17 @@ def _bucket_key(ev: CompiledEvent) -> Tuple[int, int, int]:
 
 
 def chunk_seed(seed: int, offset: int, pad_iso: int, pad_classes: int,
-               pad_reads: int) -> int:
+               pad_reads: int, host: Optional[int] = None) -> int:
     """64-bit sampler seed of one chunk.  It mixes every bucket axis and
     the chunk offset within the bucket: buckets that differ in one axis,
     or successive chunks of one bucket, would otherwise replay the same
-    per-(event, chain) random streams (pipeline.py:473-484)."""
+    per-(event, chain) random streams (pipeline.py:473-484).  ``host`` is
+    the host id of a multi-host run, None on a single host: every host
+    counts its chunk offsets from 0, so without it two hosts with one
+    ``--seed`` would draw the same streams for different events."""
     words = np.random.SeedSequence(
-        [seed, offset, pad_iso, pad_classes, pad_reads]).generate_state(
-            2, np.uint32)
+        [seed, offset, pad_iso, pad_classes, pad_reads]
+        + ([] if host is None else [host])).generate_state(2, np.uint32)
     return int(words[0]) | (int(words[1]) << 32)
 
 
@@ -170,6 +183,10 @@ class StreamRunner:
         self.device = resolve_device(device)
         self.bucket_stats = bucket_stats
         self.on_chunk = on_chunk
+        # the host axis of the chunk seeds: this host's id in a
+        # multi-host run, None (no axis) on a single host
+        self.host = (distributed.process_index()
+                     if distributed.process_count() > 1 else None)
         self.sampler_cfg = SamplerConfig(
             iters=cfg.iters, burn_in=cfg.burn_in, lag=cfg.lag,
             chains=cfg.chains, algorithm=cfg.algorithm)
@@ -255,14 +272,15 @@ class StreamRunner:
                 and pad_iso not in KERNEL_ISO):
             raise NotImplementedError(
                 "not ported yet: events with more than %d isoforms on the "
-                "CUDA kernels (ROADMAP B1, B2)" % max(KERNEL_ISO))
+                "CUDA kernels (ROADMAP B.6)" % max(KERNEL_ISO))
         t_bucket = time.time()
         batch = EventBatch(**pad_events(
             evs, pad_iso=pad_iso, pad_classes=pad_classes,
             pad_reads=pad_reads, read_dtype=np.float32, per_read=False))
         lo = self.bucket_off.get(key, 0)
         self.bucket_off[key] = lo + cfg.max_batch_events
-        seed = chunk_seed(self.seed, lo, pad_iso, pad_classes, pad_reads)
+        seed = chunk_seed(self.seed, lo, pad_iso, pad_classes, pad_reads,
+                          host=self.host)
         start = (linear_start(evs, cfg, pad_iso) if cfg.start == "linear"
                  else None)
         sampler = functools.partial(run_sampler, pad_reads=pad_reads)
@@ -504,7 +522,7 @@ def compute_all_genes_psi(
 ) -> int:
     """The ``miso --run`` engine on one device.  Returns the number of
     events written.  A copy of pipeline.py:1304-1567 without the mesh
-    and the multi-host labels (ROADMAP A.11).  ``profile_dir`` wraps the
+    (ROADMAP A.11b).  ``profile_dir`` wraps the
     run's consume loop in ``torch.profiler`` and writes a Chrome trace
     there (pipeline.py:1492-1497 does it with ``jax.profiler``)."""
     from miso_tpu_torch.io.sanity import check_gff_and_bam, setup_logger
@@ -651,11 +669,20 @@ def compute_all_genes_psi(
     if summary_rows or stream.resume_skipped:
         from miso_tpu_torch.io.miso_file import write_summary_file
         label = os.path.basename(os.path.normpath(output_dir))
+        ran = len(summary_rows)   # rows of events this run sampled
+        if distributed.process_count() > 1:
+            # multi-host runs share output_dir: per-host summary files
+            # (concurrent read-merge-writes of one file would race and
+            # drop rows; concatenate or summarize_miso to merge)
+            label = "%s.host%d" % (label, distributed.process_index())
         summary_filename = os.path.join(output_dir, "summary",
                                         "%s.miso_summary" % label)
-        if stream.resume_skipped and not cfg.summary_only:
+        if stream.resume_skipped:
             # resumed runs: backfill the skipped events' rows from their
-            # stored samples so the summary is never silently partial
+            # stored samples so the summary is never silently partial --
+            # under --summary-only too, where the skipped events' .miso
+            # files of an earlier full run are the only source of their
+            # rows (the JAX package leaves those rows out)
             from miso_tpu_torch.io.miso_file import (MISOSamples,
                                                summary_row_from_data)
             have = set(summary_rows)
@@ -682,7 +709,7 @@ def compute_all_genes_psi(
             print("Posterior summary (%d events, device-side): %s"
                   % (n_summ, summary_filename))
         if cfg.summary_only:
-            written = len(summary_rows)
+            written = ran
     if verbose:
         dt = time.time() - t0
         for bs in bucket_stats:

@@ -45,8 +45,8 @@ NEG_BIG = -1e30
 TWO_PI = 2.0 * math.pi
 _U24 = 2.0 ** -24
 # the isoform widths both kernels are instantiated for: every bucketed I
-# (core/events._round_up_iso) of a gene with up to 256 isoforms
-KERNEL_ISO = (2, 3, 4, 6, 8, 16, 32, 64, 128, 256)
+# (core/events._round_up_iso) of a gene with up to 1,024 isoforms
+KERNEL_ISO = (2, 3, 4, 6, 8, 16, 32, 64, 128, 256, 512, 1024)
 
 # The launch plan's constants; csrc/reassign_kernel.cu holds the same
 # values (kShared/kCache, kMaxThreads).
@@ -65,12 +65,12 @@ SMS = 132                 # an H100's streaming multiprocessors
 SM_SHARED = 233472
 BLOCK_RESERVE = 1024
 # Registers: 65,536 on an SM, and what ptxas gives a thread of each
-# width's instance (the 128- and 256-wide keep their arrays in local
+# width's instance (from 128 isoforms on they keep their arrays in local
 # memory).  They cap the warps an SM holds whatever shared memory does;
 # chip_smoke.py holds this table to the build's own log.
 SM_REGISTERS = 65536
 KERNEL_REGISTERS = {2: 64, 3: 80, 4: 100, 6: 120, 8: 156, 16: 255, 32: 255,
-                    64: 255, 128: 40, 256: 40}
+                    64: 255, 128: 63, 256: 63, 512: 63, 1024: 63}
 
 
 class LaunchPlan(NamedTuple):

@@ -47,7 +47,7 @@ def _assert_same_chain(got, ref):
 # (I, num_iso): every width the kernel is built for, some with padded
 # isoforms
 WIDTHS = [(2, 2), (3, 3), (4, 3), (6, 5), (8, 8), (16, 9), (32, 17),
-          (64, 33), (128, 70), (256, 130)]
+          (64, 33), (128, 70), (256, 130), (512, 300), (1024, 600)]
 
 
 @pytest.mark.parametrize("given", [False, True])

@@ -16,7 +16,8 @@ from miso_tpu_torch.sampler import deep
 from miso_tpu_torch.sampler import reassign_kernel as rk
 from miso_tpu_torch.sampler.mcmc import SamplerConfig, batch_from_numpy
 from miso_tpu_torch.sampler.model import gibbs_reassign
-from miso_tpu_torch.testing import class_batch, deepened, simulated_event
+from miso_tpu_torch.testing import (class_batch, deepened, simulated_event,
+                                    wide_event)
 
 
 def _deep_event(scale=500, n_base=2000):
@@ -167,17 +168,129 @@ def test_deep_bucket_wider_than_64_isoforms_runs():
     assert (res.final_n[..., 70:] == 0).all()
 
 
-def test_card_refuses_only_shallow_buckets_above_its_widest_kernel():
-    """On a CUDA device, a shallow bucket wider than KERNEL_ISO raises
-    NotImplementedError naming its ROADMAP items before any tensor
-    moves; a deep one is routed past the width check."""
-    cfg = RunConfig(read_len=25, iters=20, burn_in=10, lag=5, chains=2)
-    runner = tp.StreamRunner(cfg, device="cpu")
+def _runner_on_a_pretended_card(monkeypatch, cfg, results):
+    """A StreamRunner whose device says CUDA while its tensors stay on
+    the CPU (no card here): the routing reads the device, the samplers
+    read the tensors."""
+    real = tp.batch_from_numpy
+    monkeypatch.setattr(
+        tp, "batch_from_numpy",
+        lambda batch, device, start=None: real(batch, "cpu", start))
+    runner = tp.StreamRunner(
+        cfg, device="cpu",
+        on_chunk=lambda tags, res: results.extend(res))
+    runner.device = torch.device("cuda")
+    return runner
+
+
+@pytest.mark.parametrize("algorithm", ["reassign", "marginal", "classes"])
+def test_card_refuses_only_shallow_buckets_above_its_widest_kernel(
+        monkeypatch, capsys, algorithm):
+    """On a CUDA device a bucket of up to 1,024 isoforms goes to its
+    kernel's wrapper (the kernels have an instance that wide) and to
+    nothing else; a wider one raises NotImplementedError naming its
+    ROADMAP item before any tensor moves, unless it is a deep REASSIGN
+    bucket, which runs no kernel."""
+    from miso_tpu_torch.sampler import marginal_kernel as mk
+
+    assert max(tp.KERNEL_ISO) == 1024
+    assert {512, 1024} <= set(tp.KERNEL_ISO)
+    ev = wide_event(algorithm)
+    key = tp._bucket_key(ev)
+    assert key[0] == 512 and key[2] <= tp.DEEP_READS
+    cfg = RunConfig(read_len=25, iters=20, burn_in=10, lag=5, chains=2,
+                    algorithm=algorithm)
+    results, went = [], []
+    wrapper = ("run_batch_reassign" if algorithm == "reassign"
+               else "run_batch_marginal")
+    real = getattr(tp, wrapper)
+
+    def counted(seed, batch, *args, **kw):
+        went.append(tuple(batch.weights.shape))
+        return real(seed, batch, *args, **kw)
+
+    monkeypatch.setattr(tp, wrapper, counted)
+    runner = _runner_on_a_pretended_card(monkeypatch, cfg, results)
+    before = (deep.LAUNCHES["deep"], dict(mk.LAUNCHES), dict(rk.LAUNCHES))
     try:
-        runner.device = torch.device("cuda")       # no card needed: the
-        ev, _ = _deep_event(n_base=100, scale=1)   # check raises first
-        with pytest.raises(NotImplementedError, match="ROADMAP B1, B2"):
-            runner._dispatch((512, 2, 128), [ev], [0])
-        assert max(tp.KERNEL_ISO) == 256
+        # nothing wider than the widest instance but a deep REASSIGN bucket
+        with pytest.raises(NotImplementedError, match="ROADMAP B.6"):
+            runner._dispatch((2048, key[1], key[2]), [ev], [0])
+        assert not went
+        runner.add(ev)
+        runner.add(ev)
+        runner.finish()
+    except BaseException:
+        runner.abort()
+        raise
+    assert "wider than" not in capsys.readouterr().out
+    # one launch of the bucket's own wrapper at 512 isoforms, on the
+    # tensors it was given (here the CPU's: its plain version), and no
+    # deep route in its place
+    assert went == [(2, key[1], 512)]
+    assert deep.LAUNCHES["deep"] == before[0]
+    mine, other = ((rk, mk) if algorithm == "reassign" else (mk, rk))
+    assert mine.LAUNCHES["plain"] == before[1 if mine is mk else 2][
+        "plain"] + 1
+    assert other.LAUNCHES == before[2 if mine is mk else 1]
+    assert mk.LAUNCHES["cuda"] == before[1]["cuda"]
+    assert rk.LAUNCHES["cuda"] == before[2]["cuda"]
+    assert len(results) == 2
+    for res in results:
+        ticks = res["psi_ticks"]
+        assert ticks.shape == (4, 300)
+        assert np.all(np.abs(ticks.astype(np.int64).sum(1) - 10000) <= 300)
+        assert np.isfinite(res["loglik"]).all()
+        if algorithm == "reassign":
+            assert float(np.sum(res["final_n"])) == float(ev.counts.sum())
+
+
+def test_deep_bucket_of_any_width_passes_the_width_check(monkeypatch):
+    """A deep REASSIGN bucket wider than every kernel instance is not
+    refused on a CUDA device: the deep route takes any width."""
+    ev, _ = _deep_event(n_base=100, scale=1)
+    cfg = RunConfig(read_len=25, iters=20, burn_in=10, lag=5, chains=2)
+    results = []
+    runner = _runner_on_a_pretended_card(monkeypatch, cfg, results)
+    before = deep.LAUNCHES["deep"]
+    try:
+        runner._dispatch((2048, tp._bucket_key(ev)[1], 2 * tp.DEEP_READS),
+                         [ev], [0])
+        runner.finish()
+    except BaseException:
+        runner.abort()
+        raise
+    assert deep.LAUNCHES["deep"] == before + 1 and len(results) == 1
+
+
+def test_a_kernel_that_fails_is_never_rerouted(monkeypatch, capsys):
+    """A bucket goes to its kernel on a CUDA device; when the kernel
+    fails to build or launch the run raises: no plain version and no
+    other route takes its place."""
+    from miso_tpu_torch.sampler import marginal_kernel as mk
+
+    def broken(*args, **kw):
+        raise RuntimeError("nvcc failed (1)")
+
+    monkeypatch.setattr(tp, "run_batch_marginal", broken)
+    ev = simulated_event([100, 50, 100], [[1, 2, 3], [1, 3]], [0.3, 0.7],
+                         100, 25, seed=4, algorithm="marginal")
+    cfg = RunConfig(read_len=25, iters=20, burn_in=10, lag=5, chains=2,
+                    algorithm="marginal")
+    runner = _runner_on_a_pretended_card(monkeypatch, cfg, [])
+    before = (dict(mk.LAUNCHES), dict(rk.LAUNCHES), dict(deep.LAUNCHES))
+    try:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            runner._dispatch(tp._bucket_key(ev), [ev], [0])
     finally:
         runner.abort()
+    assert (dict(mk.LAUNCHES), dict(rk.LAUNCHES),
+            dict(deep.LAUNCHES)) == before
+    # and a CUDA tensor has no route but the kernel: the wrappers choose
+    # by the tensors' device alone
+    import inspect
+    for wrapper, plain in ((mk.run_batch_marginal, "_marginal_plain"),
+                           (rk.run_batch_reassign, "_reassign_plain")):
+        src = inspect.getsource(wrapper)
+        assert src.index('dev.type == "cuda"') < src.index(
+            'dev.type == "cpu"') < src.index(plain)

@@ -1,8 +1,9 @@
 """The port's host half is a copy of the JAX package's, not a fork.
 
 ``miso_tpu_torch`` imports nothing of ``miso_tpu``: its ``core/``,
-``io/``, ``native/``, ``stats/intervals.py`` and ``cli/index_gff.py`` are
-the reference's files with the package name changed.  Each file is held
+``io/``, ``native/``, ``stats/intervals.py``, ``stats/bayes.py`` and
+every ``cli/`` tool that runs on the host alone are the reference's
+files with the package name changed.  Each file is held
 to its original here, with every allowed difference listed, and the
 copies are run beside the originals on seeded numpy inputs: the results
 must be equal to the last bit.
@@ -48,6 +49,11 @@ COPIED = [
     "io/__init__.py", "io/settings.py", "io/sam.py", "io/index.py",
     "io/gff.py", "io/sanity.py", "io/miso_file.py", "io/miso_db.py",
     "stats/intervals.py", "cli/index_gff.py",
+    "stats/bayes.py", "io/comparison.py", "core/as_events.py",
+    "cli/summarize.py", "cli/compare.py", "cli/filter_events.py",
+    "cli/pack.py", "cli/zip.py", "cli/exon_utils.py", "cli/pe_utils.py",
+    "cli/rpkm.py", "cli/sam_to_bam.py", "cli/simulate.py",
+    "cli/run_events_analysis.py", "cli/run_miso.py",
 ]
 
 WORD = "build" + "er"
@@ -77,6 +83,25 @@ ALLOWED = {
 """),
     ],
     # one word of two comments
+    "core/as_events.py": [
+        ("event->gene\n%ss in misopy/Gene.py:1042-1131" % WORD,
+         "event->gene\nconstructors in misopy/Gene.py:1042-1131"),
+    ],
+    # --device, as on miso_torch: the sampler runs on the card unless the
+    # caller asks for the CPU
+    "cli/run_miso.py": [
+        ("""                        "(.pickle filename), as misopy/run_miso.py:391.")
+    return p
+""", """                        "(.pickle filename), as misopy/run_miso.py:391.")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the sampler: 'cuda' (the CUDA "
+                        "kernel) or 'cpu' (its plain PyTorch version).")
+    return p
+"""),
+        ("    results = run_events(events, cfg, seed=args.seed)\n",
+         "    results = run_events(events, cfg, seed=args.seed, "
+         "device=args.device)\n"),
+    ],
     "core/gene.py": [
         ("    %s used by the reference's own smoke tests." % WORD,
          "    constructor used by the reference's own smoke tests."),

@@ -7,6 +7,7 @@ run in a fresh interpreter.
 import os
 import pkgutil
 import re
+import socket
 import subprocess
 import sys
 
@@ -30,6 +31,14 @@ lag = 5
 num_iters = 220
 num_chains = 2
 """
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
 
 
 def _fresh(code, timeout=600):
@@ -56,7 +65,15 @@ def test_port_imports_leave_jax_out():
     assert {"miso_tpu_torch.pipeline", "miso_tpu_torch.core.events",
             "miso_tpu_torch.io.sam", "miso_tpu_torch.native",
             "miso_tpu_torch.cli.main", "miso_tpu_torch.kernels",
-            "miso_tpu_torch.sampler.reassign_kernel"} <= set(names)
+            "miso_tpu_torch.sampler.reassign_kernel",
+            "miso_tpu_torch.parallel.distributed",
+            "miso_tpu_torch.stats.bayes", "miso_tpu_torch.io.comparison",
+            "miso_tpu_torch.core.as_events"} <= set(names)
+    assert {"miso_tpu_torch.cli." + m for m in (
+        "summarize", "compare", "filter_events", "pack", "zip",
+        "exon_utils", "pe_utils", "rpkm", "sam_to_bam", "simulate",
+        "run_events_analysis", "run_miso", "module_availability",
+        "test_miso")} <= set(names)
     code = "import sys, miso_tpu_torch, %s; %s" % (", ".join(names), FOREIGN)
     assert _fresh(code) == "FOREIGN []"
 
@@ -89,6 +106,57 @@ with open(os.path.join({out!r}, "summary", "out.miso_summary")) as f:
            settings=str(settings), flags=flags, paired=paired,
            reads=150 if paired else 200, read_len=40 if paired else 36,
            foreign=FOREIGN)
+    assert _fresh(code) == "FOREIGN []"
+
+
+def test_the_users_path_leaves_jax_and_the_jax_package_out(tmp_path):
+    """Two hosts of ``miso_torch --run`` (host 1 a process of its own,
+    host 0 this interpreter), then the port's summarize, compare, filter, run_miso.py and its two
+    probes, all in one fresh interpreter: no jax, no miso_tpu."""
+    settings = tmp_path / "settings.txt"
+    settings.write_text(SETTINGS)
+    code = """
+import glob, os, subprocess, sys
+from miso_tpu_torch.cli.main import main
+from miso_tpu_torch.cli import (compare, filter_events, module_availability,
+                                run_miso, summarize, test_miso)
+from miso_tpu_torch.io.index import get_gene_ids_to_filenames
+from miso_tpu_torch.io.sam import open_alignments
+from miso_tpu_torch.testing import indexed_catalog
+fix = indexed_catalog({cat!r}, num_events=6, reads_per_event=200,
+                      read_len=36, seed=3)
+bam = open_alignments(fix["bam"])     # the .bai, before two hosts race on it
+list(bam.fetch(bam.references[0], 0, 1))
+run = ["--run", fix["index"], fix["bam"], "--output-dir", {out!r},
+       "--read-len", "36", "--settings-filename", {settings!r},
+       "--device", "cpu", "--coordinator", "127.0.0.1:{port}",
+       "--num-hosts", "2"]
+other = subprocess.Popen([sys.executable, "-m", "miso_tpu_torch.cli.main"]
+                         + run + ["--host-id", "1"])
+try:
+    assert main(run + ["--host-id", "0"]) == 0
+    assert other.wait(timeout=300) == 0
+finally:
+    if other.poll() is None:
+        other.kill()
+assert len(glob.glob(os.path.join({out!r}, "summary", "*.host*"))) == 2
+assert summarize.main(["--summarize-samples", {out!r}, {summ!r}]) == 0
+assert compare.main(["--compare-samples", {out!r}, {out!r}, {cmp!r}]) == 0
+(bf,) = glob.glob(os.path.join({cmp!r}, "*", "bayes-factors", "*.miso_bf"))
+assert len(open(bf).read().splitlines()) == 7
+assert filter_events.main(["--filter", bf, "--output-dir", {filt!r}]) == 0
+gene, pickle = sorted(get_gene_ids_to_filenames(fix["index"]).items())[0]
+assert run_miso.main(["--compute-gene-psi", gene, pickle, fix["bam"],
+                      {single!r}, "--read-len", "36", "--settings-filename",
+                      {settings!r}, "--device", "cpu"]) == 0
+assert len(glob.glob(os.path.join({single!r}, "*", "*.miso"))) == 1
+module_availability.main([])
+assert test_miso.main(["--device", "cpu"]) == 0
+{foreign}
+""".format(cat=str(tmp_path / "cat"), out=str(tmp_path / "out"),
+           summ=str(tmp_path / "summ"), cmp=str(tmp_path / "cmp"),
+           filt=str(tmp_path / "filt"), single=str(tmp_path / "single"),
+           settings=str(settings), foreign=FOREIGN, port=_free_port())
     assert _fresh(code) == "FOREIGN []"
 
 

@@ -131,12 +131,15 @@ def _start(num_iso, E, K, I):
 
 
 # every lane width and home of the weights at R = 16, by isoform width:
-# the vector loads (I <= 8), the scalar ones, and the rolled loops
-# (I > 64; narrow lanes only: a wide one shuffles 128 counts through the
-# shim's barriers five times a step)
+# the vector loads (I <= 8), the scalar ones, and the loops that are not
+# fully unrolled (I > 64; narrow lanes only: a wide one shuffles 128
+# counts through the shim's barriers five times a step; at 512 isoforms
+# the weights behind the cache alone)
 LAYOUTS = [(I, num_iso, plan.T, plan.home)
-           for I, num_iso in ((2, 2), (3, 3), (8, 5), (16, 9), (128, 70))
-           for plan in rk.all_plans(2, 16, I, 2) if I <= 64 or plan.T == 4]
+           for I, num_iso in ((2, 2), (3, 3), (8, 5), (16, 9), (128, 70),
+                              (512, 300))
+           for plan in rk.all_plans(2, 16, I, 2)
+           if I <= 64 or (plan.T == 4 and (I == 128 or plan.home == "cache"))]
 
 
 @pytest.mark.parametrize("I,num_iso,T,home", LAYOUTS)
@@ -218,8 +221,13 @@ def test_launcher_refuses_a_plan_it_cannot_lay_out(on_cpu):
             rk._reassign_cuda(0, batch, cfg, consts, None, True, plan=bad)
 
 
-@pytest.mark.parametrize("given", [False, True])
-@pytest.mark.parametrize("I,num_iso", [(2, 2), (3, 3), (8, 5), (128, 70)])
+# (512 isoforms from the AUTO start alone: a GIVEN Dirichlet start puts
+# the scores near 1,370, where the host's logf and torch's differ by more
+# than the tolerance; on the card the two agree to the bit)
+@pytest.mark.parametrize("I,num_iso,given", [
+    (I, num_iso, given)
+    for I, num_iso in ((2, 2), (3, 3), (8, 5), (128, 70), (512, 300))
+    for given in (False, True) if I < 512 or not given])
 def test_marginal_source_matches_plain(on_cpu, I, num_iso, given):
     """B2 with padded isoforms, an empty class and a padding event, in
     the plan the wrapper chooses."""

@@ -43,13 +43,19 @@ def _start(num_iso, K, E=2):
 
 
 @pytest.mark.parametrize("num_iso,given", [(2, False), (3, False),
-                                           (2, True), (3, True)])
+                                           (2, True), (3, True),
+                                           (64, False)])
 def test_plain_fixed_uniform_matches_pallas_interpret(monkeypatch, num_iso,
                                                       given):
     """The JAX kernel runs the two real events; the port runs them beside
-    a padding event, whose lanes must not touch theirs."""
+    a padding event, whose lanes must not touch theirs.  The last case
+    is a wide bucket, 33 real isoforms padded to 64.  (From about 70
+    isoforms on, the f32 rounding of the psi-space proposal densities is
+    of the size of the MH ratio itself, and two implementations that
+    round differently take different accept decisions.)"""
     monkeypatch.setattr(pk, "_DEBUG_NO_PRNG", True)
-    tb = marginal_lane_batch(num_iso, num_iso, seed=num_iso, device="cpu")
+    real = 33 if num_iso == 64 else num_iso
+    tb = marginal_lane_batch(num_iso, real, seed=num_iso, device="cpu")
     nb = jmcmc.EventBatch(*(t.numpy()[:2] for t in tb))
     K = SMALL["chains"]
     start = _start(num_iso, K) if given else None

@@ -119,7 +119,7 @@ def test_quantisation_and_summary_match_jax(I):
     "RunConfig", "chrom_output_dir", "event_output_path",
     "compile_gene_event", "_LazyResult", "_ci_bound_indices",
     "_write_event", "_iter_bodies", "_write_events_batch",
-    "_pack_events_batch", "_CompileStream"])
+    "_pack_events_batch", "write_event_results", "_CompileStream"])
 def test_host_copy_has_not_drifted(name):
     """_host.py holds verbatim copies of miso_tpu/pipeline.py objects,
     importing the port's own host modules."""
@@ -332,10 +332,57 @@ def test_cli_refuses_unported_flags_and_missing_cuda(catalog):
     root, fix, index_dir, settings = catalog
     base = ["--run", index_dir, fix["bam"], "--output-dir",
             str(root / "refused"), "--read-len", "36"]
+    # the multi-host flags run since the port has parallel/distributed.py;
+    # what is refused now, before any rendezvous, is a host that was
+    # started without its coordinator, count or id, or with an id outside
+    # the count
     for flags in (["--num-hosts", "2"],
-                  ["--coordinator", "localhost:1234"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+                  ["--coordinator", "localhost:1234"],
+                  ["--coordinator", "localhost:1234", "--host-id", "0"],
+                  ["--num-hosts", "2", "--host-id", "1"],
+                  ["--coordinator", "localhost:1234", "--num-hosts", "2",
+                   "--host-id", "2"],
+                  ["--coordinator", "localhost:1234", "--num-hosts", "2",
+                   "--host-id", "-1"]):
+        with pytest.raises(ValueError, match="--host-id"):
             torch_main(base + flags + ["--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             torch_main(base)
+
+
+def test_summary_only_resume_backfills_every_row(catalog, capsys):
+    """--summary-only resumed over a tree that holds full outputs for
+    half the catalog: the events that have their .miso file are skipped
+    and their rows come from the stored samples, so every event has a
+    row (the JAX package leaves those rows out without a word)."""
+    from miso_tpu_torch.cli.main import main as torch_main
+
+    root, fix, index_dir, settings = catalog
+    out = str(root / "resumed")
+    half = ["ev%d" % e for e in range(0, N_EVENTS, 2)]
+    from miso_tpu_torch.io.settings import Settings
+    assert tp.compute_all_genes_psi(
+        index_dir, fix["bam"], 36, out, settings=Settings.load(settings),
+        gene_ids=half, device="cpu", verbose=False) == len(half)
+    first = _summary(out)
+    assert sorted(first) == sorted(half)
+    os.remove(os.path.join(out, "summary", "resumed.miso_summary"))
+    capsys.readouterr()
+    assert torch_main(["--run", index_dir, fix["bam"], "--output-dir", out,
+                       "--read-len", "36", "--settings-filename", settings,
+                       "--summary-only", "--device", "cpu"]) == 0
+    text = capsys.readouterr().out
+    # only the other half was sampled, and no new .miso file appeared
+    assert "Quantified %d events (%d skipped)" % (
+        N_EVENTS - len(half), len(half)) in text
+    assert "Posterior summary (%d events" % N_EVENTS in text
+    assert len(_miso_files(out)) == len(half)
+    rows = _summary(out)
+    assert sorted(rows) == sorted("ev%d" % e for e in range(N_EVENTS))
+    # a backfilled row is the row the full run wrote for that event
+    for name in half:
+        assert rows[name] == first[name]
+    means = np.array([float(rows["ev%d" % e]["miso_posterior_mean"])
+                      for e in range(N_EVENTS)])
+    _check_truth(means, fix)

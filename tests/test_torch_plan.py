@@ -226,7 +226,7 @@ def test_every_marginal_lane_width_can_be_forced():
 
 @pytest.mark.parametrize("E,C,I,K", [(8, 4, 5, 6), (8, 0, 2, 6),
                                      (0, 4, 2, 6), (8, 4, 2, 0),
-                                     (8, 4, 512, 6)])
+                                     (8, 4, 2048, 6)])
 def test_marginal_plan_rejects_what_the_kernel_does_not_take(E, C, I, K):
     with pytest.raises(ValueError):
         mk.marginal_plan(E, C, I, K)

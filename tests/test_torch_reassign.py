@@ -90,6 +90,27 @@ def test_plain_fixed_uniform_matches_pallas_interpret(monkeypatch, num_iso,
     _assert_same_chain(got, ref)
 
 
+def test_plain_fixed_uniform_matches_pallas_interpret_at_64_isoforms(
+        monkeypatch):
+    """A wide bucket, 33 real isoforms padded to 64: the loops over the
+    isoforms that the wide kernel instances roll.  (Tracing the JAX
+    kernel's Python lists takes minutes from 128 isoforms on.)"""
+    from miso_tpu_torch.testing import lane_test_batch
+
+    monkeypatch.setattr(pk, "_DEBUG_NO_PRNG", True)
+    tb = lane_test_batch(64, 33, 64, "cpu")
+    batch = jmcmc.EventBatch(*(t.numpy() for t in tb))
+    sched = dict(iters=24, burn_in=6, lag=3, chains=2)
+    ref = pk.run_batch_pallas(jax.random.PRNGKey(0), batch,
+                              jmcmc.SamplerConfig(**sched), interpret=True)
+    ref = jmcmc.SamplerResult(*(np.asarray(x) for x in ref))
+    got = rk.run_batch_reassign(0, tb, SamplerConfig(**sched),
+                                fixed_uniform=rk.FIXED_U).to_numpy()
+    assert got.psi_samples.shape == ref.psi_samples.shape == (2, 6, 2, 64)
+    _assert_same_chain(got, ref)
+    assert (got.psi_samples[..., 33:] == 0).all()
+
+
 def _demo_event(psi, n_reads, seed):
     g = make_gene([100, 50, 100], [[1, 2, 3], [1, 3]])
     _, pos, cig = simulate_reads(g, psi, n_reads, 25,
