@@ -15,6 +15,9 @@
                                      # the spread of its walls), the host
                                      # tools, the wide buckets and the
                                      # probes alone
+    python3 chip_smoke.py mesh       # likewise: the 2,000-gene REASSIGN,
+                                     # MARGINAL and convergent runs, then
+                                     # the mesh phase alone
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, in parallel), holds each against its plain PyTorch
@@ -43,7 +46,16 @@ genes; one bucket of 512 isoforms through ``StreamRunner`` at stock
 settings for REASSIGN and MARGINAL (each launches its kernel's 512-wide
 instance, which is held against the plain version at that bucket's shape
 and against the exact posterior); and the port's ``module_availability``
-and ``test_miso``.
+and ``test_miso``.  The mesh phase (``parallel/mesh.py``): both kernels
+sharded at their main shapes over ``[cuda:0]`` and ``[cuda:0, cuda:0]``
+(one stream per entry) against the unsharded launch -- bit-equal under
+fixed uniforms in the shards' launch plan, every Philox shard of the
+pipeline's sampler bit-equal to its slice run alone with the seed the
+pipeline draws for it (``chunk_seed(..., shard=k)``) -- then ``miso --run``'s
+engine over ``[cuda:0, cuda:0]`` on the single-end catalog for REASSIGN,
+MARGINAL with the linear start and the convergent stop, each wall beside
+the unsharded run's.  The script never imports matplotlib (the card's
+machine has none).
 Every phase that fails raises, so the script exits non-zero and
 never prints its last line.  It needs one CUDA device and fails without
 one.
@@ -60,6 +72,7 @@ and operations over the FP32, integer and issue rates,
 from __future__ import annotations
 
 import glob
+import importlib.util
 import json
 import os
 import re
@@ -90,6 +103,8 @@ from miso_tpu_torch.cli import summarize as summarize_cli  # noqa: E402
 from miso_tpu_torch.cli import test_miso as test_miso_cli  # noqa: E402
 from miso_tpu_torch.cli.main import main as miso_torch_main  # noqa: E402
 from miso_tpu_torch.io.index import get_gene_ids_to_filenames  # noqa: E402
+from miso_tpu_torch.io.settings import Settings  # noqa: E402
+from miso_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 from miso_tpu_torch.sampler import deep  # noqa: E402
 from miso_tpu_torch.sampler import marginal_kernel as mk  # noqa: E402
 from miso_tpu_torch.sampler import reassign_kernel as rk  # noqa: E402
@@ -106,6 +121,8 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 from exact_posterior import exact_posterior_mean_2iso  # noqa: E402
 
 DEV = "cuda"
+# the mesh phase's mesh: the one card named twice, a stream for each
+MESH = ("cuda:0", "cuda:0")
 # fixed-uniform agreement of kernel and plain version: both are f32 and
 # follow the same chain, differing only by rounding (the tolerances of
 # tests/test_pallas_interpret.py)
@@ -1152,15 +1169,247 @@ def wide_buckets(gpu):
     return out
 
 
+def host_batch(batch):
+    """A batch on the card as the numpy batch a sharded run takes."""
+    return EventBatch(*(t.cpu().numpy() for t in batch))
+
+
+def one_launch(seed, batch, cfg, start=None, fixed=False, plan=None):
+    """The kernel of ``cfg.algorithm`` in one launch (in ``plan`` if
+    given), on the host."""
+    if cfg.algorithm == "reassign":
+        return in_plan(seed, batch, cfg, plan, start, fixed).to_numpy()
+    return mk._marginal_cuda(seed, batch, cfg, mk._marginal_consts(batch),
+                             start, fixed, plan=plan).to_numpy()
+
+
+def shard_plan(cfg, batch, E):
+    """The plan each kernel picks for a shard of E events of ``batch``."""
+    if cfg.algorithm == "reassign":
+        return rk.launch_plan(E, batch.read_w.shape[1], batch.read_w.shape[2],
+                              cfg.chains)
+    return mk.marginal_plan(E, batch.weights.shape[1],
+                            batch.weights.shape[2], cfg.chains)
+
+
+def bitwise(got, want):
+    """{field: max |difference|} over the fields of two host results: 0
+    where a field is bit-equal (NaN in the same places, as padding events
+    may give), inf where shapes or NaNs differ."""
+    out = {}
+    for f in got._fields:
+        x, y = np.asarray(getattr(got, f)), np.asarray(getattr(want, f))
+        if x.shape == y.shape and np.array_equal(x, y, equal_nan=True):
+            out[f] = 0.0
+        elif x.shape != y.shape:
+            out[f] = float("inf")
+        else:
+            d = np.abs(x.astype(np.float64) - y.astype(np.float64))
+            out[f] = float(np.nanmax(d)) or float("inf")
+    return out
+
+
+def kernel_of(seed, batch, cfg, start_psi=None, fixed_uniform=None):
+    """The wrapper of ``cfg.algorithm``'s kernel on a batch with per-read
+    tiles, in fixed-uniform mode where asked."""
+    run = (rk.run_batch_reassign if cfg.algorithm == "reassign"
+           else mk.run_batch_marginal)
+    return run(seed, batch, cfg, start_psi=start_psi,
+               fixed_uniform=fixed_uniform)
+
+
+def main_sampler(seed, batch, cfg, start_psi=None):
+    """The pipeline's sampler (``run_sampler``) on the main bucket: B1 on
+    the per-read tiles it expands from the class tensors, or B2."""
+    return tp.run_sampler(seed, batch, cfg, start_psi, MAIN_R)
+
+
+def walled(fn, reps=3):
+    """Mean wall milliseconds of fn() over reps runs after one more, every
+    card's queue drained before and after (shards run on side streams,
+    so CUDA events on one stream would not see them)."""
+    fn()      # a shard's first launch on its stream allocates there
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t) / reps
+
+
+def mesh_kernels(big, big_m, gpu):
+    """(a) of the mesh phase: both kernels sharded at their main shapes
+    (B1 at E=2048 and 2047, B2 at E=2048; stock schedule) over [cuda:0]
+    and [cuda:0, cuda:0], each shard on its own stream.  Under fixed
+    uniforms the sharded result is the unsharded launch's: bit-equal in
+    the plan each shard takes (B1's read score sums its reads in an
+    order that follows the lane width, which the plan picks from E; psi,
+    counts and acceptance are bit-equal in any plan), and once from a
+    GIVEN start.  Under Philox the pipeline's sampler (``run_sampler``)
+    is run over the mesh with the seeds the pipeline draws
+    (``chunk_seed(..., shard=k)``): every shard is bit-equal to it run
+    alone on its slice with its seed, no two shards share a seed, and one
+    entry is bit-equal to the unsharded launch.  Returns the largest
+    difference from the unsharded launches and the times."""
+    meshes = {"[cuda:0]": MESH[:1], "[cuda:0, cuda:0]": MESH}
+    E = big.weights.shape[0]
+    cases = [("B1 E=%d" % E, big, STOCK),
+             ("B1 E=%d" % (E - 1), sliced(big, E - 1), STOCK),
+             ("B2 E=%d" % E, big_m, STOCK_M)]
+    print("mesh: both kernels sharded at their main shapes, %d x %d"
+          % (STOCK.iters, STOCK.chains))
+    worst = 0.0
+    times = {}
+    for label, b, cfg in cases:
+        E = b.weights.shape[0]
+        hb = host_batch(b)
+        own = one_launch(0, b, cfg, fixed=True)
+        for mname, devs in meshes.items():
+            mesh = tmesh.make_event_mesh(devs)
+            n = len(mesh)
+            got = tmesh.run_batch_sharded([0] * n, hb, cfg, mesh, kernel_of,
+                                          fixed_uniform=rk.FIXED_U)
+            step = -(-E // n)
+            plan = shard_plan(cfg, b, step)
+            got_np = got.to_numpy()
+            got_np = type(got_np)(*(x[:E] for x in got_np))
+            same_plan = one_launch(0, b, cfg, fixed=True, plan=plan)
+            d_plan = bitwise(got_np, same_plan)
+            d_own = bitwise(got_np, own)
+            print("  %-10s %-17s fixed uniforms: against the unsharded "
+                  "launch in the shards' plan (%s) %s; in its own plan "
+                  "max|dpsi| %.3g max|dll| %.3g, accepted equal %s"
+                  % (label, mname, plan, "bit-equal" if not any(
+                      d_plan.values()) else d_plan, d_own["psi_samples"],
+                     d_own["loglik"], d_own["accepted"] == 0))
+            if (any(d_plan.values()) or d_own["psi_samples"]
+                    or d_own["accepted"] or d_own["final_n"]
+                    or d_own["final_psi"] or d_own["loglik"] > LL_ATOL):
+                raise AssertionError("mesh %s %s: sharded != unsharded"
+                                     % (label, mname))
+            worst = max(worst, d_own["psi_samples"])
+            # Philox: each shard is its slice alone with its chunk seed
+            I, C = b.weights.shape[2], b.weights.shape[1]
+            seeds = [tp.chunk_seed(11, 0, I, C, MAIN_R,
+                                   shard=k if n > 1 else None)
+                     for k in range(n)]
+            if len(set(seeds)) != n:
+                raise AssertionError("two shards share a seed: %s" % seeds)
+            ph = tmesh.run_batch_sharded(seeds, hb, cfg, mesh, main_sampler)
+            padded = tmesh.shard_batch(hb, mesh)
+            for k, (shard, seed_k) in enumerate(zip(ph.shards, seeds)):
+                alone = main_sampler(seed_k, padded[k], cfg)
+                d = bitwise(shard.to_numpy(), alone.to_numpy())
+                if any(d.values()):
+                    raise AssertionError("mesh %s %s: Philox shard %d is "
+                                         "not its slice alone: %s"
+                                         % (label, mname, k, d))
+            if n == 1:
+                d = bitwise(ph.to_numpy(),
+                            main_sampler(seeds[0], b, cfg).to_numpy())
+                if any(d.values()):
+                    raise AssertionError("mesh %s [cuda:0]: not the "
+                                         "unsharded launch: %s" % (label, d))
+            print("  %-10s %-17s Philox: %d shard(s) bit-equal to the "
+                  "slice alone with seeds %s%s"
+                  % (label, mname, n, ["%016x" % s for s in seeds],
+                     "; bit-equal to the unsharded launch" if n == 1
+                     else ""))
+            streams = tmesh.shard_streams(mesh)
+            parts = tmesh.shard_batch(hb, mesh, streams)
+
+            def sharded_launch():
+                for part, s, sk in zip(parts, streams, seeds):
+                    with tmesh.on_stream(s):
+                        kernel_of(sk, part, cfg)
+            times[(label, mname)] = walled(sharded_launch)
+        times[(label, "unsharded")] = walled(
+            lambda: kernel_of(seeds[0], b, cfg))
+        print("  %-10s wall per launch: unsharded %.2f ms, [cuda:0] %.2f "
+              "ms, [cuda:0, cuda:0] %.2f ms (two streams on one card)  [%s]"
+              % (label, times[(label, "unsharded")],
+                 times[(label, "[cuda:0]")],
+                 times[(label, "[cuda:0, cuda:0]")], gpu))
+    # a GIVEN start, split as the batch is
+    start = dirichlet_start(2, big.weights.shape[0], STOCK.chains)
+    hb = host_batch(big)
+    got = tmesh.run_batch_sharded(
+        [0, 0], hb, STOCK, tmesh.make_event_mesh(meshes["[cuda:0, cuda:0]"]),
+        kernel_of, start_psi=start.cpu().numpy(),
+        fixed_uniform=rk.FIXED_U).to_numpy()
+    plan = shard_plan(STOCK, big, big.weights.shape[0] // 2)
+    d = bitwise(got, one_launch(0, big, STOCK, start, True, plan))
+    print("  B1 E=%d GIVEN start over [cuda:0, cuda:0], fixed uniforms: "
+          "%s" % (big.weights.shape[0], "bit-equal to the unsharded launch in the shards' plan"
+                  if not any(d.values()) else d))
+    if any(d.values()):
+        raise AssertionError("mesh: GIVEN start sharded != unsharded")
+    return {"max_err": worst, "ms": times}
+
+
+def mesh_run(fix, tmp, name, gpu, device, **kw):
+    """``compute_all_genes_psi`` on ``device`` (a mesh: a list of devices)
+    at stock settings (``kw``: the flags' RunConfig fields), its launches
+    counted and its output checked as ``run_main_path``'s."""
+    out = os.path.join(tmp, name)
+    settings = Settings.load(None)
+    cfg = tp.RunConfig.from_settings(settings, 36, **kw)
+    with Launches() as lc:
+        t = time.time()
+        n = tp.compute_all_genes_psi(fix["index"], fix["bam"], 36, out,
+                                     cfg=cfg, settings=settings,
+                                     device=device)
+        torch.cuda.synchronize()
+        lc.wall = time.time() - t
+    if n != N_GENES:
+        raise AssertionError("%s: %d events written" % (name, n))
+    for kern in ("reassign", "marginal"):
+        if lc.counts[kern]["plain"] != 0:
+            raise AssertionError("%s: plain launches %s" % (name, lc.counts))
+    check_run(fix, out, name, gpu, lc.wall, lc)
+    return lc
+
+
+def mesh_phase(fix, tmp, big, big_m, single, gpu):
+    """The mesh phase: (a) ``mesh_kernels``; (b) the main path over
+    ``MESH`` for REASSIGN, MARGINAL with the linear start and the
+    convergent stop on the single-end catalog, each followed by the same
+    run unsharded through the same call, and both walls printed beside
+    the earlier unsharded CLI run's (``single``: name -> its Launches).
+    Returns (a)'s numbers and (b)'s Launches."""
+    t = time.time()
+    kernels_out = mesh_kernels(big, big_m, gpu)
+    t_kernels = time.time() - t
+    runs = {}
+    for name, kw, kern in (
+            ("out", {}, "reassign"),
+            ("marginal_linear", {"algorithm": "marginal",
+                                 "start": "linear"}, "marginal"),
+            ("convergent", {"stop": "convergent"}, "reassign")):
+        lc = mesh_run(fix, tmp, "mesh_" + name, gpu, list(MESH), **kw)
+        again = mesh_run(fix, tmp, "unsharded_" + name, gpu, DEV, **kw)
+        other = "marginal" if kern == "reassign" else "reassign"
+        if (lc.counts[kern]["cuda"] < 2 or lc.counts[other]["cuda"] != 0
+                or again.counts[kern]["cuda"] < 1):
+            raise AssertionError("mesh %s launches: %s, unsharded %s"
+                                 % (name, lc.counts, again.counts))
+        runs[name] = lc
+        print("mesh main path %-15s over [cuda:0, cuda:0]: wall %.2fs; "
+              "unsharded right after %.2fs, the earlier unsharded CLI run "
+              "%.2fs; %s launches %d (%d unsharded)  [%s]"
+              % (name, lc.wall, again.wall, single[name].wall, kern,
+                 lc.counts[kern]["cuda"], again.counts[kern]["cuda"], gpu))
+    print("mesh phase: %.1fs (the kernels %.1fs, six runs of %d genes the "
+          "rest)" % (time.time() - t, t_kernels, N_GENES))
+    return kernels_out, runs
+
+
 def probes():
     """The port's module_availability and test_miso on the card.
-    matplotlib is the one module no phase here needs: where it is
-    missing the probe must count exactly it."""
-    try:
-        import matplotlib  # noqa: F401
-        missing = 0
-    except ImportError:
-        missing = 1
+    matplotlib is the one module no phase here needs (and this script
+    never imports it): where it is missing the probe must count exactly
+    it."""
+    missing = int(importlib.util.find_spec("matplotlib") is None)
     rc = module_availability.main([])
     if rc != missing:
         raise AssertionError("module_availability returned %d, %d expected"
@@ -1219,6 +1468,25 @@ def main(only=None, sass_dir=None) -> int:
         print("SASS of the I=2 instance: %s instructions, written to %s"
               % (dump_sass("marginal_kernelILi2E", sass), sass))
         print("chip_smoke marginal: %.1fs in all  [%s]"
+              % (time.time() - T_START, gpu))
+        return 0
+
+    if only == "mesh":
+        # the mesh phase alone, beside the unsharded runs it is read with
+        with tempfile.TemporaryDirectory(prefix="miso_smoke_") as tmp:
+            fix = indexed_catalog(os.path.join(tmp, "cat"),
+                                  num_events=N_GENES, reads_per_event=300,
+                                  read_len=36, seed=1)
+            single = {
+                "out": run_main_path(fix, tmp, "out", [], gpu)[0],
+                "marginal_linear": run_main_path(
+                    fix, tmp, "marginal_linear",
+                    ["--algorithm", "marginal", "--linear-start"], gpu)[0],
+                "convergent": run_main_path(fix, tmp, "convergent",
+                                            ["--convergent"], gpu)[0]}
+            mesh_phase(fix, tmp, main_shape_batch(),
+                       main_shape_batch("marginal"), single, gpu)
+        print("chip_smoke mesh: %.1fs in all  [%s]"
               % (time.time() - T_START, gpu))
         return 0
 
@@ -1393,6 +1661,12 @@ def main(only=None, sass_dir=None) -> int:
                                  ".miso run's")
         print("pack-output: %d .miso_db events, headers equal to the .miso "
               "run's (chain-dependent fields aside)" % len(packed))
+
+        # -- (n) the mesh: both kernels sharded over [cuda:0] and [cuda:0,
+        # cuda:0], then the main path over [cuda:0, cuda:0] on this catalog
+        mesh_k, mesh_runs = mesh_phase(
+            fix, tmp, big, big_m, {"out": lc_r, "marginal_linear": lc_m,
+                                   "convergent": lc_v}, gpu)
 
         # -- (l) the rest of the user's path: two hosts on the one card,
         # then summarize, compare and filter over their merged tree and a
@@ -1591,27 +1865,38 @@ def main(only=None, sass_dir=None) -> int:
         "launches": lc_r.counts["reassign"]["cuda"]
         + lc_v.counts["reassign"]["cuda"] + lc_k.counts["reassign"]["cuda"]
         + lc_p.counts["reassign"]["cuda"] + lc_s.counts["reassign"]["cuda"]
-        + lc_w.counts["reassign"]["cuda"] + wide["reassign"]["launches"],
+        + lc_w.counts["reassign"]["cuda"] + wide["reassign"]["launches"]
+        + mesh_runs["out"].counts["reassign"]["cuda"]
+        + mesh_runs["convergent"].counts["reassign"]["cuda"],
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
         "library_ms": None,
         "main_path_launches": lc_r.counts["reassign"]["cuda"],
         "main_path_ms": lc_r.ms("reassign"),
         "chunk_ms": layouts["chunk_ms"],
-        "wide_bucket": wide["reassign"]}, {
+        "wide_bucket": wide["reassign"],
+        "mesh": {"launches": mesh_runs["out"].counts["reassign"]["cuda"]
+                 + mesh_runs["convergent"].counts["reassign"]["cuda"],
+                 "walls_s": [mesh_runs["out"].wall,
+                             mesh_runs["convergent"].wall],
+                 "max_abs_err": mesh_k["max_err"]}}, {
         "name": "marginal", "route": "cuda",
         "source": "miso_tpu_torch/csrc/marginal_kernel.cu",
         "replaces": "miso_tpu/sampler/pallas_marginal.py:48",
         "launches": lc_m.counts["marginal"]["cuda"]
         + lc_c.counts["marginal"]["cuda"] + lc_q.counts["marginal"]["cuda"]
-        + lc_qk.counts["marginal"]["cuda"] + wide["marginal"]["launches"],
+        + lc_qk.counts["marginal"]["cuda"] + wide["marginal"]["launches"]
+        + mesh_runs["marginal_linear"].counts["marginal"]["cuda"],
         "max_abs_err": m_err, "ms": m_ms, "plain_ms": m_plain_ms,
         "bound_ms": m_bound["bound_ms"], "bound_by": m_bound["bound_by"],
         "library_ms": None,
         "main_path_launches": lc_m.counts["marginal"]["cuda"],
         "main_path_ms": lc_m.ms("marginal"),
         "chunk_ms": m_layouts["chunk_ms"], "plan": m_layouts["plan"],
-        "wide_bucket": wide["marginal"]}]}))
+        "wide_bucket": wide["marginal"],
+        "mesh": {"launches":
+                 mesh_runs["marginal_linear"].counts["marginal"]["cuda"],
+                 "walls_s": [mesh_runs["marginal_linear"].wall]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1619,7 +1904,8 @@ def main(only=None, sass_dir=None) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] not in ([], ["marginal"], ["hosts"]) \
+    if sys.argv[1:2] not in ([], ["marginal"], ["hosts"], ["mesh"]) \
             or len(sys.argv) > (3 if sys.argv[1:2] == ["marginal"] else 2):
-        sys.exit("usage: python3 chip_smoke.py [marginal [SASS_DIR] | hosts]")
+        sys.exit("usage: python3 chip_smoke.py [marginal [SASS_DIR] | hosts "
+                 "| mesh]")
     sys.exit(main(*sys.argv[1:]))

@@ -1,17 +1,19 @@
-"""`miso_torch` -- `miso --run` on a GPU through the PyTorch port.
+"""`miso_torch` -- `miso --run` on the local GPUs through the PyTorch port.
 
 The same flags as ``miso`` (its own copy of the parser of
 ``miso_tpu/cli/main.py``; tests/test_torch_host_copy.py holds the two
 together) plus
-``--device`` (default ``cuda``; a run that asks for CUDA where there is
-none raises).  The port runs every mode of ``miso --run`` but the
-in-process device mesh:
+``--device`` (default ``cuda``: every visible card, each chunk's events
+split over them as the JAX package's device mesh does;
+``CUDA_VISIBLE_DEVICES`` or ``--device cuda:N`` restricts it; a run that
+asks for CUDA where there is none raises).  The port runs every mode of
+``miso --run``:
 ``--paired-end MEAN SD``, ``--algorithm reassign|marginal|classes``,
 ``--linear-start``, ``--convergent`` (with ``--convergent-growth``),
 ``--summary-only``, ``--pack-output`` and ``--profile DIR`` (a
 ``torch.profiler`` Chrome trace), and ``--coordinator HOST:PORT
 --num-hosts N --host-id K`` (every host runs the same command on its
-own device, takes its round-robin shard of the genes and writes into
+own cards, takes its round-robin shard of the genes and writes into
 the shared output tree; ``parallel/distributed.py``).
 """
 from __future__ import annotations
@@ -104,7 +106,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--version", action="store_true", default=False)
     p.add_argument("--device", default="cuda",
                    help="torch device of the sampler: 'cuda' (the CUDA "
-                        "kernel) or 'cpu' (its plain PyTorch version).")
+                        "kernels, on every visible card; "
+                        "CUDA_VISIBLE_DEVICES or 'cuda:N' restricts "
+                        "it) or 'cpu' (their plain PyTorch versions).")
     return p
 
 

@@ -44,7 +44,9 @@ def build_parser():
                         "(.pickle filename), as misopy/run_miso.py:391.")
     p.add_argument("--device", default="cuda",
                    help="torch device of the sampler: 'cuda' (the CUDA "
-                        "kernel) or 'cpu' (its plain PyTorch version).")
+                        "kernels, on every visible card; "
+                        "CUDA_VISIBLE_DEVICES or 'cuda:N' restricts "
+                        "it) or 'cpu' (their plain PyTorch versions).")
     return p
 
 

@@ -1,4 +1,5 @@
-"""End-to-end quantification pipeline on one GPU: indexed GFF + BAM -> .miso.
+"""End-to-end quantification pipeline on the local GPUs: indexed GFF + BAM
+-> .miso.
 
 The port of ``miso_tpu/pipeline.py``.  The host half (catalog walk, event
 compile, ``.miso`` formatting) is the JAX package's code, copied into
@@ -28,6 +29,10 @@ either start and either stop rule, with full ``.miso`` output,
 ``--summary-only`` or ``--pack-output``, under ``--profile`` too, on one
 host or on several (``parallel/distributed.py``: each host runs its
 shard of the genes and writes its own summary into the shared tree).
+On a host with more than one visible card, ``device="cuda"`` splits every
+chunk's events over all of them (``parallel/mesh.py``, ``resolve_mesh``):
+each shard runs its kernel on its own card and stream, and the
+materializer joins the shards in event order.
 
 The kernels have an instance for every bucket of up to 1,024 isoforms
 (``KERNEL_ISO``).  On a CUDA device a wider bucket is refused before any
@@ -60,13 +65,16 @@ from miso_tpu_torch._host import (RunConfig, _CompileStream, _LazyResult,
                                   _write_events_batch, compile_gene_event,
                                   event_output_path, write_event_results)
 from miso_tpu_torch.parallel import distributed
+# resolve_device is imported from here by cli/main.py and cli/test_miso.py
+from miso_tpu_torch.parallel.mesh import (make_event_mesh, resolve_device,
+                                          run_batch_sharded, shard_streams)
 from miso_tpu_torch.quantize import (quantize_psi, quantize_scores,
                                      summary_stats)
 from miso_tpu_torch.sampler.convergent import run_batch_convergent
 from miso_tpu_torch.sampler.deep import run_batch_multinomial
 from miso_tpu_torch.sampler.marginal_kernel import run_batch_marginal
 from miso_tpu_torch.sampler.mcmc import (EventBatch, SamplerConfig,
-                                         _pow2_pad_events, batch_from_numpy)
+                                         _pow2_pad_events)
 from miso_tpu_torch.sampler.reassign_kernel import (KERNEL_ISO,
                                                     run_batch_reassign)
 
@@ -75,16 +83,24 @@ from miso_tpu_torch.sampler.reassign_kernel import (KERNEL_ISO,
 # (pipeline.py:460).  MARGINAL and CLASSES read no per-read tiles at any
 # depth.
 DEEP_READS = 16384
+# the last word of a chunk seed's shard part (chunk_seed)
+SHARD_TAG = 0x5348
 
 
-def resolve_device(device) -> torch.device:
-    """The device a run asks for; never falls back to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device %r asked for, but torch sees no CUDA "
-                           "device (pass --device cpu to run the plain "
-                           "version on the CPU)" % str(device))
-    return dev
+def resolve_mesh(device):
+    """The mesh a run's ``device`` asks for (pipeline.py:166-187), or None
+    for an unsharded run on one device.  ``"cuda"`` is every visible card
+    when there are more than one (``CUDA_VISIBLE_DEVICES`` or
+    ``"cuda:N"`` restricts it), else None; ``"cuda:N"`` and ``"cpu"`` are
+    None; a list or tuple of devices is that mesh, even of one entry.  A
+    CUDA entry where there is no card raises (``resolve_device``)."""
+    if isinstance(device, (list, tuple)):
+        return make_event_mesh(device)
+    dev = resolve_device(device)
+    if (dev.type == "cuda" and dev.index is None
+            and torch.cuda.device_count() > 1):
+        return make_event_mesh()
+    return None
 
 
 def _bucket_key(ev: CompiledEvent) -> Tuple[int, int, int]:
@@ -94,17 +110,23 @@ def _bucket_key(ev: CompiledEvent) -> Tuple[int, int, int]:
 
 
 def chunk_seed(seed: int, offset: int, pad_iso: int, pad_classes: int,
-               pad_reads: int, host: Optional[int] = None) -> int:
+               pad_reads: int, host: Optional[int] = None,
+               shard: Optional[int] = None) -> int:
     """64-bit sampler seed of one chunk.  It mixes every bucket axis and
     the chunk offset within the bucket: buckets that differ in one axis,
     or successive chunks of one bucket, would otherwise replay the same
     per-(event, chain) random streams (pipeline.py:473-484).  ``host`` is
     the host id of a multi-host run, None on a single host: every host
     counts its chunk offsets from 0, so without it two hosts with one
-    ``--seed`` would draw the same streams for different events."""
+    ``--seed`` would draw the same streams for different events.
+    ``shard`` is the mesh entry of a sharded chunk (mesh.py:138-141),
+    None where the chunk is not split; its part ends in ``SHARD_TAG``, so
+    shard k of one host never takes host k's seed."""
     words = np.random.SeedSequence(
         [seed, offset, pad_iso, pad_classes, pad_reads]
-        + ([] if host is None else [host])).generate_state(2, np.uint32)
+        + ([] if host is None else [host])
+        + ([] if shard is None else [shard, SHARD_TAG])).generate_state(
+            2, np.uint32)
     return int(words[0]) | (int(words[1]) << 32)
 
 
@@ -165,11 +187,23 @@ def _to_numpy(t):
     return None if t is None else t.cpu().numpy()
 
 
+def _full_row(parts, j: int):
+    """Event j's full-precision scores from the part that holds it."""
+    for part in parts:
+        n = part["accepted"].shape[0]
+        if j < n:
+            return _to_numpy(part["ll_full"][j])
+        j -= n
+    raise IndexError("event past the chunk")
+
+
 class StreamRunner:
-    """Streaming device dispatcher (pipeline.py:306-766, single GPU):
-    events accumulate into (pad_iso, pad_classes, pad_reads) buckets and
-    every full bucket is dispatched at once; a materializer thread copies
-    finished chunks to the host while the next chunk runs.
+    """Streaming device dispatcher (pipeline.py:306-766): events
+    accumulate into (pad_iso, pad_classes, pad_reads) buckets and every
+    full bucket is dispatched at once; a materializer thread copies
+    finished chunks to the host while the next chunk runs.  Every chunk
+    is split over the mesh (``resolve_mesh(device)``); an unsharded run
+    is a mesh of one entry, on its device's default stream.
 
     ``on_chunk(tags, results)`` fires on the materializer thread as each
     chunk lands.  ``bucket_stats`` collects one dict per chunk."""
@@ -180,7 +214,9 @@ class StreamRunner:
                  bucket_stats: Optional[list] = None, on_chunk=None):
         self.cfg = cfg
         self.seed = seed
-        self.device = resolve_device(device)
+        # an unsharded run is a mesh of one entry, on the default stream
+        self.mesh = resolve_mesh(device) or (resolve_device(device),)
+        self.streams = shard_streams(self.mesh)
         self.bucket_stats = bucket_stats
         self.on_chunk = on_chunk
         # the host axis of the chunk seeds: this host's id in a
@@ -268,7 +304,7 @@ class StreamRunner:
         pad_iso, pad_classes, pad_reads = key
         # a deep REASSIGN bucket runs no kernel (run_sampler)
         deep = pad_reads > DEEP_READS and cfg.algorithm == "reassign"
-        if (self.device.type == "cuda" and not deep
+        if (any(d.type == "cuda" for d in self.mesh) and not deep
                 and pad_iso not in KERNEL_ISO):
             raise NotImplementedError(
                 "not ported yet: events with more than %d isoforms on the "
@@ -279,55 +315,73 @@ class StreamRunner:
             pad_reads=pad_reads, read_dtype=np.float32, per_read=False))
         lo = self.bucket_off.get(key, 0)
         self.bucket_off[key] = lo + cfg.max_batch_events
-        seed = chunk_seed(self.seed, lo, pad_iso, pad_classes, pad_reads,
-                          host=self.host)
+        # one seed per shard; a mesh of one entry has no shard axis
+        n = len(self.mesh)
+        seeds = [chunk_seed(self.seed, lo, pad_iso, pad_classes, pad_reads,
+                            host=self.host, shard=k if n > 1 else None)
+                 for k in range(n)]
         start = (linear_start(evs, cfg, pad_iso) if cfg.start == "linear"
                  else None)
         sampler = functools.partial(run_sampler, pad_reads=pad_reads)
         if cfg.stop == "convergent":
-            self._dispatch_convergent(key, evs, tags, batch, start, seed,
+            self._dispatch_convergent(key, evs, tags, batch, start, seeds,
                                       sampler, t_bucket)
             return
         batch, start = _pow2_pad_events(batch, start, len(evs))
-        batch, start = batch_from_numpy(batch, self.device, start)
-        res = sampler(seed, batch, self.sampler_cfg, start)
         two_iso = pad_iso == 2
+        # each shard quantised on its own device and stream
+        parts = run_batch_sharded(
+            seeds, batch, self.sampler_cfg, self.mesh, sampler,
+            start_psi=start, streams=self.streams).map(
+                lambda res: self._device_payload(res, two_iso))
+        self._put({
+            "evs": evs, "tags": tags, "parts": parts, "two_iso": two_iso,
+            "t0": t_bucket, "shape": key})
+        self._check_err()
+
+    def _device_payload(self, res, two_iso: bool) -> dict:
+        """What the materializer copies of one sampler result: psi ticks,
+        the device summary and score centipoints, on the result's device,
+        and on a card an event recorded after them on the current stream
+        (the materializer's copies run on another).  REASSIGN's final
+        counts come from the chain; the collapsed algorithms draw them on
+        the host from chain 0's final psi."""
         quant = quantize_psi(res.flat_samples(), two_iso)
         bounds = _ci_bound_indices(quant.shape[1])
         summ = (None if bounds is None
                 else summary_stats(quant, bounds[0], bounds[1]))
         ll = resid = cmin = cmax = None
-        if cfg.summary_only:
+        n_samples = int(quant.shape[1])
+        if self.cfg.summary_only:
             quant = None
         else:
             ll = res.flat_loglik()
             resid, cmin, cmax = quantize_scores(ll)
-        # REASSIGN's final counts come from the chain; the collapsed
-        # algorithms draw them on the host from chain 0's final psi
-        reassign = cfg.algorithm == "reassign"
-        self._put({
-            "evs": evs, "tags": tags, "quant": quant, "two_iso": two_iso,
-            "summ": summ, "n_samples": int(res.flat_samples().shape[1]),
+        reassign = self.cfg.algorithm == "reassign"
+        return {
+            "quant": quant, "summ": summ, "n_samples": n_samples,
             "ll_min": cmin, "ll_max": cmax, "ll_resid": resid,
             "ll_full": ll, "accepted": res.accepted,
             "rejected": res.rejected,
             "final_n": res.final_n if reassign else None,
             "final_psi": None if reassign else res.final_psi,
-            "t0": t_bucket, "shape": key})
-        self._check_err()
+            "ready": (torch.cuda.current_stream(
+                res.accepted.device).record_event()
+                if res.accepted.is_cuda else None)}
 
-    def _dispatch_convergent(self, key, evs, tags, batch, start, seed,
+    def _dispatch_convergent(self, key, evs, tags, batch, start, seeds,
                              sampler, t_bucket) -> None:
         """Convergent stop for one bucket (pipeline.py:506-572), on the
         dispatch thread: each round needs the last round's R-hat.  The
         class tensors are sliced per round on the host, and REASSIGN
-        expands its per-read tiles on the device each round.  Summaries
-        are taken on the host, batched per final schedule."""
+        expands its per-read tiles on the device each round; with a mesh
+        every round splits its events over it.  Summaries are taken on
+        the host, batched per final schedule."""
         cfg = self.cfg
         conv_res, _ = run_batch_convergent(
-            seed, batch, self.sampler_cfg, sampler, self.device,
+            seeds, batch, self.sampler_cfg, sampler, self.mesh,
             max_iters=cfg.max_iters, start_psi=start,
-            extend_factor=cfg.convergent_growth)
+            extend_factor=cfg.convergent_growth, streams=self.streams)
         groups: Dict[int, list] = {}
         for j in range(len(evs)):
             groups.setdefault(conv_res[j]["samples"].shape[0], []).append(j)
@@ -386,19 +440,34 @@ class StreamRunner:
 
     def _materialize_chunk(self, p: dict) -> None:
         """pipeline.py:663-766 with device_get replaced by .cpu() copies;
-        int32 ticks and centipoints become uint16 on the host."""
+        int32 ticks and centipoints become uint16 on the host.  A sharded
+        chunk's parts are copied once their events have completed and
+        joined in event order."""
         evs = p["evs"]
-        accepted = _to_numpy(p["accepted"])
-        rejected = _to_numpy(p["rejected"])
-        final_n = _to_numpy(p["final_n"])
-        final_psi = _to_numpy(p["final_psi"])
+        parts = p["parts"]
+        for part in parts:
+            if part["ready"] is not None:
+                part["ready"].synchronize()
+
+        def joined(name, index=None):
+            got = [part[name] if index is None else part[name][index]
+                   for part in parts]
+            if got[0] is None:
+                return None
+            got = [_to_numpy(t) for t in got]
+            return got[0] if len(got) == 1 else np.concatenate(got)
+
+        accepted = joined("accepted")
+        rejected = joined("rejected")
+        final_n = joined("final_n")
+        final_psi = joined("final_psi")
         n_real = len(evs)
-        S = p["n_samples"]
-        q = None if p["quant"] is None else _to_numpy(p["quant"]).astype(
-            np.uint16)
+        S = parts[0]["n_samples"]
+        q = joined("quant")
+        q = None if q is None else q.astype(np.uint16)
         summary = None
-        if p["summ"] is not None:
-            ssum, lo_t, hi_t = (_to_numpy(t) for t in p["summ"])
+        if parts[0]["summ"] is not None:
+            ssum, lo_t, hi_t = (joined("summ", i) for i in range(3))
             ssum = ssum.astype(np.int64).sum(axis=1)
             lo_v = lo_t.astype(np.float64) / 1e4
             hi_v = hi_t.astype(np.float64) / 1e4
@@ -416,8 +485,8 @@ class StreamRunner:
         ticks = cmin_i = resid = None
         wide = set()
         if q is not None:
-            cmin, cmax = _to_numpy(p["ll_min"]), _to_numpy(p["ll_max"])
-            resid = _to_numpy(p["ll_resid"]).astype(np.uint16)
+            cmin, cmax = joined("ll_min"), joined("ll_max")
+            resid = joined("ll_resid").astype(np.uint16)
             if p["two_iso"]:
                 ticks = np.empty(q.shape + (2,), np.uint16)
                 ticks[:, :, 0] = q
@@ -452,7 +521,7 @@ class StreamRunner:
             if ticks is not None:
                 res["psi_ticks"] = ticks[j, :, :k]
                 if j in wide:  # rare: full-precision row
-                    res["loglik"] = _to_numpy(p["ll_full"][int(j)])
+                    res["loglik"] = _full_row(parts, int(j))
                 else:
                     res["score_cents"] = (resid[j].astype(np.int64)
                                           + cmin_i[j])
@@ -469,8 +538,9 @@ class StreamRunner:
 def run_events(events: List[CompiledEvent], cfg: RunConfig, seed: int = 0,
                device="cuda", bucket_stats: Optional[list] = None,
                on_chunk=None):
-    """Run compiled events through the sampler, bucketed by shape.
-    Returns a list parallel to ``events`` of per-event result dicts."""
+    """Run compiled events through the sampler, bucketed by shape, on
+    ``device`` or the mesh it names (``resolve_mesh``).  Returns a list
+    parallel to ``events`` of per-event result dicts."""
     out: List[Optional[dict]] = [None] * len(events)
 
     def _on_chunk(tags, results):
@@ -488,19 +558,19 @@ def run_events(events: List[CompiledEvent], cfg: RunConfig, seed: int = 0,
     return out
 
 
-def profile_run(fn, profile_dir: str, device, verbose: bool = True):
-    """Run ``fn()`` under ``torch.profiler`` -- host calls, and the card's
-    kernels and copies when ``device`` is CUDA -- and write the Chrome
-    trace into ``profile_dir``."""
+def profile_run(fn, profile_dir: str, devices, verbose: bool = True):
+    """Run ``fn()`` under ``torch.profiler`` -- host calls, and the cards'
+    kernels and copies when one of ``devices`` is CUDA -- and write the
+    Chrome trace into ``profile_dir``."""
     from torch.profiler import ProfilerActivity, profile
 
-    cuda = torch.device(device).type == "cuda"
+    cuda = [d for d in dict.fromkeys(devices) if d.type == "cuda"]
     os.makedirs(profile_dir, exist_ok=True)
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=acts) as prof:
         fn()
-        if cuda:
-            torch.cuda.synchronize()
+        for d in cuda:
+            torch.cuda.synchronize(d)
     path = os.path.join(profile_dir, "miso_torch_trace.json")
     prof.export_chrome_trace(path)
     if verbose:
@@ -520,9 +590,10 @@ def compute_all_genes_psi(
     device="cuda",
     profile_dir: Optional[str] = None,
 ) -> int:
-    """The ``miso --run`` engine on one device.  Returns the number of
-    events written.  A copy of pipeline.py:1304-1567 without the mesh
-    (ROADMAP A.11b).  ``profile_dir`` wraps the
+    """The ``miso --run`` engine on ``device``, or on every visible card
+    for ``"cuda"`` where there are more than one, or on the mesh a list of
+    devices names (``resolve_mesh``).  Returns the number of events
+    written.  A copy of pipeline.py:1304-1567.  ``profile_dir`` wraps the
     run's consume loop in ``torch.profiler`` and writes a Chrome trace
     there (pipeline.py:1492-1497 does it with ``jax.profiler``)."""
     from miso_tpu_torch.io.sanity import check_gff_and_bam, setup_logger
@@ -602,6 +673,9 @@ def compute_all_genes_psi(
 
     runner = StreamRunner(cfg, seed=seed, device=device,
                           bucket_stats=bucket_stats, on_chunk=on_chunk)
+    if verbose and len(runner.mesh) > 1:
+        print("Event catalog sharded over %d local devices"
+              % len(runner.mesh))
 
     ev_queue: "queue_mod.Queue" = queue_mod.Queue(maxsize=8192)
     compile_done = {}
@@ -656,7 +730,7 @@ def compute_all_genes_psi(
 
     try:
         if profile_dir:
-            profile_run(consume, profile_dir, device, verbose)
+            profile_run(consume, profile_dir, runner.mesh, verbose)
         else:
             consume()
         written = 0
@@ -718,8 +792,11 @@ def compute_all_genes_psi(
                   % (bs["shape"] + (bs["events"], bs["seconds"],
                                     bs["events_per_s"])))
         print("Quantified %d events (%d skipped) in %.2fs on %s "
-              "(host compile %.2fs, overlapped); %.1f events/s"
-              % (written, stream.skipped, dt, device,
+              "(host compile %.2fs, overlapped); %.1f events/s "
+              "(%.1f events/s/chip)"
+              % (written, stream.skipped, dt,
+                 ",".join(str(d) for d in runner.mesh),
                  compile_done.get("seconds", float("nan")),
-                 written / max(dt, 1e-9)))
+                 written / max(dt, 1e-9),
+                 written / max(dt, 1e-9) / len(runner.mesh)))
     return written

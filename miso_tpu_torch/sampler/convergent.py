@@ -14,7 +14,8 @@ per round, the 64-event pad floor and the power-of-two row index.  Each
 round instead draws from its own seed, mixed from the chunk seed and the
 round index, so no round replays another's stream.  Each converged
 event's samples still leave the device once, quantised to the ``.miso``
-precision.
+precision.  Over a mesh every round splits its events as the fixed stop
+does (``miso_tpu/pipeline.py:513-517`` passes ``mesh=``).
 """
 from __future__ import annotations
 
@@ -23,9 +24,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from miso_tpu_torch.parallel.mesh import on_stream, run_batch_sharded
 from miso_tpu_torch.quantize import quantize_psi, quantize_scores
 from miso_tpu_torch.sampler.mcmc import (EventBatch, SamplerConfig,
-                                         _pow2_pad_events, batch_from_numpy)
+                                         _pow2_pad_events)
 from miso_tpu_torch.stats.rhat import batch_rhat
 
 
@@ -48,20 +50,46 @@ def _quantized_rows(psi_samples, loglik, idx, two_iso: bool):
     return (quant,) + quantize_scores(loglik.reshape(E, R * K)[idx])
 
 
-def run_batch_convergent(seed: int, events: EventBatch, cfg: SamplerConfig,
-                         sampler, device, max_iters: int = 500000,
+def _host_rows(res, rows, two_iso: bool):
+    """(flat samples, scores) of the batch rows ``rows`` of one sampler
+    result at ``.miso`` precision, on the host: psi from its int ticks,
+    scores from their centipoints, a full-precision row where the
+    centipoints span more than uint16."""
+    idx = torch.as_tensor(rows, device=res.psi_samples.device)
+    quant, resid, cmin, cmax = (t.cpu().numpy() for t in
+                                _quantized_rows(res.psi_samples,
+                                                res.loglik, idx, two_iso))
+    if two_iso:
+        c0 = quant.astype(np.float64) / 1e4
+        flat = np.stack([c0, 1.0 - c0], axis=-1)
+    else:
+        flat = quant.astype(np.float32) / 1e4
+    cmin = cmin.astype(np.float64)
+    ll = (resid.astype(np.float64) + cmin[:, None]) / 100.0
+    with np.errstate(invalid="ignore"):
+        wide = np.flatnonzero((cmax.astype(np.float64) - cmin) > 65535)
+    for w in wide:  # rare: full-precision row
+        ll[w] = res.loglik[int(rows[w])].reshape(-1).cpu().numpy()
+    return flat, ll
+
+
+def run_batch_convergent(seeds, events: EventBatch, cfg: SamplerConfig,
+                         sampler, mesh, max_iters: int = 500000,
                          rhat_threshold: float = 1.1, start_psi=None,
-                         extend_factor: float = 2.0):
+                         extend_factor: float = 2.0, streams=None):
     """Convergent-mean stopping over a numpy batch.
 
     ``sampler(seed, batch, cfg, start_psi)`` runs one block on a padded
-    torch batch on ``device`` and returns a ``SamplerResult``
-    (``pipeline.run_sampler``).  ``start_psi`` (E, K, I), if given, seeds
-    round 0 (the NNLS linear start); later rounds start from each
-    event's final psi.  Returns (results, iters_used): per-event dicts
-    with float ``samples`` (S, I) and ``loglik`` (S,), ``accepted``,
-    ``rejected``, ``final_n``, ``final_psi`` (K, I) and the final
-    ``iters``/``burn_in`` schedule."""
+    torch batch on its device and returns a ``SamplerResult``
+    (``pipeline.run_sampler``).  ``mesh`` is a tuple of devices
+    (``parallel/mesh.py``; one entry for an unsplit run) over which every
+    round splits its events, with ``seeds`` one seed per entry and
+    ``streams`` the entries' streams.  ``start_psi`` (E, K, I), if given, seeds round
+    0 (the NNLS linear start); later rounds start from each event's final
+    psi.  Returns (results, iters_used): per-event dicts with float
+    ``samples`` (S, I) and ``loglik`` (S,), ``accepted``, ``rejected``,
+    ``final_n``, ``final_psi`` (K, I) and the final ``iters``/``burn_in``
+    schedule."""
     if extend_factor < 1.0:
         # burnIn' = noIter discards the whole previous run (reference
         # semantics), so the retained window scales by g each round --
@@ -82,11 +110,15 @@ def run_batch_convergent(seed: int, events: EventBatch, cfg: SamplerConfig,
         sub = EventBatch(*(np.asarray(a)[remaining] for a in events))
         sp = None if start is None else start[remaining]
         sub, sp = _pow2_pad_events(sub, sp, nr)
-        tb, tsp = batch_from_numpy(sub, device, sp)
-        res = sampler(round_seed(seed, round_i), tb, cur, tsp)
-        rh = batch_rhat(res.psi_samples)[:nr].cpu().numpy()
-        acc, rej, fn, fpsi = (t[:nr].cpu().numpy() for t in (
-            res.accepted, res.rejected, res.final_n, res.final_psi))
+        res = run_batch_sharded([round_seed(s, round_i) for s in seeds],
+                                sub, cur, mesh, sampler, start_psi=sp,
+                                streams=streams)
+        # every shard's R-hat and counts, joined in event order
+        host = res.map(lambda r: [t.cpu().numpy() for t in (
+            batch_rhat(r.psi_samples), r.accepted, r.rejected, r.final_n,
+            r.final_psi)])
+        rh, acc, rej, fn, fpsi = (np.concatenate(f)[:nr]
+                                  for f in zip(*host))
         iso_mask = np.arange(I)[None, :] < np.asarray(sub.num_iso)[:nr, None]
         conv = np.all(np.where(iso_mask, rh <= rhat_threshold, True), axis=1)
         next_iters = int(round(cur.iters
@@ -95,23 +127,18 @@ def run_batch_convergent(seed: int, events: EventBatch, cfg: SamplerConfig,
             conv[:] = True  # maxIterations cap (miso.c:908)
         rows = np.flatnonzero(conv)
         if rows.size:
-            idx = torch.as_tensor(rows, device=res.psi_samples.device)
-            quant, resid, cmin, cmax = (t.cpu().numpy() for t in
-                                        _quantized_rows(res.psi_samples,
-                                                        res.loglik, idx,
-                                                        two_iso))
-            if two_iso:
-                c0 = quant.astype(np.float64) / 1e4
-                flat = np.stack([c0, 1.0 - c0], axis=-1)
-            else:
-                flat = quant.astype(np.float32) / 1e4
-            cmin = cmin.astype(np.float64)
-            ll = (resid.astype(np.float64) + cmin[:, None]) / 100.0
-            with np.errstate(invalid="ignore"):
-                wide = np.flatnonzero((cmax.astype(np.float64) - cmin)
-                                      > 65535)
-            for w in wide:  # rare: full-precision row
-                ll[w] = res.loglik[int(rows[w])].reshape(-1).cpu().numpy()
+            # each shard's converged rows, quantised on its device and
+            # stream, joined in row order
+            got, lo = [], 0
+            for r, stream in zip(res.shards, res.streams):
+                n_k = r.accepted.shape[0]
+                mine = rows[(rows >= lo) & (rows < lo + n_k)] - lo
+                lo += n_k
+                if len(mine):
+                    with on_stream(stream):
+                        got.append(_host_rows(r, mine, two_iso))
+            flat = np.concatenate([g[0] for g in got])
+            ll = np.concatenate([g[1] for g in got])
             for n, j in enumerate(rows):
                 results[remaining[j]] = {
                     "samples": flat[n], "loglik": ll[n],

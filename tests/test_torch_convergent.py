@@ -26,6 +26,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from exact_posterior import exact_posterior_mean_2iso  # noqa: E402
 
 SE_GENE = ([100, 50, 100], [[1, 2, 3], [1, 3]])
+CPU = (torch.device("cpu"),)   # a mesh of one entry
 
 
 def _events(n, seed):
@@ -44,7 +45,7 @@ def _batch(evs):
 def _run(evs, cfg, seed=0, **kw):
     batch, R = _batch(evs)
     sampler = functools.partial(tp.run_sampler, pad_reads=R)
-    return cv.run_batch_convergent(seed, batch, cfg, sampler, "cpu", **kw)
+    return cv.run_batch_convergent([seed], batch, cfg, sampler, CPU, **kw)
 
 
 @pytest.mark.parametrize("case", ["converged", "divergent", "one_record"])
@@ -85,7 +86,7 @@ def test_convergent_extension_is_bucketed(monkeypatch):
 
     cfg = SamplerConfig(iters=200, burn_in=50, lag=2, chains=2)
     results, iters_used = cv.run_batch_convergent(
-        2, batch, cfg, sampler, "cpu", max_iters=700, rhat_threshold=0.0)
+        [2], batch, cfg, sampler, CPU, max_iters=700, rhat_threshold=0.0)
     assert sizes == [(8, 200, True), (8, 500, False)]
     assert np.all(iters_used == 500), iters_used
     for r in results:
@@ -144,9 +145,9 @@ def test_rounds_draw_different_streams():
         seeds.append(seed)
         return tp.run_sampler(seed, b, cfg, start, pad_reads=R)
 
-    cv.run_batch_convergent(5, batch, SamplerConfig(iters=40, burn_in=10,
-                                                    lag=2, chains=2),
-                            sampler, "cpu", max_iters=400,
+    cv.run_batch_convergent([5], batch, SamplerConfig(iters=40, burn_in=10,
+                                                      lag=2, chains=2),
+                            sampler, CPU, max_iters=400,
                             rhat_threshold=0.0, extend_factor=1.0)
     assert len(seeds) >= 3 and len(set(seeds)) == len(seeds)
     assert 5 not in seeds

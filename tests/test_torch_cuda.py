@@ -294,3 +294,43 @@ def test_kernels_match_plain_on_paired_events(cuda, algorithm, iters):
         got = mk.run_batch_marginal(0, batch, cfg, fixed_uniform=mk.FIXED_U)
     torch.cuda.synchronize()
     _assert_same_chain(got, ref)
+
+
+@pytest.mark.parametrize("algorithm", ["reassign", "marginal"])
+def test_shards_on_two_streams_of_one_card_are_their_slices_alone(
+        cuda, algorithm):
+    """Both kernels over a mesh that names the card twice (one stream per
+    entry): every shard bit-equal to its slice launched alone with its
+    shard's chunk seed, and the shards together, under fixed uniforms,
+    equal to one launch of the whole batch."""
+    from miso_tpu_torch.parallel import mesh as tmesh
+    from miso_tpu_torch.pipeline import chunk_seed
+
+    def kernel(seed, b, cfg, start_psi=None, fixed_uniform=None):
+        run = (rk.run_batch_reassign if cfg.algorithm == "reassign"
+               else mk.run_batch_marginal)
+        return run(seed, b, cfg, start_psi=start_psi,
+                   fixed_uniform=fixed_uniform)
+
+    cfg = SamplerConfig(iters=200, burn_in=50, lag=5, chains=4,
+                        algorithm=algorithm)
+    batch = (lane_test_batch(3, 3, 5, cuda, E=37, R=32)
+             if algorithm == "reassign"
+             else marginal_lane_batch(3, 3, 5, cuda))
+    host = type(batch)(*(t.cpu().numpy() for t in batch))
+    mesh = tmesh.make_event_mesh(["cuda:0", "cuda:0"])
+    seeds = [chunk_seed(9, 0, 4, 8, 32, shard=k) for k in range(2)]
+    res = tmesh.run_batch_sharded(seeds, host, cfg, mesh, kernel)
+    parts = tmesh.shard_batch(host, mesh)
+    for k, shard in enumerate(res.shards):
+        alone = kernel(seeds[k], parts[k], cfg)
+        for a, b in zip(shard.to_numpy(), alone.to_numpy()):
+            np.testing.assert_array_equal(a, b)
+    E = batch.weights.shape[0]
+    fixed = tmesh.run_batch_sharded([0, 0], host, cfg, mesh, kernel,
+                                    fixed_uniform=rk.FIXED_U).to_numpy()
+    whole = kernel(0, batch, cfg, fixed_uniform=rk.FIXED_U).to_numpy()
+    np.testing.assert_array_equal(fixed.psi_samples[:E], whole.psi_samples)
+    np.testing.assert_array_equal(fixed.accepted[:E], whole.accepted)
+    np.testing.assert_allclose(fixed.loglik[:E], whole.loglik, rtol=0,
+                               atol=LL_ATOL)

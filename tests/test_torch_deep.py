@@ -12,6 +12,7 @@ from exact_posterior import exact_posterior_mean_2iso
 from miso_tpu.core.events import pad_events
 import miso_tpu_torch.pipeline as tp
 from miso_tpu_torch._host import RunConfig
+from miso_tpu_torch.parallel import mesh as tmesh
 from miso_tpu_torch.sampler import deep
 from miso_tpu_torch.sampler import reassign_kernel as rk
 from miso_tpu_torch.sampler.mcmc import SamplerConfig, batch_from_numpy
@@ -172,14 +173,14 @@ def _runner_on_a_pretended_card(monkeypatch, cfg, results):
     """A StreamRunner whose device says CUDA while its tensors stay on
     the CPU (no card here): the routing reads the device, the samplers
     read the tensors."""
-    real = tp.batch_from_numpy
+    real = tmesh.batch_from_numpy
     monkeypatch.setattr(
-        tp, "batch_from_numpy",
+        tmesh, "batch_from_numpy",
         lambda batch, device, start=None: real(batch, "cpu", start))
     runner = tp.StreamRunner(
         cfg, device="cpu",
         on_chunk=lambda tags, res: results.extend(res))
-    runner.device = torch.device("cuda")
+    runner.mesh = (torch.device("cuda"),)
     return runner
 
 

@@ -54,6 +54,8 @@ COPIED = [
     "cli/pack.py", "cli/zip.py", "cli/exon_utils.py", "cli/pe_utils.py",
     "cli/rpkm.py", "cli/sam_to_bam.py", "cli/simulate.py",
     "cli/run_events_analysis.py", "cli/run_miso.py",
+    "plot/__init__.py", "plot/settings.py", "plot/sashimi.py",
+    "cli/sashimi.py",
 ]
 
 WORD = "build" + "er"
@@ -95,7 +97,9 @@ ALLOWED = {
 """, """                        "(.pickle filename), as misopy/run_miso.py:391.")
     p.add_argument("--device", default="cuda",
                    help="torch device of the sampler: 'cuda' (the CUDA "
-                        "kernel) or 'cpu' (its plain PyTorch version).")
+                        "kernels, on every visible card; "
+                        "CUDA_VISIBLE_DEVICES or 'cuda:N' restricts "
+                        "it) or 'cpu' (their plain PyTorch versions).")
     return p
 """),
         ("    results = run_events(events, cfg, seed=args.seed)\n",

@@ -207,6 +207,23 @@ def test_no_port_source_imports_jax():
                              f.read(), re.M)
 
 
+def test_chip_smoke_imports_no_jax_and_no_plots():
+    """The card's machine has neither jax nor matplotlib: the smoke
+    script, imported in a fresh interpreter, loads no jax, nothing of the
+    JAX package and no matplotlib, and its source names none of them in
+    an import."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        src = f.read()
+    assert not re.search(r"^\s*(import|from) (jax|miso_tpu|matplotlib)\b",
+                         src, re.M)
+    assert not re.search(r"import_module\(|__import__\(", src)
+    code = ("import sys; sys.argv = ['chip_smoke.py']; import chip_smoke; "
+            "print('FOREIGN', sorted(m for m in sys.modules if "
+            "m.split('.')[0] in ('jax', 'jaxlib', 'miso_tpu', "
+            "'matplotlib')))")
+    assert _fresh(code) == "FOREIGN []"
+
+
 def test_tf32_is_off():
     import torch
     assert torch.backends.cuda.matmul.allow_tf32 is False

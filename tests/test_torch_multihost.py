@@ -283,13 +283,18 @@ SINGLE_HOST_SEEDS = {
 
 
 def test_no_two_hosts_share_a_chunk_seed():
+    """No (host, shard, bucket, offset) pair shares a seed with another:
+    neither across hosts nor across the shards of a host's mesh, and
+    shard k of a single host never takes host k's seed."""
     buckets = [(2, 4, 320), (2, 4, 640), (3, 8, 320), (256, 64, 1024)]
     offsets = [0, 4096, 8192]
     per_host = []
     for host in (None, 0, 1, 2):
-        per_host.append({tp.chunk_seed(5, off, *b, host=host)
-                         for b in buckets for off in offsets})
-        assert len(per_host[-1]) == len(buckets) * len(offsets)
+        for shard in (None, 0, 1, 2, 7):
+            per_host.append({tp.chunk_seed(5, off, *b, host=host,
+                                           shard=shard)
+                             for b in buckets for off in offsets})
+            assert len(per_host[-1]) == len(buckets) * len(offsets)
     for i in range(len(per_host)):
         for j in range(i + 1, len(per_host)):
             assert not per_host[i] & per_host[j]
