@@ -18,6 +18,9 @@
     python3 chip_smoke.py mesh       # likewise: the 2,000-gene REASSIGN,
                                      # MARGINAL and convergent runs, then
                                      # the mesh phase alone
+    python3 chip_smoke.py multinomial  # likewise: the deep route's kernel
+                                       # B3 alone (its checks, the deep
+                                       # catalog's runs, its times)
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, in parallel), holds each against its plain PyTorch
@@ -35,7 +38,8 @@ on the run's own tensors, and the run is made once more on a 500-gene
 catalog, beside a run of it with the plain version in the kernel's
 place: the two runs' biases against the truth must agree); and on a
 16-gene catalog of 20,000 reads per gene, whose deep
-events take the multinomial route, once more under ``--profile``.  It checks each run's output against the simulation
+events take the multinomial route (kernel B3), once more under
+``--profile``.  It checks each run's output against the simulation
 truth.  Then the rest of the user's path on the single-end catalog: two
 ``miso_torch --run --coordinator ... --num-hosts 2`` processes at once on
 the one card into one output tree (beside one such process alone, for
@@ -60,13 +64,22 @@ Every phase that fails raises, so the script exits non-zero and
 never prints its last line.  It needs one CUDA device and fails without
 one.
 
-The last lines are the deep route's launches and times (it is no
-kernel), ``{"kernels": [...]}`` -- per kernel, its launches in the
-main-path runs, its largest difference from the plain version, both
+B3, the deep route's kernel (``csrc/multinomial_kernel.cu``), is held
+against its plain version under fixed uniforms in every plan at the
+deep catalog's bucket shape, on a paired-end deep bucket of 256 classes,
+and at 8, 16 and 128 isoforms, from AUTO and GIVEN starts; its Philox
+chain must be one in every plan, its binomial draws must have the
+multinomial's moments at n p below and above 10, and its posterior must
+match the plain version's and the exact one; it runs the million-read
+event and is timed on 64 such events and at the 16,384-read threshold
+beside B1.
+
+The last lines are ``{"kernels": [...]}`` -- per kernel, its launches in
+the main-path runs, its largest difference from the plain version, both
 times at the main path's bucket shape, and the least time the card could
 take for that launch (``bound_ms``: the larger of bytes over 3.35 TB/s
 and operations over the FP32, integer and issue rates,
-``reassign_bound`` and ``marginal_bound``) -- and
+``reassign_bound``, ``marginal_bound`` and ``multinomial_bound``) -- and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -111,10 +124,11 @@ from miso_tpu_torch.sampler import reassign_kernel as rk  # noqa: E402
 from miso_tpu_torch.sampler.mcmc import (  # noqa: E402
     EventBatch, SamplerConfig, batch_from_numpy)
 from miso_tpu_torch.testing import (  # noqa: E402
-    PAIRED_GENE, class_batch, deepened, exact_marginal_mean_2iso,
-    indexed_catalog, lane_test_batch, marginal_lane_batch, packed_events,
-    pad_events, padded_batch, paired_event, simulate_catalog_bam,
-    simulated_event, wide_event)
+    BINOMIAL_REGIMES, PAIRED_GENE, binomial_batch, binomial_moments,
+    class_batch, deepened, exact_marginal_mean_2iso, indexed_catalog,
+    lane_test_batch, marginal_lane_batch, multinomial_lane_batch,
+    packed_events, pad_events, padded_batch, paired_event,
+    simulate_catalog_bam, simulated_event, wide_event)
 
 # tests/exact_posterior.py is numpy/scipy only
 sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -145,7 +159,7 @@ PHILOX = dict(iters=1500, burn_in=300, lag=5, chains=4)
 # 32,768 > pipeline.DEEP_READS, so REASSIGN takes the multinomial route
 DEEP_GENES, DEEP_READS_PER_GENE = 16, 20000
 # the threshold measurement: 64 events of ~16,000 reads, B1 at R=16,384
-# against the deep route on the same events
+# against B3 on the same events
 THRESH_E, THRESH_R = 64, 16384
 # the 2,000-gene REASSIGN run's four launches (512, 1024, 3 and 461
 # events, each padded to a power of two)
@@ -187,14 +201,29 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def compare(name, got, ref):
-    """Kernel result against the plain version's; returns max |d psi|."""
+def compare(name, got, ref, padding=None):
+    """Kernel result against the plain version's; returns max |d psi|.
+    ``padding`` (E,) marks padding events (no isoform): their
+    log-likelihood may be non-finite, the same on both routes; every
+    other value must be finite and agree."""
     got, ref = got.to_numpy(), ref.to_numpy()
+
+    def err(a, b):
+        # NaN or infinity in either fails the check below
+        return np.abs(a - b).max(initial=0.0)
+
+    ll_got, ll_ref = got.loglik.copy(), ref.loglik.copy()
+    if padding is not None:
+        rows = np.zeros(ll_got.shape, bool)
+        rows[padding] = True
+        same = rows & ~np.isfinite(ll_got) & (
+            (ll_got == ll_ref) | (np.isnan(ll_got) & np.isnan(ll_ref)))
+        ll_got[same] = ll_ref[same] = 0.0
     errs = {
-        "psi": np.abs(got.psi_samples - ref.psi_samples).max(initial=0.0),
-        "loglik": np.abs(got.loglik - ref.loglik).max(initial=0.0),
-        "final_n": np.abs(got.final_n - ref.final_n).max(initial=0.0),
-        "final_psi": np.abs(got.final_psi - ref.final_psi).max(initial=0.0),
+        "psi": err(got.psi_samples, ref.psi_samples),
+        "loglik": err(ll_got, ll_ref),
+        "final_n": err(got.final_n, ref.final_n),
+        "final_psi": err(got.final_psi, ref.final_psi),
     }
     ok = (errs["psi"] <= PSI_ATOL and errs["final_psi"] <= PSI_ATOL
           and errs["loglik"] <= LL_ATOL and errs["final_n"] <= N_ATOL
@@ -632,14 +661,14 @@ def marginal_layouts(big_m, pb, gpu):
 
 
 class Launches:
-    """Wraps both kernels' CUDA launchers, and the pipeline's deep route,
-    for one main-path run: CUDA-event times and GIVEN-start launches per
-    kernel, and the launch counts read from each wrapper's own counter
-    (``counts["deep"]["deep"]`` for the deep route)."""
+    """Wraps the three kernels' CUDA launchers (B1, B2, and B3 of the deep
+    route) for one main-path run: CUDA-event times and GIVEN-start
+    launches per kernel, and the launch counts read from each wrapper's
+    own counter."""
 
     def __init__(self):
-        self.spans = {"reassign": [], "marginal": [], "deep": []}
-        self.given = {"reassign": 0, "marginal": 0, "deep": 0}
+        self.spans = {"reassign": [], "marginal": [], "multinomial": []}
+        self.given = {"reassign": 0, "marginal": 0, "multinomial": 0}
         self.counts = None
         # each route's launch of the most events: its arguments
         self.largest = {}
@@ -663,11 +692,11 @@ class Launches:
 
     def __enter__(self):
         self._saved = (rk._reassign_cuda, mk._marginal_cuda,
-                       tp.run_batch_multinomial)
+                       deep._multinomial_cuda)
         rk._reassign_cuda = self._wrap("reassign", rk._reassign_cuda)
         mk._marginal_cuda = self._wrap("marginal", mk._marginal_cuda)
-        tp.run_batch_multinomial = self._wrap("deep",
-                                              tp.run_batch_multinomial)
+        deep._multinomial_cuda = self._wrap("multinomial",
+                                            deep._multinomial_cuda)
         for counts in (rk.LAUNCHES, mk.LAUNCHES, deep.LAUNCHES):
             for key in counts:
                 counts[key] = 0
@@ -676,10 +705,10 @@ class Launches:
     def __exit__(self, *exc):
         torch.cuda.synchronize()
         (rk._reassign_cuda, mk._marginal_cuda,
-         tp.run_batch_multinomial) = self._saved
+         deep._multinomial_cuda) = self._saved
         self.counts = {"reassign": dict(rk.LAUNCHES),
                        "marginal": dict(mk.LAUNCHES),
-                       "deep": dict(deep.LAUNCHES)}
+                       "multinomial": dict(deep.LAUNCHES)}
         return False
 
     def ms(self, name):
@@ -718,11 +747,11 @@ def check_run(fix, out, name, gpu, wall, lc, packed=False, max_bias=0.06):
     corr = float(np.corrcoef(est, truth)[0, 1])
     bias = float(np.mean(est - truth))
     print("%s: %d events in %.2fs = %.1f events/s end to end; kernels "
-          "%.1f ms (reassign) + %.1f ms (marginal), deep route %.1f ms; "
+          "%.1f ms (reassign) + %.1f ms (marginal) + %.1f ms (multinomial); "
           "launches %s; %d %s + summary (%d rows); truth corr %.4f, bias "
           "%+.4f  [%s]"
           % (name, n, wall, n / wall, lc.ms("reassign"), lc.ms("marginal"),
-             lc.ms("deep"), lc.counts, len(headers),
+             lc.ms("multinomial"), lc.counts, len(headers),
              ".miso_db entries" if packed else ".miso files", len(rows),
              corr, bias, gpu))
     if not (corr > 0.9 and abs(bias) < max_bias):
@@ -762,7 +791,7 @@ def run_main_path(fix, tmp, name, flags, gpu, read_len=36, max_bias=0.06,
         raise AssertionError("miso_torch --run %s returned %d"
                              % (" ".join(flags), rc))
     unused = "cuda" if plain_marginal else "plain"
-    for kern in ("reassign", "marginal"):
+    for kern in ("reassign", "marginal", "multinomial"):
         if lc.counts[kern][unused] != 0 or (
                 plain_marginal and lc.counts["marginal"]["plain"] < 1):
             raise AssertionError("%s: %s launches %s"
@@ -1113,7 +1142,7 @@ def wide_buckets(gpu):
         idle = {"cuda": 0, "plain": 0}
         ok = (lc.counts["reassign"] == (mine if mod is rk else idle)
               and lc.counts["marginal"] == (mine if mod is mk else idle)
-              and lc.counts["deep"]["deep"] == 0
+              and lc.counts["multinomial"] == idle
               and lc.largest[algorithm][1].weights.shape[2]
               == WIDE_BUCKET_ISO
               and np.all(np.abs(sums - 1.0) < 0.03)
@@ -1427,6 +1456,258 @@ def rest_of_path(fix, tmp, lc_r, heads_r, gpu, reps=1):
             worker_cli(fix, tmp, heads_r, gpu))
 
 
+# B3, the multinomial kernel of the deep route: the deep catalog's bucket
+# shape (16 events of 20,000 reads), a paired-end deep bucket (256
+# classes), and wider events
+B3_SHAPES = ("deep catalog", "paired-end deep", "I=8", "I=16", "I=128")
+# posterior means of B3 and the plain version on the deep catalog's
+# bucket: each within this of the other (independent Philox and
+# torch.Generator draws; posterior sd ~0.006 at 20,000 reads) and of the
+# grid-exact mean
+B3_POSTERIOR_TOL, EXACT_TOL = 0.01, 0.02
+# the deep route before B3 (batched torch, ~83 launches an iteration;
+# NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): the deep catalog's bucket
+# in its main-path run, and the 16,384-read threshold's 64 events
+EARLIER_DEEP_MS = {"catalog": 5153.4, "threshold": 5268.92}
+
+
+def deep_catalog_batch():
+    """DEEP_GENES simulated events of 2,000 reads of 36 nt, every class
+    count times 10: the deep catalog's bucket shape (I=2, C=4, 20,000
+    reads), with the events kept for their exact posteriors."""
+    rng = np.random.default_rng(2)
+    evs = [deepened(simulated_event(*SE_GENE, [p, 1.0 - p], 2000, 36,
+                                    seed=200 + i), 10)
+           for i, p in enumerate(rng.uniform(0.05, 0.95, DEEP_GENES))]
+    return class_batch(evs, DEV), evs
+
+
+def b3_shape(label):
+    if label == "deep catalog":
+        return deep_catalog_batch()[0]
+    if label == "paired-end deep":
+        return class_batch(
+            [deepened(paired_event(*PAIRED_GENE, [p, 1.0 - p], 400, 40,
+                                   250.0, 15.0, seed=11 + i), 50)
+             for i, p in enumerate((0.6, 0.3, 0.8, 0.45))], DEV)
+    I, num_iso, C = {"I=8": (8, 5, 6), "I=16": (16, 9, 6),
+                     "I=128": (128, 70, 4)}[label]
+    return multinomial_lane_batch(I, num_iso, I, DEV, C=C, scale=300.0)
+
+
+def given_start(batch, K):
+    """(E, K, I) GIVEN start: Dirichlet over each event's real isoforms
+    (zeros for a padding event), seeded."""
+    E, _, I = batch.weights.shape
+    rng = np.random.default_rng(9)
+    sp = np.zeros((E, K, I), np.float32)
+    for e, k in enumerate(batch.num_iso.cpu().numpy()):
+        if k > 0:
+            sp[e, :, :k] = rng.dirichlet(np.ones(k), size=K)
+    return torch.from_numpy(sp).to(DEV)
+
+
+def b3(seed, batch, cfg, plan=None, start=None, fixed=False):
+    """B3 in one plan (default: ``multinomial_plan``'s)."""
+    out = deep._multinomial_cuda(seed, batch, cfg, deep._event_consts(batch),
+                                 start, fixed, plan=plan)
+    torch.cuda.synchronize()
+    return out
+
+
+def b3_plain(seed, batch, cfg, start=None, fixed=None):
+    out = deep._multinomial_plain(seed, batch, cfg,
+                                  deep._event_consts(batch), start, fixed)
+    torch.cuda.synchronize()
+    return out
+
+
+def multinomial_phase(gpu):
+    """B3 against its plain version under fixed uniforms in every plan
+    at every shape of B3_SHAPES, from AUTO and GIVEN starts (and at
+    stock settings at the deep catalog's shape); one Philox chain in
+    every plan; the moments of its binomial draws; its posterior beside
+    the plain version's and the exact one; its time, its plain version's,
+    its bound and its estimated floor at the deep catalog's shape.
+    Returns the numbers kept."""
+    small = SamplerConfig(**SMALL)
+    err = 0.0
+    print("B3 (multinomial), fixed uniforms, every plan, AUTO and GIVEN:")
+    for label in B3_SHAPES:
+        b = b3_shape(label)
+        E, C, I = b.weights.shape
+        padding = (b.num_iso == 0).cpu().numpy()
+        for start in (None, given_start(b, small.chains)):
+            ref = b3_plain(0, b, small, start, rk.FIXED_U)
+            for plan in deep.all_multinomial_plans(E, C, I, small.chains):
+                err = max(err, compare(
+                    "%s E=%d C=%d I=%d T=%d %s" % (
+                        label, E, C, I, plan.T,
+                        "AUTO" if start is None else "GIVEN"),
+                    b3(0, b, small, plan, start, True), ref, padding))
+    big, evs = deep_catalog_batch()
+    E, C, I = big.weights.shape
+    err = max(err, compare("deep catalog stock %dx%d" % (STOCK.iters,
+                                                         STOCK.chains),
+                           b3(0, big, STOCK, None, None, True),
+                           b3_plain(0, big, STOCK, None, rk.FIXED_U)))
+
+    cfg = SamplerConfig(**PHILOX)
+    plans = deep.all_multinomial_plans(E, C, I, cfg.chains)
+    first = b3(17, big, cfg, plans[0]).to_numpy()
+    for plan in plans[1:]:
+        got = b3(17, big, cfg, plan).to_numpy()
+        if not (np.array_equal(got.psi_samples, first.psi_samples)
+                and np.array_equal(got.final_n, first.final_n)
+                and np.array_equal(got.accepted, first.accepted)
+                and np.abs(got.loglik - first.loglik).max() <= LL_ATOL):
+            raise AssertionError("B3's Philox chain differs at T=%d"
+                                 % plan.T)
+    print("B3 Philox chain, %d x %d: bit-equal in plans T=%s"
+          % (cfg.iters, cfg.chains, [p.T for p in plans]))
+
+    bb = binomial_batch(4096, DEV)
+    res = b3(5, bb, SamplerConfig(iters=0, burn_in=0, lag=1, chains=6))
+    moments, sums = binomial_moments(bb, res)
+    print("B3 binomial draws, standardised (mean, variance, lanes) by "
+          "(reads, weight) %s: %s; sums exact %s"
+          % (list(BINOMIAL_REGIMES), moments, sums))
+    if not sums or not all(abs(m) < 5 / np.sqrt(n)
+                           and abs(v - 1.0) < 6 * np.sqrt(2.0 / n)
+                           for m, v, n in moments):
+        raise AssertionError("B3's binomial draws miss their moments")
+
+    t0 = time.time()
+    ms = timed(lambda: deep.run_batch_multinomial(3, big, STOCK), reps=3)
+    got = deep.run_batch_multinomial(3, big, STOCK).to_numpy()
+    torch.cuda.synchronize()
+    plain_ms = timed(lambda: b3_plain(3, big, STOCK), reps=1)
+    ref = b3_plain(3, big, STOCK).to_numpy()
+    exact = np.array([exact_posterior_mean_2iso(ev) for ev in evs])
+    m_got = got.flat_samples()[:, :, 0].mean(axis=1)
+    m_ref = ref.flat_samples()[:, :, 0].mean(axis=1)
+    d_plain = float(np.abs(m_got - m_ref).max())
+    d_exact = float(np.abs(m_got - exact).max())
+    d_exact_plain = float(np.abs(m_ref - exact).max())
+    print("B3 posterior at the deep catalog's shape, %d x %d: max |B3 - "
+          "plain| %.4f, max |B3 - exact| %.4f, max |plain - exact| %.4f "
+          "(%.1fs)" % (STOCK.iters, STOCK.chains, d_plain, d_exact,
+                       d_exact_plain, time.time() - t0))
+    if not (d_plain < B3_POSTERIOR_TOL and d_exact < EXACT_TOL
+            and d_exact_plain < EXACT_TOL):
+        raise AssertionError("B3's posterior misses the plain version's "
+                             "or the exact one")
+    plan = deep.multinomial_plan(E, C, I, STOCK.chains)
+    b = deep.multinomial_bound(E, C, I, STOCK.chains, STOCK.iters,
+                               STOCK.num_records,
+                               live_classes=int((big.counts > 0).sum()))
+    floor = deep.multinomial_floor(C, I, plan.T, STOCK.iters)
+    print("B3 at the deep catalog's shape E=%d C=%d I=%d, %d x %d, T=%d: "
+          "kernel %.2f ms, plain %.2f ms (the deep route before B3, "
+          "PERF.md, not timed here: %.1f ms); bound %.4f ms (%s), "
+          "dependent-chain floor %.2f ms (an estimate, not measured)  [%s]"
+          % (E, C, I, STOCK.iters, STOCK.chains, plan.T, ms, plain_ms,
+             EARLIER_DEEP_MS["catalog"], b["bound_ms"], b["bound_by"],
+             floor, gpu))
+    return {"max_err": err, "ms": ms, "plain_ms": plain_ms, "bound": b,
+            "floor_ms": floor, "plan_T": plan.T, "moments": moments,
+            "posterior": {"b3_vs_plain": d_plain, "b3_vs_exact": d_exact}}
+
+
+def million_read_event():
+    """tests/test_deep_events.py's event through B3 on the card."""
+    ev_d = deepened(simulated_event(*SE_GENE, [0.3, 0.7], 2000, 25,
+                                    seed=4), 500)
+    exact_d = exact_posterior_mean_2iso(ev_d)
+    launches = deep.LAUNCHES["cuda"]
+    res = deep.run_batch_multinomial(
+        0, class_batch([ev_d], DEV),
+        SamplerConfig(iters=800, burn_in=200, lag=4, chains=4))
+    res = res.to_numpy()
+    mean_d = float(res.flat_samples()[0, :, 0].mean())
+    print("B3, 1,000,000 reads: exact %.4f, mean %.4f; final_n sums %s"
+          % (exact_d, mean_d, res.final_n.sum(-1)[0].tolist()))
+    if not (deep.LAUNCHES["cuda"] == launches + 1
+            and abs(mean_d - exact_d) < 0.02
+            and np.all(res.final_n.sum(-1) == 1_000_000.0)):
+        raise AssertionError("B3 misses the million-read event")
+
+
+def deep_catalog_runs(tmp, gpu):
+    """The deep catalog through miso --run, then once more under
+    --profile (shorter chains): B3 launches, nothing else does, and every
+    header's assigned counts sum to its event's reads.  Returns the two
+    runs' Launches."""
+    t = time.time()
+    fix_d = indexed_catalog(os.path.join(tmp, "cat_deep"),
+                            num_events=DEEP_GENES,
+                            reads_per_event=DEEP_READS_PER_GENE,
+                            read_len=36, seed=2)
+    print("deep catalog: %d genes x %d reads built and indexed in %.1fs"
+          % (DEEP_GENES, DEEP_READS_PER_GENE, time.time() - t))
+    lc_d, heads_d = run_main_path(fix_d, tmp, "deep", [], gpu)
+    reads = []
+    for ev, h in heads_d.items():
+        reads.append(compatible_reads(h))
+        n_assigned = sum(int(c.split(":")[1]) for c in
+                         header_field(h, "assigned_counts").split(","))
+        if n_assigned != reads[-1] or reads[-1] <= tp.DEEP_READS:
+            raise AssertionError("deep %s: %d reads, %d assigned"
+                                 % (ev, reads[-1], n_assigned))
+    print("deep: every header's assigned counts sum to its event's reads "
+          "(%d..%d); wall %.2fs, B3 %.1f ms over %d launches (the deep "
+          "route before B3, PERF.md, not timed here: %.1f ms)  [%s]"
+          % (min(reads), max(reads), lc_d.wall, lc_d.ms("multinomial"),
+             lc_d.counts["multinomial"]["cuda"], EARLIER_DEEP_MS["catalog"],
+             gpu))
+    prof_dir = os.path.join(tmp, "trace")
+    settings = os.path.join(tmp, "short.txt")
+    with open(settings, "w") as f:
+        f.write("[sampler]\nburn_in = 50\nlag = 5\n"
+                "num_iters = 200\nnum_chains = 6\n")
+    lc_f, _ = run_main_path(fix_d, tmp, "deep_profiled",
+                            ["--settings-filename", settings,
+                             "--profile", prof_dir], gpu)
+    traces = glob.glob(os.path.join(prof_dir, "*.json"))
+    if len(traces) != 1 or os.path.getsize(traces[0]) == 0:
+        raise AssertionError("--profile wrote no trace: %s" % traces)
+    print("profile: %s, %.1f MiB" % (os.path.basename(traces[0]),
+                                     os.path.getsize(traces[0]) / 2 ** 20))
+    for lc in (lc_d, lc_f):
+        if not (lc.counts["multinomial"]["cuda"] >= 1
+                and lc.counts["reassign"]["cuda"] == 0
+                and lc.counts["marginal"]["cuda"] == 0):
+            raise AssertionError("deep catalog launches: %s" % lc.counts)
+    return lc_d, lc_f
+
+
+def deep_times(thr, thr_ms, gpu):
+    """B3 at stock settings on 64 events of a million reads, and on the
+    64 events of ~16,000 reads at the threshold beside B1 at R=16,384 on
+    the same events.  Returns the numbers kept."""
+    deep_b = class_batch([deepened(ev, 500) for ev in threshold_events(1)],
+                         DEV)
+    e64_ms = timed(lambda: deep.run_batch_multinomial(5, deep_b, STOCK),
+                   reps=1)
+    thr_b = class_batch(thr, DEV)
+    b1_ms = thr_ms[rk.launch_plan(THRESH_E, THRESH_R, 2,
+                                  STOCK.chains).home]
+    b3_ms = timed(lambda: deep.run_batch_multinomial(5, thr_b, STOCK),
+                  reps=3)
+    print("B3 at E=%d (1,000,000 reads each), %d iters x %d chains: "
+          "%.2f ms  [%s]" % (THRESH_E, STOCK.iters, STOCK.chains, e64_ms,
+                             gpu))
+    print("threshold, E=%d events of %d reads, %d x %d: B1 at R=%d %.2f "
+          "ms, B3 %.2f ms (the deep route before B3, PERF.md, not timed "
+          "here: %.2f ms)  [%s]"
+          % (THRESH_E, int(thr[0].counts.sum()), STOCK.iters, STOCK.chains,
+             THRESH_R, b1_ms, b3_ms, EARLIER_DEEP_MS["threshold"], gpu))
+    return {"stock_ms_e64": e64_ms,
+            "threshold": {"events": THRESH_E,
+                          "reads": int(thr[0].counts.sum()),
+                          "b1_ms_r16384": b1_ms, "b3_ms": b3_ms}}
+
+
 def main(only=None, sass_dir=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1445,10 +1726,13 @@ def main(only=None, sass_dir=None) -> int:
     # ptxas -v: per kernel and isoform width I, registers and spills
     entry, registers = None, {}
     for line in kernels.BUILD_INFO["log"].splitlines():
-        m = re.search(r"entry function '\S*?(reassign|marginal)_kernelILi"
-                      r"(\d+)E", line)
+        m = re.search(r"entry function '\S*?(reassign|marginal|multinomial)"
+                      r"_kernel", line)
         if m:
-            entry = "%s I=%s" % m.groups()
+            # the width of a template instance (B3 has one instance, of
+            # runtime width); the name's namespace holds the file's name
+            width = re.search(r"_kernelILi(\d+)E", line)
+            entry = m.group(1) + (" I=%s" % width.group(1) if width else "")
         elif entry and ("spill" in line or "registers" in line):
             print("  %s: %s" % (entry, line.split(":", 1)[-1].strip()))
             used = re.search(r"Used (\d+) registers", line)
@@ -1501,6 +1785,20 @@ def main(only=None, sass_dir=None) -> int:
         wide_buckets(gpu)
         probes()
         print("chip_smoke hosts: %.1fs in all  [%s]"
+              % (time.time() - T_START, gpu))
+        return 0
+
+    if only == "multinomial":
+        # B3 alone: its checks, the deep catalog's runs and its times
+        million_read_event()
+        multinomial_phase(gpu)
+        thr = threshold_events()
+        thr_ms = threshold_times(padded_batch(thr, DEV, pad_reads=THRESH_R),
+                                 gpu)
+        with tempfile.TemporaryDirectory(prefix="miso_smoke_") as tmp:
+            deep_catalog_runs(tmp, gpu)
+        deep_times(thr, thr_ms, gpu)
+        print("chip_smoke multinomial: %.1fs in all  [%s]"
               % (time.time() - T_START, gpu))
         return 0
 
@@ -1620,20 +1918,10 @@ def main(only=None, sass_dir=None) -> int:
         raise AssertionError("kernel misses the paired exact posterior")
 
     # -- (h), first half: the million-read event of
-    # tests/test_deep_events.py through the deep route on the card
-    ev_d = deepened(simulated_event(*SE_GENE, [0.3, 0.7], 2000, 25,
-                                    seed=4), 500)
-    exact_d = exact_posterior_mean_2iso(ev_d)
-    res = deep.run_batch_multinomial(
-        0, class_batch([ev_d], DEV),
-        SamplerConfig(iters=800, burn_in=200, lag=4, chains=4))
-    res = res.to_numpy()
-    mean_d = float(res.flat_samples()[0, :, 0].mean())
-    print("deep route, 1,000,000 reads: exact %.4f, mean %.4f; final_n "
-          "sums %s" % (exact_d, mean_d, res.final_n.sum(-1)[0].tolist()))
-    if not (abs(mean_d - exact_d) < 0.02
-            and np.all(res.final_n.sum(-1) == 1_000_000.0)):
-        raise AssertionError("deep route misses the million-read event")
+    # tests/test_deep_events.py through B3 on the card, then B3 against
+    # its plain version, its Philox chain, its draws and its posterior
+    million_read_event()
+    b3_k = multinomial_phase(gpu)
 
     # -- 4 and (c). the main paths: miso --run through the port
     with tempfile.TemporaryDirectory(prefix="miso_smoke_") as tmp:
@@ -1731,41 +2019,8 @@ def main(only=None, sass_dir=None) -> int:
                                  "is not the plain version's")
 
         # -- (h), second half: a deep catalog through miso --run, then
-        # once more under --profile (shorter chains: the trace holds every
-        # launch of the deep route)
-        t = time.time()
-        fix_d = indexed_catalog(os.path.join(tmp, "cat_deep"),
-                                num_events=DEEP_GENES,
-                                reads_per_event=DEEP_READS_PER_GENE,
-                                read_len=36, seed=2)
-        print("deep catalog: %d genes x %d reads built and indexed in "
-              "%.1fs" % (DEEP_GENES, DEEP_READS_PER_GENE, time.time() - t))
-        lc_d, heads_d = run_main_path(fix_d, tmp, "deep", [], gpu)
-        reads = []
-        for ev, h in heads_d.items():
-            reads.append(compatible_reads(h))
-            n_assigned = sum(int(c.split(":")[1]) for c in
-                             header_field(h, "assigned_counts").split(","))
-            if (n_assigned != reads[-1]
-                    or reads[-1] <= tp.DEEP_READS):
-                raise AssertionError("deep %s: %d reads, %d assigned"
-                                     % (ev, reads[-1], n_assigned))
-        print("deep: every header's assigned counts sum to its event's "
-              "reads (%d..%d)" % (min(reads), max(reads)))
-        prof_dir = os.path.join(tmp, "trace")
-        settings = os.path.join(tmp, "short.txt")
-        with open(settings, "w") as f:
-            f.write("[sampler]\nburn_in = 50\nlag = 5\n"
-                    "num_iters = 200\nnum_chains = 6\n")
-        lc_f, _ = run_main_path(fix_d, tmp, "deep_profiled",
-                                ["--settings-filename", settings,
-                                 "--profile", prof_dir], gpu)
-        traces = glob.glob(os.path.join(prof_dir, "*.json"))
-        if len(traces) != 1 or os.path.getsize(traces[0]) == 0:
-            raise AssertionError("--profile wrote no trace: %s" % traces)
-        print("profile: %s, %.1f MiB" % (os.path.basename(traces[0]),
-                                         os.path.getsize(traces[0])
-                                         / 2 ** 20))
+        # once more under --profile: B3 and nothing else launches
+        lc_d, lc_f = deep_catalog_runs(tmp, gpu)
     checks = [
         (lc_r, "reassign", lc_r.counts["marginal"]["cuda"] == 0),
         (lc_m, "marginal", lc_m.given["marginal"] >= 1
@@ -1778,12 +2033,11 @@ def main(only=None, sass_dir=None) -> int:
         (lc_p, "reassign", lc_p.counts["marginal"]["cuda"] == 0),
         (lc_q, "marginal", lc_q.counts["reassign"]["cuda"] == 0),
         (lc_qk, "marginal", lc_qk.counts["reassign"]["cuda"] == 0),
-        (lc_d, "deep", lc_d.counts["reassign"]["cuda"] == 0),
-        (lc_f, "deep", lc_f.counts["reassign"]["cuda"] == 0),
+        (lc_d, "multinomial", lc_d.counts["reassign"]["cuda"] == 0),
+        (lc_f, "multinomial", lc_f.counts["reassign"]["cuda"] == 0),
     ]
     for lc, kern, ok in checks:
-        route = "deep" if kern == "deep" else "cuda"
-        if lc.counts[kern][route] < 1 or not ok:
+        if lc.counts[kern]["cuda"] < 1 or not ok:
             raise AssertionError("main path launches: %s, GIVEN %s"
                                  % (lc.counts, lc.given))
     iters = np.array([int(re.search(r"iters=(\d+)", h).group(1))
@@ -1813,32 +2067,9 @@ def main(only=None, sass_dir=None) -> int:
                                             STOCK.chains, m_ms, m_plain_ms,
                                             gpu))
 
-    # -- (j) the deep route at stock settings on 64 deep events, then the
-    # 16,384-read threshold: B1 at R=16,384 against the deep route on the
-    # same 64 events of ~16,000 reads
-    deep_b = class_batch([deepened(ev, 500) for ev in threshold_events(1)],
-                         DEV)
-    deep_ms = timed(lambda: deep.run_batch_multinomial(5, deep_b, STOCK),
-                    reps=1)
-    thr_b = class_batch(thr, DEV)
-    b1_thr_ms = thr_ms[rk.launch_plan(THRESH_E, THRESH_R, 2,
-                                      STOCK.chains).home]
-    deep_thr_ms = timed(lambda: deep.run_batch_multinomial(5, thr_b, STOCK),
-                        reps=1)
-    print("deep route at E=%d (1,000,000 reads each), %d iters x %d "
-          "chains: %.2f ms  [%s]" % (THRESH_E, STOCK.iters, STOCK.chains,
-                                     deep_ms, gpu))
-    print("threshold, E=%d events of %d reads, %d x %d: B1 at R=%d "
-          "%.2f ms, deep route %.2f ms  [%s]"
-          % (THRESH_E, int(thr[0].counts.sum()), STOCK.iters, STOCK.chains,
-             THRESH_R, b1_thr_ms, deep_thr_ms, gpu))
-    print(json.dumps({"deep_route": {
-        "source": "miso_tpu_torch/sampler/deep.py",
-        "launches": lc_d.counts["deep"]["deep"]
-        + lc_f.counts["deep"]["deep"],
-        "main_path_ms": lc_d.ms("deep"), "stock_ms_e64": deep_ms,
-        "threshold": {"events": THRESH_E, "reads": int(thr[0].counts.sum()),
-                      "b1_ms_r16384": b1_thr_ms, "deep_ms": deep_thr_ms}}}))
+    # -- (j) B3 at stock settings on 64 deep events, then at the
+    # 16,384-read threshold beside B1 on the same 64 events
+    b3_t = deep_times(thr, thr_ms, gpu)
     # the least time the card could take for each kernel's launch at its
     # main shape, from this run's inputs: reads with a compatible isoform,
     # classes with reads
@@ -1855,8 +2086,14 @@ def main(only=None, sass_dir=None) -> int:
               % (name, b["bytes"], b["bytes_ms"], b["fp32_ops"],
                  b["int_ops"], b["ops_ms"], b["bound_by"]))
     print("each kernel before its redesign at the same shape (PERF.md, not "
-          "timed here): reassign %.2f ms, marginal %.2f ms"
-          % (EARLIER_MS["reassign"], EARLIER_MS["marginal"]))
+          "timed here): reassign %.2f ms, marginal %.2f ms; the deep route "
+          "before B3: %.1f ms at the deep catalog's bucket, %.2f ms at the "
+          "threshold" % (EARLIER_MS["reassign"], EARLIER_MS["marginal"],
+                         EARLIER_DEEP_MS["catalog"],
+                         EARLIER_DEEP_MS["threshold"]))
+    print("B3's dependent-chain floor at the deep catalog's bucket "
+          "(multinomial_floor: an estimate from data-sheet latencies, not "
+          "measured): %.2f ms" % b3_k["floor_ms"])
     print("chip_smoke: %.1fs in all" % (time.time() - T_START))
     print(json.dumps({"kernels": [{
         "name": "reassign", "route": "cuda",
@@ -1896,7 +2133,24 @@ def main(only=None, sass_dir=None) -> int:
         "wide_bucket": wide["marginal"],
         "mesh": {"launches":
                  mesh_runs["marginal_linear"].counts["marginal"]["cuda"],
-                 "walls_s": [mesh_runs["marginal_linear"].wall]}}]}))
+                 "walls_s": [mesh_runs["marginal_linear"].wall]}}, {
+        "name": "multinomial", "route": "cuda",
+        "source": "miso_tpu_torch/csrc/multinomial_kernel.cu",
+        "replaces": "miso_tpu/sampler/mcmc.py:383",
+        "launches": lc_d.counts["multinomial"]["cuda"]
+        + lc_f.counts["multinomial"]["cuda"],
+        "max_abs_err": b3_k["max_err"], "ms": b3_k["ms"],
+        "plain_ms": b3_k["plain_ms"],
+        "bound_ms": b3_k["bound"]["bound_ms"],
+        "bound_by": b3_k["bound"]["bound_by"], "library_ms": None,
+        "plan_T": b3_k["plan_T"],
+        "main_path_launches": lc_d.counts["multinomial"]["cuda"],
+        "main_path_ms": lc_d.ms("multinomial"),
+        "deep_catalog_wall_s": lc_d.wall,
+        "stock_ms_e64": b3_t["stock_ms_e64"],
+        "threshold": b3_t["threshold"],
+        "binomial_moments": b3_k["moments"],
+        "posterior": b3_k["posterior"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1904,8 +2158,9 @@ def main(only=None, sass_dir=None) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] not in ([], ["marginal"], ["hosts"], ["mesh"]) \
+    if sys.argv[1:2] not in ([], ["marginal"], ["hosts"], ["mesh"],
+                             ["multinomial"]) \
             or len(sys.argv) > (3 if sys.argv[1:2] == ["marginal"] else 2):
         sys.exit("usage: python3 chip_smoke.py [marginal [SASS_DIR] | hosts "
-                 "| mesh]")
+                 "| mesh | multinomial]")
     sys.exit(main(*sys.argv[1:]))

@@ -26,6 +26,7 @@
 #define __align__(n) alignas(n)
 
 struct uint4 { unsigned x, y, z, w; };
+struct double2 { double x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 struct dim3 { unsigned x = 1, y = 1, z = 1; };
 static thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
@@ -33,6 +34,7 @@ static thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
   return uint4{a, b, c, d};
 }
+inline double2 make_double2(double x, double y) { return double2{x, y}; }
 inline unsigned __umulhi(unsigned a, unsigned b) {
   return (unsigned)(((unsigned long long)a * b) >> 32);
 }
@@ -46,33 +48,36 @@ template <class T> inline T __ldg(const T* p) { return *p; }
 struct ShimWarp {
   std::barrier<> bar;
   int threads;
-  float buf[32];
+  double buf[32];  // a float or a double of each thread
   explicit ShimWarp(int threads_) : bar(threads_), threads(threads_) {}
 };
 static thread_local ShimWarp* shim_warp;
 static thread_local std::barrier<>* shim_block;
 static thread_local float* shim_shared;
 
-inline float shim_exchange(float v, int from) {
+template <class V>
+inline V shim_exchange(V v, int from) {
   shim_warp->buf[threadIdx.x & 31u] = v;
   shim_warp->bar.arrive_and_wait();
-  const float r = shim_warp->buf[from];
+  const V r = (V)shim_warp->buf[from];
   shim_warp->bar.arrive_and_wait();
   return r;
 }
-inline float __shfl_xor_sync(unsigned, float v, int offset, int = 32) {
+template <class V>
+inline V __shfl_xor_sync(unsigned, V v, int offset, int = 32) {
   return shim_exchange(v, (int)(threadIdx.x & 31u) ^ offset);
 }
-inline float __shfl_sync(unsigned, float v, int src, int width = 32) {
+template <class V>
+inline V __shfl_sync(unsigned, V v, int src, int width = 32) {
   const int lane = (int)(threadIdx.x & 31u);
   return shim_exchange(v, (lane & ~(width - 1)) | (src & (width - 1)));
 }
 inline int __any_sync(unsigned, int pred) {
-  shim_warp->buf[threadIdx.x & 31u] = pred ? 1.f : 0.f;
+  shim_warp->buf[threadIdx.x & 31u] = pred ? 1.0 : 0.0;
   shim_warp->bar.arrive_and_wait();
   int any = 0;
   for (int t = 0; t < shim_warp->threads; ++t)
-    any |= shim_warp->buf[t] != 0.f;
+    any |= shim_warp->buf[t] != 0.0;
   shim_warp->bar.arrive_and_wait();
   return any;
 }

@@ -28,9 +28,11 @@ LIB_PATH = os.path.join(BUILD_DIR, "libmiso_kernels.so")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v"]
-# per-source flags: the marginal kernel must round every product and sum
-# on its own, as its plain version does (see its header)
-SOURCE_FLAGS = {"marginal_kernel.cu": ["-fmad=false"]}
+# per-source flags: the marginal and multinomial kernels must round every
+# product and sum on their own, as their plain versions do (see their
+# headers)
+SOURCE_FLAGS = {"marginal_kernel.cu": ["-fmad=false"],
+                "multinomial_kernel.cu": ["-fmad=false"]}
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -111,6 +113,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.miso_marginal.restype = ci
     lib.miso_marginal.argtypes = (
         [vp] * 10          # 6 inputs (start may be null), 4 outputs
+        + [ci] * 8         # E, C, I, K, iters, burn_in, lag, rrec
+        + [cu, cu]         # seed words
+        + [ci] * 3         # fixed_u, T, lanes per block
+        + [vp])            # stream
+    lib.miso_multinomial.restype = ci
+    lib.miso_multinomial.argtypes = (
+        [vp] * 16          # 10 inputs (start may be null), 5 outputs,
+                           # scratch (null at the register widths)
         + [ci] * 8         # E, C, I, K, iters, burn_in, lag, rrec
         + [cu, cu]         # seed words
         + [ci] * 3         # fixed_u, T, lanes per block

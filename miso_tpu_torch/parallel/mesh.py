@@ -3,7 +3,7 @@
 The port of ``miso_tpu/parallel/mesh.py``, written anew because that
 module imports JAX.  The padded event catalog is split along the event
 axis over a "mesh": a tuple of ``torch.device``, one entry per shard.
-Every shard runs the single-device sampler (kernel B1 or B2, or the
+Every shard runs the single-device sampler (kernel B1, B2, or B3 of the
 deep route) on its own device and on a CUDA stream of its own, so a list
 that names one card twice still runs its shards side by side.  There is
 no traffic between shards; results stay on their devices, in event order

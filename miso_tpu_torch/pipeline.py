@@ -21,8 +21,8 @@ device half is torch:
 instead, synchronously on the dispatch thread.  ``--linear-start`` seeds
 every chain of either stop rule with the host NNLS start.  A REASSIGN
 bucket of more than ``DEEP_READS`` reads builds no per-read tiles and
-runs the multinomial Gibbs step (``sampler/deep.py``), as the JAX
-package does.
+runs the multinomial Gibbs step (``sampler/deep.py``: kernel B3 on the
+card), as the JAX package does.
 
 The port runs single-end and paired-end events with every algorithm,
 either start and either stop rule, with full ``.miso`` output,
@@ -34,10 +34,11 @@ chunk's events over all of them (``parallel/mesh.py``, ``resolve_mesh``):
 each shard runs its kernel on its own card and stream, and the
 materializer joins the shards in event order.
 
-The kernels have an instance for every bucket of up to 1,024 isoforms
-(``KERNEL_ISO``).  On a CUDA device a wider bucket is refused before any
-tensor moves, unless it is a deep REASSIGN bucket, which runs no kernel;
-nothing takes a kernel's place on the card.
+The REASSIGN and MARGINAL kernels have an instance for every bucket of
+up to 1,024 isoforms (``KERNEL_ISO``).  On a CUDA device a wider bucket
+is refused before any tensor moves, unless it is a deep REASSIGN bucket,
+whose kernel takes any width; nothing takes a kernel's place on the
+card.
 """
 from __future__ import annotations
 
@@ -302,7 +303,8 @@ class StreamRunner:
     def _dispatch(self, key, evs, tags) -> None:
         cfg = self.cfg
         pad_iso, pad_classes, pad_reads = key
-        # a deep REASSIGN bucket runs no kernel (run_sampler)
+        # a deep REASSIGN bucket runs the multinomial kernel, which takes
+        # any width (run_sampler)
         deep = pad_reads > DEEP_READS and cfg.algorithm == "reassign"
         if (any(d.type == "cuda" for d in self.mesh) and not deep
                 and pad_iso not in KERNEL_ISO):

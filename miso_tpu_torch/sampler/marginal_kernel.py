@@ -48,7 +48,7 @@ from miso_tpu_torch.sampler.reassign_kernel import (FILL_WARPS, FIXED_U,
                                                     PHILOX_INT_OPS, TWO_PI,
                                                     _U24, _checked,
                                                     _is_record, _result,
-                                                    bound)
+                                                    _seq_sum, bound)
 
 LAUNCHES = {"cuda": 0, "plain": 0}
 TINY = 1e-38
@@ -195,15 +195,6 @@ def run_batch_marginal(seed: int, batch: EventBatch, cfg: SamplerConfig,
         return _marginal_plain(seed, batch, cfg, consts, start_psi,
                                fixed_uniform)
     raise ValueError("no MARGINAL route for device %s" % dev)
-
-
-def _seq_sum(x):
-    """Sum over the last axis in ascending index order, as the kernel
-    sums (torch's reductions pick their own order)."""
-    s = x[..., 0]
-    for j in range(1, x.shape[-1]):
-        s = s + x[..., j]
-    return s
 
 
 def _marginal_plain(seed, batch, cfg, consts, start_psi=None,

@@ -6,7 +6,9 @@ shapes for one (event, chain) -- alpha (I-1,), psi (I,) -- and also take
 leading batch dimensions.  This module is the psi-space oracle for the
 alpha-space arithmetic of the REASSIGN kernel and its plain version
 (``reassign_kernel.py``).  Of it, only ``gibbs_reassign`` runs on a main
-path: the Gibbs step of deep REASSIGN events (``deep.py``).
+path: the Gibbs step of the plain version of the deep route's kernel
+(``deep.py``), which the kernel's fixed-uniform mode follows draw for
+draw.
 
 Contractions stay elementwise sums (never ``@``): see ``score_marginal``.
 """
@@ -138,7 +140,7 @@ def gibbs_reassign_perread(u, psi, read_w, read_logscore,
     return n, read_prob
 
 
-def gibbs_reassign(psi, weights, counts, generator=None):
+def gibbs_reassign(psi, weights, counts, generator=None, uniform=None):
     """Per-class multinomial reassignment (pysplicing/src/miso.c:30-91):
     the counts_c reads of class c each take isoform j with probability
     p_cj = psi_j W_cj / sum_j psi_j W_cj, so the class's assignment counts
@@ -151,7 +153,15 @@ def gibbs_reassign(psi, weights, counts, generator=None):
     clipped to [0, 1].  The last isoform of nonzero p has ratio exactly 1
     and takes the remainder, so every class sums exactly to its count.
     Classes with no compatible isoform draw zero.  The reverse sum is an
-    ordered loop over the short isoform axis, not ``torch.cumsum``."""
+    ordered loop over the short isoform axis, not ``torch.cumsum``.
+
+    ``uniform`` (a float, the fixed-uniform test mode of the kernels)
+    replaces every binomial draw by a bounded deterministic rule, the
+    one the multinomial kernel's fixed mode computes:
+    floor(remainder * ratio + uniform) clipped to [0, remainder], one
+    f32 multiply, one add and a floor, so the two agree draw for draw.
+    It never enters a rejection loop.  Otherwise each draw is
+    ``torch.binomial`` from ``generator``."""
     p = psi[..., None, :] * weights                        # (..., C, I)
     I = p.shape[-1]
     tot = p[..., 0]
@@ -171,7 +181,11 @@ def gibbs_reassign(psi, weights, counts, generator=None):
     for j in range(I):
         ratio = (probs[..., j] / torch.where(rest[j] == 0, 1.0, rest[j])
                  ).clamp(0.0, 1.0)
-        c = torch.binomial(remainder, ratio, generator=generator)
+        if uniform is None:
+            c = torch.binomial(remainder, ratio, generator=generator)
+        else:
+            c = torch.minimum(torch.floor(remainder * ratio + uniform)
+                              .clamp_min(0.0), remainder)
         draws.append(c)
         remainder = remainder - c
     return torch.stack(draws, -1)

@@ -248,33 +248,52 @@ def _event_consts(batch: EventBatch):
             (log_iso_w, h, amask, iso_mask, last_onehot, scal)]
 
 
-def _stats(alpha, amask, last, eiw):
+def _sum(x):
+    """Sum over the last axis in torch's own order."""
+    return x.sum(-1)
+
+
+def _seq_sum(x):
+    """Sum over the last axis in ascending index order, as the kernels
+    sum (torch's reductions pick their own order, and at scores of 10^4
+    one step of another order is a whole tolerance).  A loop of I torch
+    operations: only the plain versions whose kernels need it to the bit
+    use it (``deep._multinomial_plain``, ``marginal_kernel``)."""
+    s = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        s = s + x[..., j]
+    return s
+
+
+def _stats(alpha, amask, last, eiw, total=_sum):
     """alpha (..., I) -> (psi, log denom, log S): e = exp(alpha) on the
     head isoforms, denom = 1 + sum(e), psi = (e + last) / denom and
-    S = sum((e + last) * efflen) (pallas_kernel.py:177-187)."""
+    S = sum((e + last) * efflen) (pallas_kernel.py:177-187).  ``total``
+    sums over the isoforms."""
     e = torch.exp(alpha) * amask
-    denom = 1.0 + e.sum(-1)
+    denom = 1.0 + total(e)
     ld = torch.log(denom.clamp_min(1e-38))
     e_aug = e + last
     psi = e_aug / denom[..., None]
-    logS = torch.log((e_aug * eiw).sum(-1).clamp_min(1e-38))
+    logS = torch.log(total(e_aug * eiw).clamp_min(1e-38))
     return psi, ld, logS
 
 
-def _log_ratio(n, d, h1, H1, n_valid, kk, ld, ld_new, logS, logS_new, full):
+def _log_ratio(n, d, h1, H1, n_valid, kk, ld, ld_new, logS, logS_new, full,
+               total=_sum):
     """MH log-ratio of the drift d = alpha_new - alpha, in alpha space
     (pallas_kernel.py:293-297): the proposal quadratic and the read score
     cancel, the rest is linear in d.  ``full`` = 0 drops the proposal
     correction (iteration 0)."""
-    return (((n + h1) * d).sum(-1) - n_valid * (logS_new - logS)
-            - H1 * (ld_new - ld) + full * (d.sum(-1) + kk * (ld - ld_new)))
+    return (total((n + h1) * d) - n_valid * (logS_new - logS)
+            - H1 * (ld_new - ld) + full * (total(d) + kk * (ld - ld_new)))
 
 
 def _joint_abs(alpha, amask, n, h1, H1, a_liw, rp, n_valid, ld, logS,
-               dir_const):
+               dir_const, total=_sum):
     """Absolute joint score (miso.c:243-307) of a state, for recorded
     log-likelihoods (pallas_kernel.py:189-196)."""
-    t = ((n + h1) * (alpha * amask) + n * a_liw).sum(-1)
+    t = total((n + h1) * (alpha * amask) + n * a_liw)
     return rp + t - n_valid * logS - H1 * ld + dir_const
 
 
@@ -370,13 +389,14 @@ def _reassign_plain(seed, batch, cfg, consts, start_psi=None,
                      valid.sum(-1).to(f32))
 
 
-def _mh_chain(cfg, consts, start_psi, uniform, gibbs, n_valid):
+def _mh_chain(cfg, consts, start_psi, uniform, gibbs, n_valid,
+              total=_sum):
     """The REASSIGN chain of every (E, K) lane in the alpha-space form of
     the kernel, around a Gibbs step: ``gibbs(psi, want_rp)`` returns the
     per-isoform counts n (E, K, I) and, when a record will read it, the
     read score rp (E, K).  ``n_valid`` (E, 1) is the reads that count
     into some isoform; ``uniform(*shape)`` draws the proposal and accept
-    uniforms."""
+    uniforms; ``total`` sums over the isoforms."""
     f32 = torch.float32
     log_iso_w, h, amask, iso_mask, last, scal = (c[:, None] for c in consts)
     E, _, I = log_iso_w.shape
@@ -389,7 +409,7 @@ def _mh_chain(cfg, consts, start_psi, uniform, gibbs, n_valid):
     eiw = torch.exp(log_iso_w) * iso_mask
     a_liw = torch.where(real, log_iso_w, zero)
     h1 = torch.where(real, h - 1.0, zero)
-    H1 = h1.sum(-1)
+    H1 = total(h1)
     km1 = amask.sum(-1)
     kk = km1 + 1.0
     H = (I + 1) // 2
@@ -402,7 +422,7 @@ def _mh_chain(cfg, consts, start_psi, uniform, gibbs, n_valid):
         return torch.cat([r * torch.cos(ang), r * torch.sin(ang)], -1)[..., :I]
 
     def stats(alpha):
-        return _stats(alpha, amask, last, eiw)
+        return _stats(alpha, amask, last, eiw, total)
 
     if start_psi is not None:
         sp = start_psi.to(f32)
@@ -427,7 +447,7 @@ def _mh_chain(cfg, consts, start_psi, uniform, gibbs, n_valid):
         alpha_new = alpha + d
         psi_new, ld_new, logS_new = stats(alpha_new)
         logr = _log_ratio(n, d, h1, H1, n_valid, kk, ld, ld_new, logS,
-                          logS_new, 1.0 if m > 0 else 0.0)
+                          logS_new, 1.0 if m > 0 else 0.0, total)
         u = uniform(E, K).clamp_min(_U24)
         accept = (logr >= 0) | (torch.log(u) < logr)
         a3 = accept[..., None]
@@ -439,7 +459,8 @@ def _mh_chain(cfg, consts, start_psi, uniform, gibbs, n_valid):
         if _is_record(m, cfg) and rec < RREC:
             psi_out[:, rec] = psi
             ll_out[:, rec] = _joint_abs(alpha, amask, n, h1, H1, a_liw, rp,
-                                        n_valid, ld, logS, dir_const)
+                                        n_valid, ld, logS, dir_const,
+                                        total)
             rec += 1
         n, rp = gibbs(psi, _is_record(m + 1, cfg))
     return _result(psi_out, ll_out, acc, n, psi, cfg)

@@ -335,3 +335,64 @@ def exact_marginal_mean_2iso(ev, grid=20001):
                   0.0).sum(axis=1)
     w = np.exp(ll - ll.max())
     return float((w * p).sum() / w.sum())
+
+
+def multinomial_lane_batch(I, num_iso, seed, device, C=4, scale=1.0):
+    """``marginal_lane_batch`` for the deep route: the same E=3 events
+    (the last a padding event), class counts times ``scale``, and
+    non-zero read scores log(0.01 + U) where a class weighs on an
+    isoform."""
+    batch = marginal_lane_batch(I, num_iso, seed, "cpu", C=C)
+    rng = np.random.default_rng(seed)
+    w = batch.weights.numpy()
+    log_read = np.where(w > 0, np.log(0.01 + rng.random(w.shape)), 0.0)
+    return batch_from_numpy(EventBatch(
+        *[t.numpy() for t in batch._replace(
+            log_read=batch.log_read.new_tensor(log_read),
+            counts=batch.counts * scale)]), device)[0]
+
+
+# (reads of the class, weight of isoform 1 beside isoform 0's 1) of the
+# binomial check's events: p0 = psi0 / (psi0 + w psi1), so n * p0 below
+# and above 10, and p0 below and above 1/2 (the symmetric draw)
+BINOMIAL_REGIMES = ((200.0, 50.0), (1e6, 1.0), (200.0, 0.02),
+                    (50000.0, 0.3))
+
+
+def binomial_batch(copies, device):
+    """The events of the binomial draws' check: each regime of
+    ``BINOMIAL_REGIMES`` ``copies`` times, two isoforms and one class of
+    the regime's reads, whose draw n0 ~ Bin(reads, p0) is final_n's
+    first isoform after a run of no iterations."""
+    E = len(BINOMIAL_REGIMES) * copies
+    reads = np.repeat([r for r, _ in BINOMIAL_REGIMES], copies)
+    w1 = np.repeat([w for _, w in BINOMIAL_REGIMES], copies)
+    weights = np.stack([np.ones(E), w1], -1)[:, None, :]
+    batch, _ = batch_from_numpy(EventBatch(
+        weights=weights, log_read=np.zeros_like(weights),
+        counts=reads[:, None], log_iso_w=np.zeros((E, 2)),
+        hyper=np.ones((E, 2)), num_iso=np.full(E, 2),
+        read_w=np.zeros((E, 1, 2)), read_logscore=np.zeros((E, 1, 2))),
+        device)
+    return batch
+
+
+def binomial_moments(batch, result):
+    """Per regime of ``binomial_batch``: (mean, variance, lanes) of the
+    standardised draws z = (n0 - n p0) / sqrt(n p0 (1 - p0)), p0 from
+    each lane's final psi, in float64; and whether every lane's counts
+    sum to its reads."""
+    res = result.to_numpy()
+    reads = batch.counts.cpu().numpy()[:, 0].astype(np.float64)
+    w1 = batch.weights.cpu().numpy()[:, 0, 1].astype(np.float64)
+    psi = res.final_psi.astype(np.float64)
+    p0 = psi[..., 0] / (psi[..., 0] + w1[:, None] * psi[..., 1])
+    n = reads[:, None]
+    z = (res.final_n[..., 0] - n * p0) / np.sqrt(n * p0 * (1.0 - p0))
+    copies = len(reads) // len(BINOMIAL_REGIMES)
+    out = []
+    for r in range(len(BINOMIAL_REGIMES)):
+        zr = z[r * copies:(r + 1) * copies].ravel()
+        out.append((float(zr.mean()), float(zr.var()), zr.size))
+    sums = np.all(res.final_n.sum(-1) == n)
+    return out, bool(sums)

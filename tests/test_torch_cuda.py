@@ -11,11 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from miso_tpu_torch.sampler import deep
 from miso_tpu_torch.sampler import marginal_kernel as mk
 from miso_tpu_torch.sampler import reassign_kernel as rk
 from miso_tpu_torch.sampler.mcmc import SamplerConfig
 from miso_tpu_torch.testing import (PAIRED_GENE, lane_test_batch,
-                                    marginal_lane_batch, padded_batch,
+                                    marginal_lane_batch,
+                                    multinomial_lane_batch, padded_batch,
                                     paired_event)
 
 pytestmark = pytest.mark.cuda
@@ -334,3 +336,37 @@ def test_shards_on_two_streams_of_one_card_are_their_slices_alone(
     np.testing.assert_array_equal(fixed.accepted[:E], whole.accepted)
     np.testing.assert_allclose(fixed.loglik[:E], whole.loglik, rtol=0,
                                atol=LL_ATOL)
+
+
+# the multinomial kernel B3 at narrow and wide widths (2 to 128
+# isoforms), every lane width
+B3_WIDTHS = [(2, 2, 4), (3, 3, 5), (8, 5, 6), (16, 9, 6), (128, 70, 4)]
+
+
+@pytest.mark.parametrize("given", [False, True])
+@pytest.mark.parametrize("I,num_iso,C", B3_WIDTHS)
+def test_multinomial_kernel_matches_plain_in_every_plan(cuda, I, num_iso, C,
+                                                        given):
+    cfg = SamplerConfig(iters=24, burn_in=6, lag=3, chains=2)
+    batch = multinomial_lane_batch(I, num_iso, I, cuda, C=C, scale=300.0)
+    consts = deep._event_consts(batch)
+    start = None
+    if given:
+        sp = np.zeros((3, 2, I), np.float32)
+        sp[:2, :, :num_iso] = np.random.default_rng(9).dirichlet(
+            np.ones(num_iso), size=(2, 2))
+        start = torch.from_numpy(sp).to(cuda)
+    ref = deep._multinomial_plain(0, batch, cfg, consts, start, deep.FIXED_U)
+    for plan in deep.all_multinomial_plans(3, C, I, 2):
+        got = deep._multinomial_cuda(0, batch, cfg, consts, start, True,
+                                     plan=plan)
+        torch.cuda.synchronize()
+        got, want = got.to_numpy(), ref.to_numpy()
+        real = slice(0, 2)     # the padding event's loglik is not finite
+        np.testing.assert_allclose(got.psi_samples, want.psi_samples,
+                                   rtol=0, atol=PSI_ATOL)
+        np.testing.assert_allclose(got.loglik[real], want.loglik[real],
+                                   rtol=0, atol=LL_ATOL)
+        np.testing.assert_allclose(got.final_n, want.final_n, rtol=0,
+                                   atol=N_ATOL)
+        np.testing.assert_array_equal(got.accepted, want.accepted)

@@ -79,7 +79,8 @@ def test_deep_event_skips_per_read_tensors(monkeypatch):
     cfg = RunConfig(read_len=25, iters=40, burn_in=10, lag=5, chains=2)
     out = tp.run_events([ev], cfg, seed=0, device="cpu")
     assert seen["per_read"] is False and seen["pad_reads"] > tp.DEEP_READS
-    assert deep.LAUNCHES["deep"] == before[0]["deep"] + 1
+    assert deep.LAUNCHES["plain"] == before[0]["plain"] + 1
+    assert deep.LAUNCHES["cuda"] == before[0]["cuda"]
     assert rk.LAUNCHES == before[1]
     assert out[0]["psi_ticks"].shape == (12, 2)
 
@@ -132,9 +133,9 @@ def test_deep_bucket_runs_under_convergent_stop():
     _, ev = _deep_event(scale=20)                 # 40,000 reads
     cfg = RunConfig(read_len=25, iters=60, burn_in=20, lag=5, chains=2,
                     stop="convergent", max_iters=400)
-    before = deep.LAUNCHES["deep"]
+    before = deep.LAUNCHES["plain"]
     out = tp.run_events([ev, ev], cfg, seed=0, device="cpu")
-    assert deep.LAUNCHES["deep"] > before
+    assert deep.LAUNCHES["plain"] > before
     for res in out:
         assert np.isfinite(res["samples"]).all()
         assert float(np.sum(res["final_n"])) == 40_000.0
@@ -153,8 +154,8 @@ def _wide_deep_event(num_iso=70, n_base=300, scale=60):
 
 
 def test_deep_bucket_wider_than_64_isoforms_runs():
-    """A deep bucket of 128 padded isoforms runs (no kernel width
-    applies to the deep route), with padded isoforms at 0."""
+    """A deep bucket of 128 padded isoforms runs (the multinomial
+    kernel, or here its plain version), with padded isoforms at 0."""
     ev = _wide_deep_event()
     assert tp._bucket_key(ev)[0] == 128 and tp._bucket_key(ev)[2] > \
         tp.DEEP_READS
@@ -191,7 +192,7 @@ def test_card_refuses_only_shallow_buckets_above_its_widest_kernel(
     kernel's wrapper (the kernels have an instance that wide) and to
     nothing else; a wider one raises NotImplementedError naming its
     ROADMAP item before any tensor moves, unless it is a deep REASSIGN
-    bucket, which runs no kernel."""
+    bucket, whose kernel takes any width."""
     from miso_tpu_torch.sampler import marginal_kernel as mk
 
     assert max(tp.KERNEL_ISO) == 1024
@@ -212,7 +213,7 @@ def test_card_refuses_only_shallow_buckets_above_its_widest_kernel(
 
     monkeypatch.setattr(tp, wrapper, counted)
     runner = _runner_on_a_pretended_card(monkeypatch, cfg, results)
-    before = (deep.LAUNCHES["deep"], dict(mk.LAUNCHES), dict(rk.LAUNCHES))
+    before = (dict(deep.LAUNCHES), dict(mk.LAUNCHES), dict(rk.LAUNCHES))
     try:
         # nothing wider than the widest instance but a deep REASSIGN bucket
         with pytest.raises(NotImplementedError, match="ROADMAP B.6"):
@@ -229,7 +230,7 @@ def test_card_refuses_only_shallow_buckets_above_its_widest_kernel(
     # tensors it was given (here the CPU's: its plain version), and no
     # deep route in its place
     assert went == [(2, key[1], 512)]
-    assert deep.LAUNCHES["deep"] == before[0]
+    assert deep.LAUNCHES == before[0]
     mine, other = ((rk, mk) if algorithm == "reassign" else (mk, rk))
     assert mine.LAUNCHES["plain"] == before[1 if mine is mk else 2][
         "plain"] + 1
@@ -248,12 +249,12 @@ def test_card_refuses_only_shallow_buckets_above_its_widest_kernel(
 
 def test_deep_bucket_of_any_width_passes_the_width_check(monkeypatch):
     """A deep REASSIGN bucket wider than every kernel instance is not
-    refused on a CUDA device: the deep route takes any width."""
+    refused on a CUDA device: the multinomial kernel takes any width."""
     ev, _ = _deep_event(n_base=100, scale=1)
     cfg = RunConfig(read_len=25, iters=20, burn_in=10, lag=5, chains=2)
     results = []
     runner = _runner_on_a_pretended_card(monkeypatch, cfg, results)
-    before = deep.LAUNCHES["deep"]
+    before = deep.LAUNCHES["plain"]
     try:
         runner._dispatch((2048, tp._bucket_key(ev)[1], 2 * tp.DEEP_READS),
                          [ev], [0])
@@ -261,7 +262,7 @@ def test_deep_bucket_of_any_width_passes_the_width_check(monkeypatch):
     except BaseException:
         runner.abort()
         raise
-    assert deep.LAUNCHES["deep"] == before + 1 and len(results) == 1
+    assert deep.LAUNCHES["plain"] == before + 1 and len(results) == 1
 
 
 def test_a_kernel_that_fails_is_never_rerouted(monkeypatch, capsys):
@@ -291,7 +292,120 @@ def test_a_kernel_that_fails_is_never_rerouted(monkeypatch, capsys):
     # by the tensors' device alone
     import inspect
     for wrapper, plain in ((mk.run_batch_marginal, "_marginal_plain"),
-                           (rk.run_batch_reassign, "_reassign_plain")):
+                           (rk.run_batch_reassign, "_reassign_plain"),
+                           (deep.run_batch_multinomial,
+                            "_multinomial_plain")):
         src = inspect.getsource(wrapper)
         assert src.index('dev.type == "cuda"') < src.index(
             'dev.type == "cpu"') < src.index(plain)
+
+
+def test_fixed_uniform_gibbs_sums_exactly_and_ends_on_degenerate_p():
+    """The fixed-uniform rule floor(n * ratio + u), clipped: every class
+    sums exactly to its count (a million reads too), p of 0 and 1 and all
+    mass on one isoform end where they must, a class of no compatible
+    isoform draws nothing, and the draws are the rule's own."""
+    u = rk.FIXED_U
+    psi = torch.tensor([[0.5, 0.3, 0.2, 0.0],
+                        [1.0, 0.0, 0.0, 0.0],
+                        [0.0, 0.0, 1.0, 0.0]])
+    W = torch.tensor([[1.0, 1.0, 1.0, 0.0],
+                      [0.0, 0.4, 0.9, 0.0],
+                      [0.0, 0.0, 0.0, 0.0],      # incompatible class
+                      [0.2, 0.0, 0.0, 0.0],
+                      [0.0, 0.0, 0.0, 1.0]])     # only a padded isoform
+    counts = torch.tensor([1_000_000.0, 37.0, 50.0, 3.0, 9.0])
+    draws = gibbs_reassign(psi, W.expand(3, 5, 4), counts.expand(3, 5),
+                           uniform=u)
+    assert torch.equal(draws, draws.round()) and (draws >= 0).all()
+    sums = draws.sum(-1)
+    tot = (psi[:, None, :] * W).sum(-1)
+    np.testing.assert_array_equal(
+        sums.numpy(), torch.where(tot > 0, counts, 0.0).numpy())
+    assert (draws[:, 2] == 0).all() and (draws[:, 4] == 0).all()
+    # all of psi on isoform 0: class 0 goes there whole, class 1 (no
+    # weight on isoform 0) draws nothing; all on isoform 2: p = (0, 0, 1)
+    assert draws[1, 0].tolist() == [1_000_000.0, 0.0, 0.0, 0.0]
+    assert draws[1, 1].sum() == 0 and draws[1, 3, 0] == 3.0
+    assert draws[2, 0].tolist() == [0.0, 0.0, 1_000_000.0, 0.0]
+    assert draws[2, 1].tolist() == [0.0, 0.0, 37.0, 0.0]
+    # the first isoform's draw is the mean rounded by u
+    ratio = (0.5 * 1.0) / (0.5 + 0.3 + 0.2)
+    assert draws[0, 0, 0] == np.floor(np.float32(1e6 * ratio) + u)
+
+
+def _on_card(t):
+    """A CPU tensor whose device says CUDA: the wrappers route by it."""
+    class OnCard(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("cuda")
+
+    return t.as_subclass(OnCard)
+
+
+def test_a_deep_bucket_on_a_card_goes_to_the_multinomial_kernel(
+        monkeypatch):
+    """On a CUDA device a deep REASSIGN bucket goes through the pipeline
+    to ``_multinomial_cuda``, once, and to no plain version: here the
+    batch's weights say CUDA and the stand-in launches the plain version
+    on the CPU tensors, counted apart."""
+    _, ev = _deep_event(scale=10)               # 20,000 reads
+    went = []
+
+    def kernel(seed, batch, cfg, consts, start_psi, fixed, plan=None):
+        went.append((type(batch.weights).__name__, tuple(
+            batch.weights.shape), start_psi is not None, fixed))
+        plain = batch._replace(weights=batch.weights.as_subclass(
+            torch.Tensor))
+        return deep._multinomial_plain(seed, plain, cfg, consts, start_psi)
+
+    monkeypatch.setattr(deep, "_multinomial_cuda", kernel)
+    real = tmesh.batch_from_numpy
+
+    def on_card(batch, device, start=None):
+        b, sp = real(batch, "cpu", start)
+        return b._replace(weights=_on_card(b.weights)), sp
+
+    monkeypatch.setattr(tmesh, "batch_from_numpy", on_card)
+    cfg = RunConfig(read_len=25, iters=20, burn_in=10, lag=5, chains=2)
+    results = []
+    runner = tp.StreamRunner(cfg, device="cpu",
+                             on_chunk=lambda tags, res: results.extend(res))
+    runner.mesh = (torch.device("cuda"),)
+    before = dict(deep.LAUNCHES)
+    try:
+        runner.add(ev)
+        runner.finish()
+    except BaseException:
+        runner.abort()
+        raise
+    key = tp._bucket_key(ev)
+    assert key[2] > tp.DEEP_READS
+    assert went == [("OnCard", (1, key[1], 2), False, False)]
+    # the stand-in's plain launch is the only one; the wrapper made none
+    assert deep.LAUNCHES["plain"] == before["plain"] + 1
+    assert len(results) == 1
+    assert float(np.sum(results[0]["final_n"])) == float(ev.counts.sum())
+
+
+def test_run_batch_multinomial_routes_by_the_tensors_device(monkeypatch):
+    """The wrapper sends a CUDA batch to the kernel with the fixed mode
+    and GIVEN start it was given, and a CPU batch to the plain version."""
+    ev, _ = _deep_event(n_base=100, scale=1)
+    batch = class_batch([ev], "cpu")
+    cfg = SamplerConfig(iters=4, burn_in=0, lag=1, chains=2)
+    seen = []
+    monkeypatch.setattr(deep, "_multinomial_cuda", lambda *a, **k:
+                        seen.append(a[4:6]) or "kernel")
+    start = torch.full((1, 2, 2), 0.5)
+    card = batch._replace(weights=_on_card(batch.weights))
+    assert deep.run_batch_multinomial(0, card, cfg, start_psi=start,
+                                      fixed_uniform=rk.FIXED_U) == "kernel"
+    assert seen[0][0] is start and seen[0][1] is True
+    before = deep.LAUNCHES["plain"]
+    res = deep.run_batch_multinomial(0, batch, cfg)
+    assert deep.LAUNCHES["plain"] == before + 1 and len(seen) == 1
+    assert res.psi_samples.shape == (1, 4, 2, 2)
+    with pytest.raises(ValueError, match="fixed_uniform"):
+        deep.run_batch_multinomial(0, batch, cfg, fixed_uniform=0.3)

@@ -78,33 +78,38 @@ def test_port_imports_leave_jax_out():
     assert _fresh(code) == "FOREIGN []"
 
 
-@pytest.mark.parametrize("flags", [[], ["--paired-end", "250", "15"],
-                                   ["--algorithm", "marginal",
-                                    "--linear-start", "--pack-output"]],
-                         ids=["single_end", "paired_end", "marginal_packed"])
-def test_a_run_of_the_port_leaves_jax_and_the_jax_package_out(tmp_path,
-                                                              flags):
+@pytest.mark.parametrize("flags,events,reads", [
+    ([], 6, 200), (["--paired-end", "250", "15"], 6, 150),
+    (["--algorithm", "marginal", "--linear-start", "--pack-output"], 6, 200),
+    ([], 2, 17000)],
+    ids=["single_end", "paired_end", "marginal_packed", "deep_bucket"])
+def test_a_run_of_the_port_leaves_jax_and_the_jax_package_out(
+        tmp_path, flags, events, reads):
     """Catalog, index and ``miso_torch --run --device cpu`` in a fresh
-    interpreter: neither jax nor miso_tpu is imported on the way."""
+    interpreter: neither jax nor miso_tpu is imported on the way.  Genes
+    of 17,000 reads form a deep REASSIGN bucket (the multinomial route)."""
     settings = tmp_path / "settings.txt"
     settings.write_text(SETTINGS)
     paired = "--paired-end" in flags
     code = """
 import os, sys
 from miso_tpu_torch.cli.main import main
+from miso_tpu_torch.sampler import deep
 from miso_tpu_torch.testing import indexed_catalog
-fix = indexed_catalog({cat!r}, num_events=6, reads_per_event={reads},
-                      read_len={read_len}, seed=3, paired={paired})
+fix = indexed_catalog({cat!r}, num_events={events},
+                      reads_per_event={reads}, read_len={read_len}, seed=3,
+                      paired={paired})
 rc = main(["--run", fix["index"], fix["bam"], "--output-dir", {out!r},
            "--read-len", "{read_len}", "--settings-filename", {settings!r},
            "--device", "cpu"] + {flags!r})
 assert rc == 0
+assert deep.LAUNCHES["plain"] == {deep_runs}, deep.LAUNCHES
 with open(os.path.join({out!r}, "summary", "out.miso_summary")) as f:
-    assert len(f.read().splitlines()) == 7
+    assert len(f.read().splitlines()) == {events} + 1
 {foreign}
 """.format(cat=str(tmp_path / "cat"), out=str(tmp_path / "out"),
            settings=str(settings), flags=flags, paired=paired,
-           reads=150 if paired else 200, read_len=40 if paired else 36,
+           events=events, deep_runs=int(reads > 16384), reads=reads, read_len=40 if paired else 36,
            foreign=FOREIGN)
     assert _fresh(code) == "FOREIGN []"
 

@@ -8,7 +8,8 @@ card.  Here each source is compiled by the host's C++20 compiler against
 kernels' place, and the port's own wrappers launch it on CPU tensors: the
 REASSIGN and MARGINAL kernels in every layout of their launch plans,
 against their plain versions under fixed uniforms with the card's
-tolerances, and one Philox chain whatever the layout.
+tolerances, and one Philox chain whatever the layout; the multinomial kernel B3 of the deep
+route likewise in every plan, and its binomial draws' moments.
 What ``nvcc`` makes of the source, and every time, stay the card's to
 show.
 """
@@ -26,12 +27,15 @@ import torch
 
 import miso_tpu_torch
 from miso_tpu_torch import kernels
+from miso_tpu_torch.sampler import deep
 from miso_tpu_torch.sampler import marginal_kernel as mk
 from miso_tpu_torch.sampler import reassign_kernel as rk
 from miso_tpu_torch.sampler.mcmc import SamplerConfig
-from miso_tpu_torch.testing import (PAIRED_GENE, lane_test_batch,
-                                    marginal_lane_batch, padded_batch,
-                                    paired_event)
+from miso_tpu_torch.testing import (PAIRED_GENE, binomial_batch,
+                                    binomial_moments, class_batch, deepened,
+                                    lane_test_batch, marginal_lane_batch,
+                                    multinomial_lane_batch, padded_batch,
+                                    paired_event, simulated_event)
 
 SHIM = os.path.join(kernels.CSRC, "host_shim")
 # the tolerances of tests/test_torch_cuda.py
@@ -96,7 +100,8 @@ def on_cpu(shim_library, monkeypatch):
 
 @pytest.mark.parametrize("entry,source", [
     ("miso_reassign", "reassign_kernel.cu"),
-    ("miso_marginal", "marginal_kernel.cu")])
+    ("miso_marginal", "marginal_kernel.cu"),
+    ("miso_multinomial", "multinomial_kernel.cu")])
 def test_binding_declares_every_argument(shim_library, entry, source):
     """ctypes passes an argument it has no type for as a 32-bit int: one
     declared type too few and the stream pointer, the last argument, is
@@ -115,6 +120,7 @@ def _assert_same_chain(got, ref):
     got, ref = got.to_numpy(), ref.to_numpy()
     np.testing.assert_allclose(got.psi_samples, ref.psi_samples, rtol=0,
                                atol=PSI_ATOL)
+    # (a padding event's log-likelihood is NaN on both routes alike)
     np.testing.assert_allclose(got.loglik, ref.loglik, rtol=0, atol=LL_ATOL)
     np.testing.assert_allclose(got.final_n, ref.final_n, rtol=0,
                                atol=N_ATOL)
@@ -303,6 +309,43 @@ def test_marginal_source_draws_one_philox_chain_in_every_plan(on_cpu):
     assert not np.array_equal(other.psi_samples, first.psi_samples)
 
 
+def test_multinomial_source_and_plain_agree_with_the_jax_deep_route(
+        on_cpu):
+    """The million-read event of tests/test_deep_events.py through the
+    JAX package's deep route (``mcmc.run_batch(..., gibbs=
+    "multinomial")``), B3's source and its plain version, each seeded,
+    at that test's schedule: each posterior mean within 0.01 of the JAX
+    route's (the posterior's sd is about 0.001 at 10^6 reads) and within
+    0.02 of the grid-exact mean, and every chain's final_n sums to the
+    reads."""
+    import jax
+    from exact_posterior import exact_posterior_mean_2iso
+    from miso_tpu.core.events import pad_events
+    from miso_tpu.sampler import mcmc
+
+    ev = deepened(simulated_event([100, 50, 100], [[1, 2, 3], [1, 3]],
+                                  [0.3, 0.7], 2000, 25, seed=4), 500)
+    exact = exact_posterior_mean_2iso(ev)
+    pad = pad_events([ev], per_read=False)
+    ref = mcmc.run_batch(
+        jax.random.PRNGKey(0),
+        mcmc.EventBatch(**{k: np.asarray(v) for k, v in pad.items()}),
+        mcmc.SamplerConfig(iters=800, burn_in=200, lag=4, chains=4,
+                           gibbs="multinomial"))
+    ref_mean = float(np.asarray(ref.flat_samples())[0, :, 0].mean())
+    assert abs(ref_mean - exact) < 0.02
+    batch = class_batch([ev], "cpu")
+    cfg = SamplerConfig(iters=800, burn_in=200, lag=4, chains=4)
+    consts = deep._event_consts(batch)
+    for res in (deep._multinomial_cuda(3, batch, cfg, consts, None, False),
+                deep._multinomial_plain(3, batch, cfg, consts)):
+        res = res.to_numpy()
+        mean = float(res.flat_samples()[0, :, 0].mean())
+        assert abs(mean - ref_mean) < 0.01, (mean, ref_mean)
+        assert abs(mean - exact) < 0.02, (mean, exact)
+        np.testing.assert_array_equal(res.final_n.sum(-1), 1_000_000.0)
+
+
 @pytest.mark.parametrize("change", [
     dict(T=3), dict(T=64, lanes_per_block=2), dict(T=0),
     dict(T=8, lanes_per_block=3), dict(lanes_per_block=0),
@@ -316,3 +359,181 @@ def test_marginal_launcher_refuses_a_plan_it_cannot_lay_out(on_cpu, change):
     with pytest.raises(RuntimeError, match="marginal kernel launch"):
         mk._marginal_cuda(0, batch, cfg, consts, None, True, plan=bad)
     assert mk.LAUNCHES["cuda"] == launches
+
+
+# ------------------------------------------------ the multinomial kernel B3
+# every lane width by width and class count (I = 2, 3; C = 4 one class a
+# thread at T = 4, C = 5 no lane width divides it; I = 16 and 128, narrow
+# lanes only at 128), each with a padding event, counts of 3,000-6,000
+# reads, non-zero read scores, from AUTO and from a GIVEN start
+B3_PLANS = [(I, num_iso, C, plan.T)
+            for I, num_iso, C in ((2, 2, 4), (3, 3, 5), (16, 9, 6),
+                                  (128, 70, 4))
+            for plan in deep.all_multinomial_plans(3, C, I, 2)
+            if I <= 16 or plan.T <= 4]
+
+
+@pytest.mark.parametrize("I,num_iso,C,T", B3_PLANS)
+def test_multinomial_source_matches_plain_in_every_plan(on_cpu, I, num_iso,
+                                                        C, T):
+    cfg = SamplerConfig(**SMALL)
+    batch = multinomial_lane_batch(I, num_iso, I, "cpu", C=C, scale=100.0)
+    consts = deep._event_consts(batch)
+    plan = next(p for p in deep.all_multinomial_plans(3, C, I, 2)
+                if p.T == T)
+    given = torch.cat([_start(num_iso, 2, 2, I), torch.zeros((1, 2, I))])
+    for start in (None, given):
+        ref = deep._multinomial_plain(0, batch, cfg, consts, start,
+                                      deep.FIXED_U)
+        got = deep._multinomial_cuda(0, batch, cfg, consts, start, True,
+                                     plan=plan)
+        _assert_same_chain(got, ref)
+        # every compatible class's reads are placed, a padding event's
+        # none
+        compat = (batch.weights.sum(-1) > 0) * batch.counts
+        np.testing.assert_array_equal(
+            got.final_n.sum(-1).numpy(),
+            compat.sum(-1, keepdim=True).expand(3, 2).numpy())
+
+
+def test_multinomial_source_through_the_wrapper(on_cpu):
+    """``_multinomial_cuda`` as the wrapper calls it, in the plan
+    ``multinomial_plan`` chooses, counted once."""
+    cfg = SamplerConfig(**SMALL)
+    batch = multinomial_lane_batch(2, 2, 2, "cpu", C=4, scale=40.0)
+    consts = deep._event_consts(batch)
+    launches = deep.LAUNCHES["cuda"]
+    ref = deep._multinomial_plain(0, batch, cfg, consts, None, deep.FIXED_U)
+    got = deep._multinomial_cuda(0, batch, cfg, consts, None, True)
+    assert deep.LAUNCHES["cuda"] == launches + 1
+    _assert_same_chain(got, ref)
+
+
+def test_multinomial_source_draws_one_philox_chain_in_every_plan(on_cpu):
+    batch = multinomial_lane_batch(3, 3, 5, "cpu", C=5, scale=50.0)
+    E, C, I = batch.weights.shape
+    cfg = SamplerConfig(iters=61, burn_in=10, lag=5, chains=3)
+    consts = deep._event_consts(batch)
+    plans = deep.all_multinomial_plans(E, C, I, cfg.chains)
+    assert [p.T for p in plans] == list(deep.LANE_THREADS)
+    first = None
+    for plan in plans:
+        got = deep._multinomial_cuda(17, batch, cfg, consts, None, False,
+                                     plan=plan).to_numpy()
+        if first is None:
+            first = got
+            continue
+        np.testing.assert_array_equal(got.psi_samples, first.psi_samples)
+        np.testing.assert_array_equal(got.final_n, first.final_n)
+        np.testing.assert_array_equal(got.accepted, first.accepted)
+        np.testing.assert_allclose(got.loglik, first.loglik, rtol=0,
+                                   atol=LL_ATOL)
+    real = first.accepted[:2]
+    assert np.all(0 < real) and np.all(real < cfg.iters * cfg.chains)
+    np.testing.assert_array_equal(first.final_n[:2].sum(-1), 3000.0)
+    other = deep._multinomial_cuda(18, batch, cfg, consts, None, False,
+                                   plan=plans[0]).to_numpy()
+    assert not np.array_equal(other.final_n, first.final_n)
+
+
+def test_multinomial_source_draws_binomials_of_the_right_moments(on_cpu):
+    """Each class's draw at a lane's psi: the standardised draws of 256
+    lanes have mean 0 and variance 1 within 5 and 6 standard errors, at
+    n p below 10 (inversion) and above (BTRS), p below and above 1/2."""
+    batch = binomial_batch(64, "cpu")
+    cfg = SamplerConfig(iters=0, burn_in=0, lag=1, chains=4)
+    res = deep._multinomial_cuda(5, batch, cfg, deep._event_consts(batch),
+                                 None, False)
+    moments, sums = binomial_moments(batch, res)
+    assert sums
+    for mean, var, lanes in moments:
+        assert lanes == 256
+        assert abs(mean) < 5 / np.sqrt(lanes), moments
+        assert abs(var - 1.0) < 6 * np.sqrt(2.0 / lanes), moments
+
+
+def test_multinomial_source_on_the_million_read_event(on_cpu):
+    """tests/test_deep_events.py's event through B3: within 0.02 of the
+    grid-exact mean, final_n summing to 1,000,000."""
+    from exact_posterior import exact_posterior_mean_2iso
+
+    ev = deepened(simulated_event([100, 50, 100], [[1, 2, 3], [1, 3]],
+                                  [0.3, 0.7], 2000, 25, seed=4), 500)
+    batch = class_batch([ev], "cpu")
+    res = deep._multinomial_cuda(
+        0, batch, SamplerConfig(iters=800, burn_in=200, lag=4, chains=4),
+        deep._event_consts(batch), None, False).to_numpy()
+    assert abs(float(res.flat_samples()[0, :, 0].mean())
+               - exact_posterior_mean_2iso(ev)) < 0.02
+    np.testing.assert_array_equal(res.final_n.sum(-1), 1_000_000.0)
+
+
+def test_multinomial_source_and_plain_agree_with_the_jax_deep_route(
+        on_cpu):
+    """The million-read event of tests/test_deep_events.py through the
+    JAX package's deep route (``mcmc.run_batch(..., gibbs=
+    "multinomial")``), B3's source and its plain version, each seeded,
+    at that test's schedule: each posterior mean within 0.01 of the JAX
+    route's (the posterior's sd is about 0.001 at 10^6 reads) and within
+    0.02 of the grid-exact mean, and every chain's final_n sums to the
+    reads."""
+    import jax
+    from exact_posterior import exact_posterior_mean_2iso
+    from miso_tpu.core.events import pad_events
+    from miso_tpu.sampler import mcmc
+
+    ev = deepened(simulated_event([100, 50, 100], [[1, 2, 3], [1, 3]],
+                                  [0.3, 0.7], 2000, 25, seed=4), 500)
+    exact = exact_posterior_mean_2iso(ev)
+    pad = pad_events([ev], per_read=False)
+    ref = mcmc.run_batch(
+        jax.random.PRNGKey(0),
+        mcmc.EventBatch(**{k: np.asarray(v) for k, v in pad.items()}),
+        mcmc.SamplerConfig(iters=800, burn_in=200, lag=4, chains=4,
+                           gibbs="multinomial"))
+    ref_mean = float(np.asarray(ref.flat_samples())[0, :, 0].mean())
+    assert abs(ref_mean - exact) < 0.02
+    batch = class_batch([ev], "cpu")
+    cfg = SamplerConfig(iters=800, burn_in=200, lag=4, chains=4)
+    consts = deep._event_consts(batch)
+    for res in (deep._multinomial_cuda(3, batch, cfg, consts, None, False),
+                deep._multinomial_plain(3, batch, cfg, consts)):
+        res = res.to_numpy()
+        mean = float(res.flat_samples()[0, :, 0].mean())
+        assert abs(mean - ref_mean) < 0.01, (mean, ref_mean)
+        assert abs(mean - exact) < 0.02, (mean, exact)
+        np.testing.assert_array_equal(res.final_n.sum(-1), 1_000_000.0)
+
+
+@pytest.mark.parametrize("change", [
+    dict(T=3), dict(T=64, lanes_per_block=2), dict(T=0),
+    dict(T=8, lanes_per_block=3), dict(lanes_per_block=0),
+    dict(T=4, lanes_per_block=64)])
+def test_multinomial_launcher_refuses_a_plan_it_cannot_lay_out(on_cpu,
+                                                               change):
+    cfg = SamplerConfig(**SMALL)
+    batch = multinomial_lane_batch(2, 2, 0, "cpu")
+    consts = deep._event_consts(batch)
+    bad = deep.multinomial_plan(3, 4, 2, 2)._replace(**change)
+    launches = deep.LAUNCHES["cuda"]
+    with pytest.raises(RuntimeError, match="multinomial kernel launch"):
+        deep._multinomial_cuda(0, batch, cfg, consts, None, True, plan=bad)
+    assert deep.LAUNCHES["cuda"] == launches
+
+
+@pytest.mark.parametrize("I,num_iso", [(2, 2), (16, 9)])
+def test_multinomial_launcher_refuses_a_launch_without_scratch(on_cpu, I,
+                                                               num_iso):
+    """The kernel keeps a thread's arrays in scratch at every width: a
+    launch without it is refused, not run."""
+    batch = multinomial_lane_batch(I, num_iso, 0, "cpu")
+    E, C, I = batch.weights.shape
+    out = [torch.empty(n) for n in (E * I, E, E * 2, E * 2 * I,
+                                    E * 2 * I)]
+    consts = deep._event_consts(batch)
+    rc = on_cpu.miso_multinomial(
+        batch.weights.data_ptr(), batch.log_read.data_ptr(),
+        batch.counts.data_ptr(), *[c.data_ptr() for c in consts], None,
+        *[t.data_ptr() for t in out], None, E, C, I, 2, 4, 0, 1, 1, 0, 0, 1,
+        1, 128, None)
+    assert rc != 0

@@ -207,8 +207,8 @@ def test_deep_marginal_event_runs_without_read_tiles(monkeypatch):
     assert abs(res["samples"][:, 0].mean()
                - exact_marginal_mean_2iso(ev)) < 0.03
     ev_r = simulated_event(*SE_GENE, [0.4, 0.6], 17000, 25, seed=3)
-    launches = deep.LAUNCHES["deep"]
+    launches = deep.LAUNCHES["plain"]
     res = tp.run_events([ev_r], RunConfig(read_len=25, iters=20, burn_in=0,
                                           lag=1, chains=2), device="cpu")[0]
-    assert deep.LAUNCHES["deep"] == launches + 1
+    assert deep.LAUNCHES["plain"] == launches + 1
     assert float(np.sum(res["final_n"])) == float(ev_r.counts.sum())

@@ -1,12 +1,13 @@
-"""Both kernels' launch plans and bounds: the plain Python around the CUDA
-sources (miso_tpu_torch/sampler/reassign_kernel.py, marginal_kernel.py),
-checked without a card."""
+"""The kernels' launch plans and bounds: the plain Python around the CUDA
+sources (miso_tpu_torch/sampler/reassign_kernel.py, marginal_kernel.py,
+deep.py), checked without a card."""
 import re
 import os
 
 import pytest
 
 import miso_tpu_torch
+from miso_tpu_torch.sampler import deep
 from miso_tpu_torch.sampler import marginal_kernel as mk
 from miso_tpu_torch.sampler import reassign_kernel as rk
 
@@ -330,3 +331,99 @@ def test_marginal_bound_does_not_depend_on_the_plan():
     assert round(b["bound_ms"], 2) == 0.32
     assert b["fp32_ops"] == 5001 * (6 * 2048 * 3 * 13 + 12288 * (32 + 24))
     assert "plan" not in mk.marginal_bound.__code__.co_varnames
+
+
+# ------------------------------------------ the multinomial kernel B3's plan
+@pytest.mark.parametrize("C", [1, 3, 4, 5, 128, 256])
+def test_a_multinomial_plan_exists_for_every_width_and_class_count(C):
+    """The plan reads the width only to refuse I < 2: the narrowest
+    width and a wide one stand for every other."""
+    for I in (2, 1024):
+        for E in (1, 3, 16, 64, 2048):
+            for K in (1, 2, 6):
+                plan = deep.multinomial_plan(E, C, I, K)
+                _m_well_formed(plan)
+                assert plan.threads <= deep.MAX_THREADS
+                assert plan in deep.all_multinomial_plans(E, C, I, K)
+                # no thread beyond the classes' power of two, none beyond
+                # the warps that fill the card, but one thread a lane
+                assert plan.T == 1 or (plan.T < 2 * C and E * K * plan.T
+                                       <= 32 * rk.FILL_WARPS)
+                wider = 2 * plan.T
+                assert wider > 32 or wider >= 2 * C or (
+                    E * K * wider > 32 * rk.FILL_WARPS)
+
+
+def test_multinomial_plan_of_the_deep_paths():
+    """The deep catalog's bucket (16 events of 4 classes, 6 chains), the
+    threshold's 64 events, a paired-end deep bucket of 256 classes."""
+    assert deep.multinomial_plan(16, 4, 2, 6).T == 4
+    assert deep.multinomial_plan(64, 4, 2, 6).T == 4
+    assert deep.multinomial_plan(16, 256, 2, 6).T == 32
+    assert deep.multinomial_plan(2048, 256, 2, 6).T == 4
+    assert deep.multinomial_plan(4, 1, 2, 6).T == 1
+    assert [p.T for p in deep.all_multinomial_plans(3, 5, 2, 2)] == list(
+        deep.LANE_THREADS)
+
+
+@pytest.mark.parametrize("E,C,I,K", [(0, 4, 2, 6), (8, 0, 2, 6),
+                                     (8, 4, 1, 6), (8, 4, 2, 0)])
+def test_multinomial_plan_rejects_what_the_kernel_does_not_take(E, C, I, K):
+    with pytest.raises(ValueError):
+        deep.multinomial_plan(E, C, I, K)
+    with pytest.raises(ValueError):
+        deep.all_multinomial_plans(E, C, I, K)
+
+
+def test_multinomial_plan_constants_equal_the_kernel_source():
+    with open(os.path.join(CSRC_DIR, "multinomial_kernel.cu")) as f:
+        src = f.read()
+
+    def const(name):
+        return int(re.search(r"constexpr int %s = (\d+)" % name,
+                             src).group(1))
+
+    assert const("kMaxThreads") == deep.MAX_THREADS
+    assert const("kArrays") == deep.SCRATCH_ARRAYS
+    # one instance, of runtime width, its arrays in scratch
+    assert "template <int" not in src
+    assert src.count("multinomial_kernel<<<") == 1
+    assert "* kArrays * I" in src
+    from miso_tpu_torch import kernels
+    assert kernels.SOURCE_FLAGS["multinomial_kernel.cu"] == ["-fmad=false"]
+
+
+def test_multinomial_bound_arithmetic():
+    E, C, I, K, iters, rec = 16, 4, 2, 6, 5000, 450
+    b = deep.multinomial_bound(E, C, I, K, iters, rec)
+    steps, lanes = iters + 1, E * K
+    assert b["bytes"] == 4 * (2 * E * C * I + E * C + 5 * E * I + 2 * E
+                              + E * rec * K * (I + 1) + lanes * (2 * I + 1))
+    draws = K * E * C * (I - 1)
+    assert b["int_ops"] == steps * (lanes * 2 + draws) * 40
+    assert b["fp32_ops"] == steps * (lanes * 20 * I + K * E * C * 6 * I
+                                     + draws * 20)
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(
+        1e3 * b["int_ops"] / 16.75e12)
+    assert 0.005 < b["bound_ms"] < 0.01
+    fewer = deep.multinomial_bound(E, C, I, K, iters, rec,
+                                   live_classes=E * 3)
+    assert fewer["int_ops"] == b["int_ops"] - steps * K * E * 40
+    assert fewer["bytes"] == b["bytes"]
+    # no steps: the bytes bound it
+    assert deep.multinomial_bound(2048, 256, 2, 1, 0, 0)["bound_by"] \
+        == "bytes"
+
+
+def test_multinomial_floor_is_a_chain_of_steps():
+    """The dependent-chain floor grows with the steps, the classes a
+    thread walks and the isoforms, and shrinks as a lane widens over
+    the classes: about 2 ms at the deep catalog's shape."""
+    base = deep.multinomial_floor(4, 2, 4, 5000)
+    assert 1.0 < base < 3.0
+    assert deep.multinomial_floor(4, 2, 4, 10001) == pytest.approx(
+        2 * base)
+    assert deep.multinomial_floor(4, 2, 1, 5000) > base
+    assert deep.multinomial_floor(4, 3, 4, 5000) > base
+    assert deep.multinomial_floor(256, 2, 32, 5000) > base
