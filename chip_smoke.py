@@ -18,9 +18,13 @@
     python3 chip_smoke.py mesh       # likewise: the 2,000-gene REASSIGN,
                                      # MARGINAL and convergent runs, then
                                      # the mesh phase alone
-    python3 chip_smoke.py multinomial  # likewise: the deep route's kernel
-                                       # B3 alone (its checks, the deep
-                                       # catalog's runs, its times)
+    python3 chip_smoke.py multinomial [DIR]  # likewise: the deep route's
+                                             # kernel B3 alone (its checks,
+                                             # the deep catalog's runs, its
+                                             # times and step breakdown),
+                                             # and its SASS into DIR
+                                             # (default: the build
+                                             # directory)
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, in parallel), holds each against its plain PyTorch
@@ -124,9 +128,9 @@ from miso_tpu_torch.sampler import reassign_kernel as rk  # noqa: E402
 from miso_tpu_torch.sampler.mcmc import (  # noqa: E402
     EventBatch, SamplerConfig, batch_from_numpy)
 from miso_tpu_torch.testing import (  # noqa: E402
-    BINOMIAL_REGIMES, PAIRED_GENE, binomial_batch, binomial_moments,
-    class_batch, deepened, exact_marginal_mean_2iso, indexed_catalog,
-    lane_test_batch, marginal_lane_batch, multinomial_lane_batch,
+    BINOMIAL_REGIMES, PAIRED_GENE, binomial_batch, binomial_chi2,
+    binomial_moments, class_batch, deepened, exact_marginal_mean_2iso,
+    indexed_catalog, lane_test_batch, marginal_lane_batch, multinomial_lane_batch,
     packed_events, pad_events, padded_batch, paired_event,
     simulate_catalog_bam, simulated_event, wide_event)
 
@@ -1469,6 +1473,9 @@ B3_POSTERIOR_TOL, EXACT_TOL = 0.01, 0.02
 # NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): the deep catalog's bucket
 # in its main-path run, and the 16,384-read threshold's 64 events
 EARLIER_DEEP_MS = {"catalog": 5153.4, "threshold": 5268.92}
+# B3 before its redesign for the H100 at the deep catalog's bucket (PR 8's
+# final form; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)
+EARLIER_B3_MS = 37.65
 
 
 def deep_catalog_batch():
@@ -1522,6 +1529,140 @@ def b3_plain(seed, batch, cfg, start=None, fixed=None):
     return out
 
 
+# B3's binomial draws against the exact pmf: equal bins of the
+# randomised probability integral transform (testing.binomial_chi2), and
+# the least p-value a regime may show
+B3_CHI2_BINS, B3_CHI2_P = 32, 1e-3
+# the step breakdown's sums and the latency probe's slots (the enums of
+# csrc/multinomial_kernel.cu's -DMISO_B3_CLOCKS build)
+B3_CLOCK_SLOTS = kernels.source_enum("ClockSlot")
+B3_LATENCY_SLOTS = kernels.source_enum("LatencySlot")
+
+
+# the packing check: the deep catalog's bucket tiled to 384 ... 12,288
+# lanes, in every plan (multinomial_plan packs lanes into warps past
+# LANE_WARPS = 660 lanes)
+B3_PACKING_TILES = (4, 6, 11, 16, 32, 128)
+
+
+def b3_tag(plan):
+    return "T=%d%s" % (plan.T, "" if plan.shared_bytes else " scratch")
+
+
+def b3_plans(E, C, I, K):
+    """Every plan, and the warp-per-lane plan with its lane arrays in
+    scratch."""
+    plans = deep.all_multinomial_plans(E, C, I, K)
+    return plans + [plans[-1]._replace(shared_bytes=0)]
+
+
+def b3_plan_times(batch, seed=3):
+    """B3 at stock settings in every plan of ``b3_plans``, ms by
+    plan."""
+    E, C, I = batch.weights.shape
+    consts = deep._event_consts(batch)
+    out = {}
+    for plan in b3_plans(E, C, I, STOCK.chains):
+        def run():
+            deep._multinomial_cuda(seed, batch, STOCK, consts, None, False,
+                                   plan=plan)
+        run()
+        out[b3_tag(plan)] = timed(run, reps=3)
+    return out
+
+
+def b3_packing_times(big, gpu):
+    """B3 at stock settings in every plan at B3_PACKING_TILES times the
+    deep catalog's bucket: {lanes: {plan: ms}}."""
+    out = {}
+    for n in B3_PACKING_TILES:
+        b = tiled(big, n)
+        E, C, I = b.weights.shape
+        out[E * STOCK.chains] = b3_plan_times(b)
+        print("B3 at %d lanes (the deep catalog's bucket x %d), ms by plan: "
+              "%s (multinomial_plan: %s)  [%s]"
+              % (E * STOCK.chains, n,
+                 {k: round(x, 2) for k, x in out[E * STOCK.chains].items()},
+                 b3_tag(deep.multinomial_plan(E, C, I, STOCK.chains)), gpu))
+    return out
+
+
+def b3_breakdown(label, batch, gpu, seed=3):
+    """One stock launch of the step-breakdown build (kernels.
+    load_b3_clocks, in the production build's place for that launch
+    only): clocks per step in each phase (each lane's first thread), the
+    random binomial draws per lane and step, and BTRS's tries, squeeze
+    hits and slow-path tries.  The stamps slow the launch; its time is
+    printed beside the phases."""
+    lib = kernels.load_b3_clocks()
+    sums = np.zeros(len(B3_CLOCK_SLOTS), np.uint64)
+    kernels.check(lib, lib.miso_multinomial_clocks(sums.ctypes.data),
+                  "clearing B3's step breakdown")
+    saved = kernels.load
+    kernels.load = lambda: lib
+    held = []
+    try:
+        ms = timed(lambda: held.append(b3(seed, batch, STOCK)), reps=1)
+    finally:
+        kernels.load = saved
+    kernels.check(lib, lib.miso_multinomial_clocks(sums.ctypes.data),
+                  "reading B3's step breakdown")
+    v = dict(zip(B3_CLOCK_SLOTS, sums.astype(np.float64)))
+    steps = v["kCntSteps"]
+    phases = {k[4:]: float(v[k] / steps) for k in B3_CLOCK_SLOTS
+              if k.startswith("kClk")}
+    btrs = max(v["kCntDraws"] - v["kCntInversion"], 1.0)
+    tries = max(v["kCntTries"], 1.0)
+    out = {"instrumented_ms": ms, "clocks_per_step": phases,
+           "step_clocks": sum(phases.values()),
+           "draws_per_step": v["kCntDraws"] / steps,
+           "inversion_share": v["kCntInversion"] / max(v["kCntDraws"], 1.0),
+           "tries_per_btrs_draw": v["kCntTries"] / btrs,
+           "squeeze_share": v["kCntSqueeze"] / btrs,
+           "slow_share": v["kCntSlow"] / tries,
+           "slow_per_draw": v["kCntSlow"] / btrs,
+           "rounds_per_btrs_draw": v["kCntRounds"] / btrs,
+           "accept_share": float(held[0].to_numpy().accepted.sum())
+           / steps}
+    # the SM clock the stamps imply: a lane's clocks over the launch's time
+    out["implied_mhz"] = (out["step_clocks"] * STOCK.iters
+                          / (ms * 1e-3) / 1e6)
+    E, C, I = batch.weights.shape
+    print("B3 step breakdown, %s (E=%d C=%d I=%d, plan %s; the "
+          "instrumented build, %.2f ms, implies %.0f MHz): clocks a step "
+          "%s = %.0f; per lane and step %.3f random draws (%.1f %% by "
+          "inversion), %.3f BTRS tries and %.3f rounds a draw, %.1f %% of "
+          "draws by the squeeze, %.3f slow tests a try; MH accepts %.1f %% "
+          "of steps  [%s]"
+          % (label, E, C, I, b3_tag(deep.multinomial_plan(E, C, I,
+                                                          STOCK.chains)),
+             ms, out["implied_mhz"],
+             {k: round(x, 1) for k, x in phases.items()},
+             out["step_clocks"], out["draws_per_step"],
+             100 * out["inversion_share"], out["tries_per_btrs_draw"],
+             out["rounds_per_btrs_draw"], 100 * out["squeeze_share"],
+             out["slow_share"], 100 * out["accept_share"], gpu))
+    return out
+
+
+def b3_latencies(gpu, reps=4096):
+    """The dependent latencies of a step's pieces (the probe of the
+    step-breakdown build), clocks per operation."""
+    lib = kernels.load_b3_clocks()
+    out = torch.zeros(len(B3_LATENCY_SLOTS) + 1, dtype=torch.float64,
+                      device=DEV)
+    chase = torch.tensor([float((i * 7 + 1) & 31) for i in range(32)],
+                         device=DEV)
+    kernels.check(lib, lib.miso_multinomial_latencies(
+        out.data_ptr(), reps, chase.data_ptr()), "B3's latency probe")
+    torch.cuda.synchronize()
+    lat = {k[4:]: round(x, 2) for k, x in zip(B3_LATENCY_SLOTS,
+                                              out.cpu().tolist())}
+    print("dependent latencies, clocks an operation (one warp, %d in a "
+          "chain): %s  [%s]" % (reps, lat, gpu))
+    return lat
+
+
 def multinomial_phase(gpu):
     """B3 against its plain version under fixed uniforms in every plan
     at every shape of B3_SHAPES, from AUTO and GIVEN starts (and at
@@ -1539,10 +1680,10 @@ def multinomial_phase(gpu):
         padding = (b.num_iso == 0).cpu().numpy()
         for start in (None, given_start(b, small.chains)):
             ref = b3_plain(0, b, small, start, rk.FIXED_U)
-            for plan in deep.all_multinomial_plans(E, C, I, small.chains):
+            for plan in b3_plans(E, C, I, small.chains):
                 err = max(err, compare(
-                    "%s E=%d C=%d I=%d T=%d %s" % (
-                        label, E, C, I, plan.T,
+                    "%s E=%d C=%d I=%d %s %s" % (
+                        label, E, C, I, b3_tag(plan),
                         "AUTO" if start is None else "GIVEN"),
                     b3(0, b, small, plan, start, True), ref, padding))
     big, evs = deep_catalog_batch()
@@ -1553,7 +1694,7 @@ def multinomial_phase(gpu):
                            b3_plain(0, big, STOCK, None, rk.FIXED_U)))
 
     cfg = SamplerConfig(**PHILOX)
-    plans = deep.all_multinomial_plans(E, C, I, cfg.chains)
+    plans = b3_plans(E, C, I, cfg.chains)
     first = b3(17, big, cfg, plans[0]).to_numpy()
     for plan in plans[1:]:
         got = b3(17, big, cfg, plan).to_numpy()
@@ -1561,10 +1702,10 @@ def multinomial_phase(gpu):
                 and np.array_equal(got.final_n, first.final_n)
                 and np.array_equal(got.accepted, first.accepted)
                 and np.abs(got.loglik - first.loglik).max() <= LL_ATOL):
-            raise AssertionError("B3's Philox chain differs at T=%d"
-                                 % plan.T)
-    print("B3 Philox chain, %d x %d: bit-equal in plans T=%s"
-          % (cfg.iters, cfg.chains, [p.T for p in plans]))
+            raise AssertionError("B3's Philox chain differs at %s"
+                                 % b3_tag(plan))
+    print("B3 Philox chain, %d x %d: bit-equal in plans %s"
+          % (cfg.iters, cfg.chains, [b3_tag(p) for p in plans]))
 
     bb = binomial_batch(4096, DEV)
     res = b3(5, bb, SamplerConfig(iters=0, burn_in=0, lag=1, chains=6))
@@ -1576,6 +1717,11 @@ def multinomial_phase(gpu):
                            and abs(v - 1.0) < 6 * np.sqrt(2.0 / n)
                            for m, v, n in moments):
         raise AssertionError("B3's binomial draws miss their moments")
+    chi2 = binomial_chi2(bb, res, B3_CHI2_BINS)
+    print("B3 binomial draws against the exact pmf, (chi2, p, draws) by "
+          "regime over %d bins: %s" % (B3_CHI2_BINS, chi2))
+    if not all(p > B3_CHI2_P for _, p, _ in chi2):
+        raise AssertionError("B3's binomial draws miss the exact pmf")
 
     t0 = time.time()
     ms = timed(lambda: deep.run_batch_multinomial(3, big, STOCK), reps=3)
@@ -1603,14 +1749,35 @@ def multinomial_phase(gpu):
                                live_classes=int((big.counts > 0).sum()))
     floor = deep.multinomial_floor(C, I, plan.T, STOCK.iters)
     print("B3 at the deep catalog's shape E=%d C=%d I=%d, %d x %d, T=%d: "
-          "kernel %.2f ms, plain %.2f ms (the deep route before B3, "
-          "PERF.md, not timed here: %.1f ms); bound %.4f ms (%s), "
-          "dependent-chain floor %.2f ms (an estimate, not measured)  [%s]"
+          "kernel %.2f ms, plain %.2f ms (PERF.md, not timed here: B3 "
+          "before its redesign %.2f ms, the deep route before B3 %.1f ms); "
+          "bound %.4f ms (%s), dependent-chain floor %.2f ms (an estimate, "
+          "not measured)  [%s]"
           % (E, C, I, STOCK.iters, STOCK.chains, plan.T, ms, plain_ms,
-             EARLIER_DEEP_MS["catalog"], b["bound_ms"], b["bound_by"],
-             floor, gpu))
+             EARLIER_B3_MS, EARLIER_DEEP_MS["catalog"], b["bound_ms"],
+             b["bound_by"], floor, gpu))
+    t0 = time.time()
+    plans_ms = b3_plan_times(big)
+    print("B3 at the deep catalog's shape in every plan, ms: %s (the plan's "
+          "own: %s)  [%s]" % ({k: round(x, 2) for k, x in plans_ms.items()},
+                              b3_tag(plan), gpu))
+    breakdown = b3_breakdown("deep catalog", big, gpu)
+    floor = deep.multinomial_floor(
+        C, I, plan.T, STOCK.iters, accept_share=breakdown["accept_share"],
+        slow_per_draw=breakdown["slow_per_draw"])
+    print("B3's dependent-chain floor at the deep catalog's shape, at this "
+          "run's accepts and slow tests: %.2f ms (multinomial_floor: an "
+          "estimate from the probe's latencies, not timed); B3 %.2f ms = "
+          "%.1fx it  [%s]" % (floor, ms, ms / floor, gpu))
+    latencies = b3_latencies(gpu)
+    packing = b3_packing_times(big, gpu)
+    print("B3's plans, breakdown and latencies: %.1fs (the step-breakdown "
+          "build: nvcc %s s)" % (time.time() - t0,
+                                 kernels.CLOCKS_BUILD_INFO["seconds"]))
     return {"max_err": err, "ms": ms, "plain_ms": plain_ms, "bound": b,
             "floor_ms": floor, "plan_T": plan.T, "moments": moments,
+            "chi2": chi2, "plans_ms": plans_ms, "breakdown": breakdown,
+            "latencies": latencies, "packing_ms": packing,
             "posterior": {"b3_vs_plain": d_plain, "b3_vs_exact": d_exact}}
 
 
@@ -1703,6 +1870,10 @@ def deep_times(thr, thr_ms, gpu):
           % (THRESH_E, int(thr[0].counts.sum()), STOCK.iters, STOCK.chains,
              THRESH_R, b1_ms, b3_ms, EARLIER_DEEP_MS["threshold"], gpu))
     return {"stock_ms_e64": e64_ms,
+            "breakdown_e64": b3_breakdown("64 events of 10^6 reads", deep_b,
+                                          gpu, seed=5),
+            "breakdown_threshold": b3_breakdown("threshold", thr_b, gpu,
+                                                seed=5),
             "threshold": {"events": THRESH_E,
                           "reads": int(thr[0].counts.sum()),
                           "b1_ms_r16384": b1_ms, "b3_ms": b3_ms}}
@@ -1790,6 +1961,10 @@ def main(only=None, sass_dir=None) -> int:
 
     if only == "multinomial":
         # B3 alone: its checks, the deep catalog's runs and its times
+        sass = os.path.join(sass_dir or kernels.BUILD_DIR,
+                            "multinomial_kernel.sass")
+        print("SASS of B3: %s instructions, written to %s"
+              % (dump_sass("multinomial_kernel", sass), sass))
         million_read_event()
         multinomial_phase(gpu)
         thr = threshold_events()
@@ -2092,8 +2267,8 @@ def main(only=None, sass_dir=None) -> int:
                          EARLIER_DEEP_MS["catalog"],
                          EARLIER_DEEP_MS["threshold"]))
     print("B3's dependent-chain floor at the deep catalog's bucket "
-          "(multinomial_floor: an estimate from data-sheet latencies, not "
-          "measured): %.2f ms" % b3_k["floor_ms"])
+          "(multinomial_floor: an estimate from measured latencies, not "
+          "timed): %.2f ms" % b3_k["floor_ms"])
     print("chip_smoke: %.1fs in all" % (time.time() - T_START))
     print(json.dumps({"kernels": [{
         "name": "reassign", "route": "cuda",
@@ -2149,7 +2324,12 @@ def main(only=None, sass_dir=None) -> int:
         "deep_catalog_wall_s": lc_d.wall,
         "stock_ms_e64": b3_t["stock_ms_e64"],
         "threshold": b3_t["threshold"],
-        "binomial_moments": b3_k["moments"],
+        "binomial_moments": b3_k["moments"], "binomial_chi2": b3_k["chi2"],
+        "plans_ms": b3_k["plans_ms"],
+        "step_clocks": {"deep_catalog": b3_k["breakdown"]["step_clocks"],
+                        "e64": b3_t["breakdown_e64"]["step_clocks"],
+                        "threshold":
+                        b3_t["breakdown_threshold"]["step_clocks"]},
         "posterior": b3_k["posterior"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2160,7 +2340,9 @@ def main(only=None, sass_dir=None) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] not in ([], ["marginal"], ["hosts"], ["mesh"],
                              ["multinomial"]) \
-            or len(sys.argv) > (3 if sys.argv[1:2] == ["marginal"] else 2):
+            or len(sys.argv) > (3 if sys.argv[1:2] in (["marginal"],
+                                                       ["multinomial"])
+                                else 2):
         sys.exit("usage: python3 chip_smoke.py [marginal [SASS_DIR] | hosts "
-                 "| mesh | multinomial]")
+                 "| mesh | multinomial [SASS_DIR]]")
     sys.exit(main(*sys.argv[1:]))

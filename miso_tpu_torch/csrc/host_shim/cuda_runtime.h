@@ -3,19 +3,24 @@
 // the *.cu files one directory up with a C++20 host compiler against this
 // header (after turning each `kernel<<<grid, block, shared, stream>>>(args)`
 // into `shim_launch(kernel, grid, block, shared, args)`) and holds the
-// result to the plain PyTorch versions.  A block's threads run as std::threads,
-// block after block.  A warp is 32 consecutive threads; a shuffle goes
-// through a buffer and a barrier of the warp, so every thread of a warp
-// must take every shuffle and vote (the kernels' own rule), and
-// `__syncthreads` is a barrier of the block.  Nothing here measures
-// anything.
+// result to the plain PyTorch versions.  A block's threads run as
+// fibers (ucontext) on the launching thread, block after block: a thread
+// runs until it waits at a barrier, then the next one runs.  A warp is
+// 32 consecutive threads; a shuffle goes through a buffer and a barrier
+// of the warp, so every thread of a warp must take every shuffle and vote
+// (the kernels' own rule), and `__syncthreads` is a barrier of the block.
+// Nothing here measures anything.
 #pragma once
-#include <barrier>
+#include <ucontext.h>
+
+#include <atomic>
+#include <chrono>
+#include <functional>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <memory>
-#include <thread>
 #include <vector>
 
 #define __global__
@@ -24,6 +29,11 @@
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __align__(n) alignas(n)
+
+// Everything below has internal linkage: each kernel source is its own
+// translation unit of one library, and a function merged across them
+// would read another unit's thread registers.
+namespace {
 
 struct uint4 { unsigned x, y, z, w; };
 struct double2 { double x, y; };
@@ -45,14 +55,48 @@ inline float __fmaf_rn(float a, float b, float c) {
 }
 template <class T> inline T __ldg(const T* p) { return *p; }
 
+// The fibers of the block that runs on this thread, and the one running.
+struct ShimFiber {
+  ucontext_t ctx;
+  std::unique_ptr<char[]> stack;
+  unsigned tid = 0;
+  bool done = false;
+};
+static thread_local ucontext_t shim_scheduler;
+static thread_local std::vector<ShimFiber>* shim_fibers;
+static thread_local int shim_running;
+static thread_local std::function<void()>* shim_body;
+
+// back to the scheduler, which runs the block's next thread
+inline void shim_yield() {
+  swapcontext(&(*shim_fibers)[shim_running].ctx, &shim_scheduler);
+}
+
+// A barrier of `expected` threads: each arrival waits, yielding, until
+// the last one opens the barrier's next generation.
+struct ShimBarrier {
+  int expected, count = 0;
+  unsigned generation = 0;
+  explicit ShimBarrier(int expected_) : expected(expected_) {}
+  void arrive_and_wait() {
+    const unsigned g = generation;
+    if (++count == expected) {
+      count = 0;
+      ++generation;
+      return;
+    }
+    while (generation == g) shim_yield();
+  }
+};
+
 struct ShimWarp {
-  std::barrier<> bar;
+  ShimBarrier bar;
   int threads;
   double buf[32];  // a float or a double of each thread
   explicit ShimWarp(int threads_) : bar(threads_), threads(threads_) {}
 };
 static thread_local ShimWarp* shim_warp;
-static thread_local std::barrier<>* shim_block;
+static thread_local ShimBarrier* shim_block;
 static thread_local float* shim_shared;
 
 template <class V>
@@ -81,34 +125,76 @@ inline int __any_sync(unsigned, int pred) {
   shim_warp->bar.arrive_and_wait();
   return any;
 }
+inline unsigned __ballot_sync(unsigned, int pred) {
+  shim_warp->buf[threadIdx.x & 31u] = pred ? 1.0 : 0.0;
+  shim_warp->bar.arrive_and_wait();
+  unsigned bits = 0;
+  for (int t = 0; t < shim_warp->threads; ++t)
+    bits |= (shim_warp->buf[t] != 0.0 ? 1u : 0u) << t;
+  shim_warp->bar.arrive_and_wait();
+  return bits;
+}
+inline int __ffs(unsigned v) { return v ? __builtin_ctz(v) + 1 : 0; }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  shim_warp->bar.arrive_and_wait();
+}
 inline void __syncthreads() { shim_block->arrive_and_wait(); }
 // the block's dynamic shared memory (`extern __shared__ ... name[];`)
 inline float* shim_dynamic_shared() { return shim_shared; }
 
+inline void shim_fiber_main() {
+  (*shim_body)();
+  (*shim_fibers)[shim_running].done = true;
+  // returns to the scheduler through uc_link
+}
+
+// Runs `threads` fibers of each block in turn until all return; a
+// fiber's thread registers (threadIdx, its warp) are set as it resumes.
 template <class Kernel, class... Args>
 void shim_launch(Kernel kernel, unsigned blocks, unsigned threads,
                  size_t shared_bytes, Args... args) {
+  constexpr size_t kStack = 1 << 20;  // the kernels' local arrays
+  std::vector<ShimFiber> fibers(threads);
+  for (auto& f : fibers) f.stack.reset(new char[kStack]);
+  std::function<void()> body = [&] { kernel(args...); };
   for (unsigned b = 0; b < blocks; ++b) {
     std::vector<float4> shared(shared_bytes / sizeof(float4) + 1);
-    std::barrier<> block_barrier(threads);
+    ShimBarrier block_barrier((int)threads);
     std::vector<std::unique_ptr<ShimWarp>> warps;
     for (unsigned first = 0; first < threads; first += 32)
       warps.emplace_back(new ShimWarp(
           (int)(threads - first < 32 ? threads - first : 32)));
-    std::vector<std::thread> pool;
-    for (unsigned t = 0; t < threads; ++t)
-      pool.emplace_back([&, t] {
+    blockIdx.x = b;
+    blockDim.x = threads;
+    gridDim.x = blocks;
+    shim_fibers = &fibers;
+    shim_body = &body;
+    shim_block = &block_barrier;
+    shim_shared = reinterpret_cast<float*>(shared.data());
+    for (unsigned t = 0; t < threads; ++t) {
+      ShimFiber& f = fibers[t];
+      f.tid = t;
+      f.done = false;
+      getcontext(&f.ctx);
+      f.ctx.uc_stack.ss_sp = f.stack.get();
+      f.ctx.uc_stack.ss_size = kStack;
+      f.ctx.uc_link = &shim_scheduler;
+      makecontext(&f.ctx, shim_fiber_main, 0);
+    }
+    for (bool live = true; live;) {
+      live = false;
+      for (unsigned t = 0; t < threads; ++t) {
+        if (fibers[t].done) continue;
+        live = true;
+        shim_running = (int)t;
         threadIdx.x = t;
-        blockIdx.x = b;
-        blockDim.x = threads;
-        gridDim.x = blocks;
         shim_warp = warps[t / 32].get();
-        shim_block = &block_barrier;
-        shim_shared = reinterpret_cast<float*>(shared.data());
-        kernel(args...);
-      });
-    for (auto& th : pool) th.join();
+        swapcontext(&shim_scheduler, &fibers[t].ctx);
+      }
+    }
   }
+  shim_fibers = nullptr;
+  shim_body = nullptr;
 }
 
 typedef int cudaError_t;
@@ -121,3 +207,25 @@ inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t code) {
   return code == 0 ? "no error" : "invalid argument";
 }
+
+// the step breakdown's build (-DMISO_B3_CLOCKS): its stamps, sums and
+// device array
+inline long long clock64() {
+  return std::chrono::steady_clock::now().time_since_epoch().count();
+}
+template <class V>
+inline V atomicAdd(V* at, V v) {
+  return std::atomic_ref<V>(*at).fetch_add(v);
+}
+template <class S>
+cudaError_t cudaMemcpyFromSymbol(void* dst, const S& symbol, size_t bytes) {
+  std::memcpy(dst, &symbol, bytes);
+  return 0;
+}
+template <class S>
+cudaError_t cudaMemcpyToSymbol(S& symbol, const void* src, size_t bytes) {
+  std::memcpy(&symbol, src, bytes);
+  return 0;
+}
+
+}  // namespace

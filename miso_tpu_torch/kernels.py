@@ -9,12 +9,18 @@ library is loaded with ``ctypes``: pointers and the stream go as
 ``c_int``/``c_uint``.  Each C entry point returns ``cudaGetLastError()``
 after its launch.  Nothing here includes PyTorch's headers, so a build
 takes seconds, not minutes.
+
+``load_b3_clocks`` builds a second library, apart: the multinomial kernel
+alone with ``-DMISO_B3_CLOCKS``, which adds clock64() stamps between the
+phases of a step and a latency probe (see the source's ``ClockSlot``).
+Only ``chip_smoke.py`` asks for it; ``load`` never builds it.
 """
 from __future__ import annotations
 
 import ctypes
 import glob
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,6 +31,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libmiso_kernels.so")
+CLOCKS_LIB_PATH = os.path.join(BUILD_DIR, "libmiso_b3_clocks.so")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v"]
@@ -36,7 +43,9 @@ SOURCE_FLAGS = {"marginal_kernel.cu": ["-fmad=false"],
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
-# what the last build printed (ptxas registers / spills) and took
+_CLOCKS_LIB: Optional[ctypes.CDLL] = None
+# what the last build of LIB_PATH printed (ptxas registers / spills) and
+# took
 BUILD_INFO = {"seconds": None, "log": ""}
 
 
@@ -70,34 +79,39 @@ def _run_all(cmds):
     return "".join(logs)
 
 
-def build() -> str:
-    """Compile csrc/*.cu into LIB_PATH unless it is newer than every
-    source.  Returns the library path; raises if nvcc fails."""
-    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def build(lib_path: str = LIB_PATH, sources=None, defines=(),
+          info=BUILD_INFO) -> str:
+    """Compile ``sources`` (default csrc/*.cu), each with ``defines`` as
+    -D flags, into ``lib_path`` unless it is newer than every source.
+    Returns the library path; raises if nvcc fails."""
+    if sources is None:
+        sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     if not sources:
         raise RuntimeError("no CUDA sources under %s" % CSRC)
     newest = max(os.path.getmtime(s) for s in sources)
-    if os.path.isfile(LIB_PATH) and os.path.getmtime(LIB_PATH) >= newest:
-        return LIB_PATH
+    if os.path.isfile(lib_path) and os.path.getmtime(lib_path) >= newest:
+        return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc, tag = _nvcc(), os.getpid()
-    objs = [os.path.join(BUILD_DIR, "%s.%d.o" % (
+    nvcc = _nvcc()
+    tag = "%s.%d" % (os.path.basename(lib_path), os.getpid())
+    objs = [os.path.join(BUILD_DIR, "%s.%s.o" % (
         os.path.basename(s)[:-3], tag)) for s in sources]
-    tmp = "%s.%d.tmp" % (LIB_PATH, tag)
+    tmp = "%s.%d.tmp" % (lib_path, os.getpid())
+    flags = ["-D" + d for d in defines]
     t0 = time.time()
     try:
         log = _run_all([
             [nvcc] + NVCC_FLAGS + SOURCE_FLAGS.get(os.path.basename(s), [])
-            + ["-c", s, "-o", o] for s, o in zip(sources, objs)])
+            + flags + ["-c", s, "-o", o] for s, o in zip(sources, objs)])
         log += _run_all([[nvcc] + ARCH + ["-shared"] + objs + ["-o", tmp]])
     finally:
         for o in objs:
             if os.path.exists(o):
                 os.remove(o)
-        BUILD_INFO["seconds"] = time.time() - t0
-    BUILD_INFO["log"] = log
-    os.replace(tmp, LIB_PATH)
-    return LIB_PATH
+        info["seconds"] = time.time() - t0
+    info["log"] = log
+    os.replace(tmp, lib_path)
+    return lib_path
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -120,11 +134,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.miso_multinomial.restype = ci
     lib.miso_multinomial.argtypes = (
         [vp] * 16          # 10 inputs (start may be null), 5 outputs,
-                           # scratch (null at the register widths)
+                           # scratch (null: the lane arrays in shared)
         + [ci] * 8         # E, C, I, K, iters, burn_in, lag, rrec
         + [cu, cu]         # seed words
         + [ci] * 3         # fixed_u, T, lanes per block
-        + [vp])            # stream
+        + [ctypes.c_longlong, vp])   # shared bytes, stream
+    lib.miso_multinomial_lane_floats.restype = ctypes.c_longlong
+    lib.miso_multinomial_lane_floats.argtypes = [ci] * 3
     lib.miso_cuda_error_string.restype = ctypes.c_char_p
     lib.miso_cuda_error_string.argtypes = [ci]
     return lib
@@ -137,6 +153,53 @@ def load() -> ctypes.CDLL:
         if _LIB is None:
             _LIB = bind(ctypes.CDLL(build()))
         return _LIB
+
+
+CLOCKS_BUILD_INFO = {"seconds": None, "log": ""}
+
+
+def bind_b3_clocks(lib: ctypes.CDLL, errors: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the step-breakdown library's C interface on ``lib``: the
+    multinomial kernel's entry point, the reader of its sums and the
+    latency probe; ``errors`` lends the error strings."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.miso_multinomial.restype = ci
+    lib.miso_multinomial.argtypes = errors.miso_multinomial.argtypes
+    lib.miso_multinomial_clocks.restype = ci
+    lib.miso_multinomial_clocks.argtypes = [vp]
+    if hasattr(lib, "miso_multinomial_latencies"):
+        lib.miso_multinomial_latencies.restype = ci
+        lib.miso_multinomial_latencies.argtypes = [vp, ci, vp]
+    lib.miso_cuda_error_string = errors.miso_cuda_error_string
+    return lib
+
+
+def load_b3_clocks() -> ctypes.CDLL:
+    """The multinomial kernel built with its step-breakdown stamps
+    (-DMISO_B3_CLOCKS) into CLOCKS_LIB_PATH, a library of its own, at
+    first use; never the production library.  For ``chip_smoke.py``'s
+    breakdown only."""
+    global _CLOCKS_LIB
+    errors = load()
+    path = build(CLOCKS_LIB_PATH,
+                 [os.path.join(CSRC, "multinomial_kernel.cu")],
+                 ["MISO_B3_CLOCKS"], CLOCKS_BUILD_INFO)
+    with _LOCK:
+        if _CLOCKS_LIB is None:
+            _CLOCKS_LIB = bind_b3_clocks(ctypes.CDLL(path), errors)
+        return _CLOCKS_LIB
+
+
+def source_enum(enum: str, source: str = "multinomial_kernel.cu"):
+    """The names of C enum ``enum`` in csrc/``source``, in order, the
+    last (its count) left out: the slots of the step-breakdown arrays."""
+    with open(os.path.join(CSRC, source)) as f:
+        body = re.search(r"enum %s \{(.*?)\};" % enum, f.read(),
+                         re.S).group(1)
+    names = [re.sub(r"//.*", "", ln).strip().rstrip(",")
+             for ln in body.splitlines()]
+    names = [n for part in names for n in part.split(",") if n.strip()]
+    return [n.strip() for n in names][:-1]
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

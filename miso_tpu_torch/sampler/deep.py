@@ -19,8 +19,10 @@ per-iteration work are O(classes), whatever the depth.
 What bounds the kernel on an H100: the dependent chain of a step, not
 bytes or operations (``multinomial_bound`` and ``multinomial_floor``).
 Its design (see the .cu header) is fixed per launch by
-``multinomial_plan``: a lane is a group of T threads inside a warp, which
-split the event's classes; the I-wide MH arithmetic they repeat.
+``multinomial_plan``: a lane is a group of T threads inside a one-warp
+block (a warp of its own while the launch is small), in class slots that
+try a binomial draw's calls at once; the I-wide MH arithmetic they
+repeat, on the lane's arrays in shared memory.
 
 ``fixed_uniform=0.4999`` replaces every uniform, as in the other
 kernels; each binomial of the chain is then floor(n * ratio + u) clipped
@@ -40,8 +42,8 @@ import torch
 from miso_tpu_torch.sampler.mcmc import (EventBatch, SamplerConfig,
                                          SamplerResult)
 from miso_tpu_torch.sampler.model import gibbs_reassign
-from miso_tpu_torch.sampler.reassign_kernel import (FILL_WARPS, FIXED_U,
-                                                    PHILOX_INT_OPS, _checked,
+from miso_tpu_torch.sampler.reassign_kernel import (FIXED_U, PHILOX_INT_OPS,
+                                                    SMS, _checked,
                                                     _event_consts, _mh_chain,
                                                     _result, _seq_sum,
                                                     _uniforms, bound)
@@ -49,19 +51,51 @@ from miso_tpu_torch.sampler.reassign_kernel import (FILL_WARPS, FIXED_U,
 LAUNCHES = {"cuda": 0, "plain": 0}
 
 # The launch plan's constants; csrc/multinomial_kernel.cu holds the same
-# block size (kMaxThreads) and per-isoform array count (kArrays): the
-# kernel takes any width I at run time, a thread's arrays in a scratch
-# buffer of SCRATCH_ARRAYS * I floats a thread that the wrapper allocates
+# block size (kMaxThreads, one warp), per-isoform array count of a lane
+# (kLaneArrays), cap of the randoms drawn ahead (kAheadFloats) and
+# dynamic shared memory of a block (kMaxShared).  The kernel takes any
+# width I at run time; a lane's arrays lie in shared memory, or, where
+# they exceed it, in a scratch buffer that the wrapper allocates.
 LANE_THREADS = (1, 2, 4, 8, 16, 32)
-MAX_THREADS = 128
-SCRATCH_ARRAYS = 13
+MAX_THREADS = 32
+LANE_ARRAYS = 11
+AHEAD_FLOATS = 4096
+MAX_SHARED = 232448
+# The warps a launch keeps at most, five an SM.  A lane's chain is
+# latency-bound; past this count the warps' interleaving on an SM slows
+# each more than lanes sharing a warp do (the deep catalog's bucket tiled
+# to 384 ... 12,288 lanes, every plan timed on an H100: PERF.md).
+LANE_WARPS = 5 * SMS
 
 
 class MultinomialPlan(NamedTuple):
     """How one launch of the kernel is laid out."""
     T: int                 # threads of a lane (one (event, chain) chain)
     lanes_per_block: int
-    threads: int           # lanes_per_block * T, a multiple of 32
+    threads: int           # lanes_per_block * T: one warp
+    shared_bytes: int      # the lanes' arrays; 0: in scratch
+
+
+def class_slots(C: int, T: int) -> int:
+    """G, the class slots of a lane: the power of two at or above C, at
+    most T.  A slot's T / G threads try a draw's calls at once."""
+    G = 1
+    while G < C and G < T:
+        G *= 2
+    return G
+
+
+def ahead_steps(I: int, T: int) -> int:
+    """D, the steps whose randoms a lane draws at once: T, fewer where
+    D * (I + 1) floats would pass AHEAD_FLOATS."""
+    return max(1, min(T, AHEAD_FLOATS // (I + 1)))
+
+
+def lane_floats(C: int, I: int, T: int) -> int:
+    """A lane's arrays in floats: LANE_ARRAYS of I, a ratio array per
+    class slot, and the normals and log u_accept of D steps."""
+    return ((LANE_ARRAYS + class_slots(C, T)) * I
+            + ahead_steps(I, T) * (I + 1))
 
 
 def _check_shape(E: int, C: int, I: int, K: int) -> None:
@@ -71,32 +105,39 @@ def _check_shape(E: int, C: int, I: int, K: int) -> None:
                          % (E, C, I, K))
 
 
-def _layout(T: int) -> MultinomialPlan:
-    return MultinomialPlan(T=T, lanes_per_block=MAX_THREADS // T,
-                           threads=MAX_THREADS)
+def _layout(C: int, I: int, T: int) -> MultinomialPlan:
+    lanes_per_block = MAX_THREADS // T
+    need = 4 * lanes_per_block * lane_floats(C, I, T)
+    return MultinomialPlan(T=T, lanes_per_block=lanes_per_block,
+                           threads=MAX_THREADS,
+                           shared_bytes=need if need <= MAX_SHARED else 0)
 
 
 def multinomial_plan(E: int, C: int, I: int, K: int) -> MultinomialPlan:
     """The kernel's launch for E events of (C, I) class weights and K
-    chains.  A lane's threads split the event's classes, so a step's
-    Gibbs draws shorten as T grows up to C; past C a thread has no class.
-    T is the widest lane that has a class for every thread (up to the
-    power of two at or above C) and keeps the launch within
-    ``FILL_WARPS`` warps (E * K * T / 32), one thread where none does."""
+    chains.  A lane is one chain of 5,001 dependent steps, and a warp
+    pays for the longest rejection loop among its lanes' draws, so a lane
+    takes a warp of its own (T = 32: class slots for up to 32 classes,
+    and the threads a slot has beyond its class try a draw's calls at
+    once) up to ``LANE_WARPS`` lanes (660).  Past that, lanes share warps
+    (T halves, down to 1) so that the launch keeps at most LANE_WARPS
+    warps: an SM that interleaves more latency-bound warps slows each
+    more than the lanes that share a warp do."""
     _check_shape(E, C, I, K)
     T = 1
     for wider in LANE_THREADS[1:]:
-        if wider < 2 * C and E * K * wider <= 32 * FILL_WARPS:
+        if E * K * wider <= 32 * LANE_WARPS:
             T = wider
-    return _layout(T)
+    return _layout(C, I, T)
 
 
 def all_multinomial_plans(E: int, C: int, I: int, K: int):
     """Every plan the kernel can be launched with at this shape, one per
     lane width: the card's checks run them all
-    (``_multinomial_cuda(..., plan=...)``)."""
+    (``_multinomial_cuda(..., plan=...)``).  ``plan._replace(
+    shared_bytes=0)`` puts a plan's lane arrays in scratch."""
     _check_shape(E, C, I, K)
-    return [_layout(T) for T in LANE_THREADS]
+    return [_layout(C, I, T) for T in LANE_THREADS]
 
 
 # Per step and lane, beside the Philox calls: the proposal and MH
@@ -133,33 +174,54 @@ def multinomial_bound(E: int, C: int, I: int, K: int, iters: int,
     return bound(in_bytes + out_bytes, fp_ops, int_ops)
 
 
-# Latencies behind ``multinomial_floor`` (clocks; the data sheet's, not
-# measured): a dependent FP32 or integer instruction 4, a special
-# function (exp, log, sin, cos, sqrt) about 18, a shuffle about 24, a
-# double-precision instruction 8; one Philox call is 10 rounds of a
-# multiply-high and a three-way xor, about 10 clocks a round.
-DEP_CLOCKS, MUFU_CLOCKS, SHUFFLE_CLOCKS, FP64_CLOCKS = 4, 18, 24, 8
-PHILOX_CLOCKS = 100
-SM_CLOCK_HZ = 1.98e9   # the H100's SM clock under load, by nvidia-smi
+# Latencies behind ``multinomial_floor``, in clocks.  Measured on an
+# H100 (NVIDIA H100 80GB HBM3, 700 W) by the latency probe of the
+# step-breakdown build (``chip_smoke.py``'s ``b3_latencies``: one warp,
+# 4,096 operations in a dependent chain): a double log 302, a double
+# division 82, a double square root 102, a double FMA 16, an f32 logf 91,
+# expf 46 and division 84, a shuffle 30 (a vote is taken as one).
+# Assumed (the data sheet's): a dependent FP32 or integer instruction 4.
+LOG64_CLOCKS, DIV64_CLOCKS, SQRT64_CLOCKS, FP64_CLOCKS = 302, 82, 102, 16
+LOGF_CLOCKS, EXPF_CLOCKS, DIVF_CLOCKS, SHUFFLE_CLOCKS = 91, 46, 84, 30
+DEP_CLOCKS = 4
+# The SM clock a launch runs at: what the breakdown's stamps imply
+# (a lane's clocks over the launch's time, 1,570-1,700 MHz at the deep
+# shapes), not nvidia-smi's maximum of 1,980.
+SM_CLOCK_HZ = 1.65e9
+# The share of steps whose MH accepts (the ratios and BTRS's set-up are
+# then worked out anew) and the slow tests a BTRS draw runs, at the deep
+# catalog's bucket (the breakdown: 36.3 % and 0.27 x 1.14 tries).
+ACCEPT_SHARE, SLOW_PER_DRAW = 0.363, 0.31
 
 
-def multinomial_floor(C: int, I: int, T: int, iters: int):
+def multinomial_floor(C: int, I: int, T: int, iters: int,
+                      accept_share: float = ACCEPT_SHARE,
+                      slow_per_draw: float = SLOW_PER_DRAW):
     """The dependent-chain floor of one launch in milliseconds: the
-    latency of the longest chain of a step, times iters + 1 steps, at
-    ``SM_CLOCK_HZ``.  A step's chain: a Philox call and Box-Muller
-    (log, sqrt, cos), the proposal's exp, the two logs and the division of
-    the state's statistics, about 3 I dependent sums and 10 instructions
-    of MH ratio; then each of the ceil(C / T) classes of a thread in turn:
-    its I products and sum, a division, the reverse sum, and I - 1
-    binomials of a Philox call and BTRS's quick acceptance (about 12
-    double instructions); then a butterfly of log2(T) shuffle levels.
-    An estimate for what a timed launch is read against, not a bound."""
-    mh = (PHILOX_CLOCKS + 3 * MUFU_CLOCKS + MUFU_CLOCKS + 2 * MUFU_CLOCKS
-          + DEP_CLOCKS * (3 * I + 10))
-    per_class = (DEP_CLOCKS * (3 * I) + 2 * MUFU_CLOCKS
-                 + (I - 1) * (PHILOX_CLOCKS + 12 * FP64_CLOCKS))
-    levels = max(T.bit_length() - 1, 0)
-    step = mh + -(-C // T) * per_class + levels * SHUFFLE_CLOCKS
+    latency of the chain of a step that depends on the chain's state,
+    every value in registers, times iters + 1 steps at ``SM_CLOCK_HZ``.
+    Randoms are not on it: they depend on (lane, step) alone and can be
+    drawn ahead (the kernel draws the normals so; a try's Philox call it
+    still makes on the chain).  A step: the proposal's exp, the two logs
+    of its statistics (side by side) and about 3 I + 10 dependent FP32
+    instructions of the MH ratio; then, in each of the ceil(C / G) rounds
+    of class slots (G = ``class_slots``), on an accept the class's ratios
+    (two f32 divisions and I sums) and BTRS's set-up (a square root and
+    a division), and I - 1 draws of one try each (the proposal's double
+    division and 8 double instructions, two votes and a shuffle) with
+    ``slow_per_draw`` slow tests (a double log and two divisions); and
+    the counts' butterfly over the slots.  An estimate built from the
+    measured latencies above, read against a timed launch; not a
+    bound."""
+    G = class_slots(C, T)
+    mh = (EXPF_CLOCKS + LOGF_CLOCKS + DEP_CLOCKS * (3 * I + 10))
+    fresh = accept_share * (2 * DIVF_CLOCKS + DEP_CLOCKS * I
+                            + SQRT64_CLOCKS + DIV64_CLOCKS)
+    draw = (DIV64_CLOCKS + 8 * FP64_CLOCKS + 3 * SHUFFLE_CLOCKS
+            + slow_per_draw * (LOG64_CLOCKS + 2 * DIV64_CLOCKS))
+    levels = G.bit_length() - 1   # the butterfly over the slots
+    step = (mh + -(-C // G) * (fresh + (I - 1) * draw)
+            + (I - 1) * levels * SHUFFLE_CLOCKS)
     return 1e3 * (iters + 1) * step / SM_CLOCK_HZ
 
 
@@ -252,10 +314,14 @@ def _multinomial_cuda(seed, batch, cfg, consts, start_psi, fixed,
     acc = torch.empty((E, K), dtype=torch.int32, device=dev)
     final_n = torch.empty((E, K, I), dtype=f32, device=dev)
     final_psi = torch.empty((E, K, I), dtype=f32, device=dev)
-    # a thread's per-isoform arrays, for every thread the launch starts
-    blocks = -(-E * K // max(plan.lanes_per_block, 1))
-    scratch = torch.empty(blocks * plan.lanes_per_block * plan.T
-                          * SCRATCH_ARRAYS * I, dtype=f32, device=dev)
+    # the lanes' arrays where the plan gives them no shared memory, for
+    # every lane the launch starts
+    scratch = None
+    if plan.shared_bytes == 0:
+        blocks = -(-E * K // max(plan.lanes_per_block, 1))
+        scratch = torch.empty(
+            blocks * plan.lanes_per_block * lane_floats(C, I, plan.T),
+            dtype=f32, device=dev)
     lib = kernels.load()
     seed = int(seed) & ((1 << 64) - 1)
     with torch.cuda.device(dev):
@@ -265,10 +331,10 @@ def _multinomial_cuda(seed, batch, cfg, consts, start_psi, fixed,
             None if start is None else start.data_ptr(),
             psi_out.data_ptr(), ll_out.data_ptr(), acc.data_ptr(),
             final_n.data_ptr(), final_psi.data_ptr(),
-            scratch.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             E, C, I, K, cfg.iters, cfg.burn_in, cfg.lag, RREC,
             seed & 0xFFFFFFFF, seed >> 32, int(bool(fixed)),
-            plan.T, plan.lanes_per_block, stream)
+            plan.T, plan.lanes_per_block, plan.shared_bytes, stream)
     kernels.check(lib, rc, "multinomial kernel launch (%s)" % (plan,))
     LAUNCHES["cuda"] += 1
     return _result(psi_out, ll_out, acc, final_n, final_psi, cfg)

@@ -22,6 +22,22 @@ from miso_tpu_torch.io.gff import GFFRecord, write_gff
 from miso_tpu_torch.io.sam import AlignedRead, write_bam
 from miso_tpu_torch.sampler.mcmc import EventBatch, batch_from_numpy
 
+# torch's intra-op threads in a test process.  The tests run in several
+# worker processes at once, and in each the OpenMP pool would spread every
+# small op of the plain versions over every core: six workers on eight
+# cores took one whole-CLI test from 6 s alone to 600 s.
+TEST_THREADS = 1
+
+
+def cap_test_threads() -> Dict[str, str]:
+    """Cap torch's intra-op threads in this process at ``TEST_THREADS``.
+    Returns the environment entries that cap a child interpreter alike:
+    ``dict(os.environ, **cap_test_threads())``."""
+    import torch
+
+    torch.set_num_threads(TEST_THREADS)
+    return {"OMP_NUM_THREADS": str(TEST_THREADS)}
+
 
 def make_se_catalog(
     num_events: int,
@@ -396,3 +412,35 @@ def binomial_moments(batch, result):
         out.append((float(zr.mean()), float(zr.var()), zr.size))
     sums = np.all(res.final_n.sum(-1) == n)
     return out, bool(sums)
+
+
+def binomial_chi2(batch, result, bins, seed=0):
+    """Per regime of ``binomial_batch``: (chi2, p-value, draws) of the
+    draws n0 against the exact Bin(n, p0) pmf, p0 from each lane's final
+    psi.  Each draw k becomes its randomised probability integral
+    transform u = F(k - 1) + V (F(k) - F(k - 1)), V uniform from
+    ``seed``, which the exact pmf makes uniform on [0, 1) whatever n
+    and p0; the draws' counts in ``bins`` equal bins of u then follow a
+    chi2 of bins - 1 degrees of freedom."""
+    from scipy.stats import binom, chi2
+
+    res = result.to_numpy()
+    reads = batch.counts.cpu().numpy()[:, 0].astype(np.float64)
+    w1 = batch.weights.cpu().numpy()[:, 0, 1].astype(np.float64)
+    psi = res.final_psi.astype(np.float64)
+    p0 = psi[..., 0] / (psi[..., 0] + w1[:, None] * psi[..., 1])
+    n = np.broadcast_to(reads[:, None], p0.shape)
+    k = res.final_n[..., 0].astype(np.float64)
+    lo = binom.cdf(k - 1.0, n, p0)
+    u = lo + np.random.default_rng(seed).random(k.shape) * (
+        binom.cdf(k, n, p0) - lo)
+    copies = len(reads) // len(BINOMIAL_REGIMES)
+    out = []
+    for r in range(len(BINOMIAL_REGIMES)):
+        ur = u[r * copies:(r + 1) * copies].ravel()
+        counts = np.bincount(np.minimum((ur * bins).astype(int), bins - 1),
+                             minlength=bins)
+        expected = ur.size / bins
+        stat = float(((counts - expected) ** 2 / expected).sum())
+        out.append((stat, float(chi2.sf(stat, bins - 1)), ur.size))
+    return out

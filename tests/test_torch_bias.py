@@ -19,6 +19,9 @@ the collapsed means are unbiased, which the last assertion holds.
 """
 import numpy as np
 import pytest
+from miso_tpu_torch.testing import cap_test_threads
+
+cap_test_threads()
 
 N = 100
 READS = 300

@@ -14,6 +14,9 @@ import os
 
 import numpy as np
 import pytest
+from miso_tpu_torch.testing import cap_test_threads
+
+cap_test_threads()
 
 FAST_SETTINGS = """\
 [sampler]

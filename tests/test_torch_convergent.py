@@ -20,10 +20,12 @@ from miso_tpu_torch._host import RunConfig, _write_events_batch
 from miso_tpu_torch.sampler import convergent as cv
 from miso_tpu_torch.sampler.mcmc import EventBatch, SamplerConfig
 from miso_tpu_torch.stats.rhat import batch_rhat, extended_iterations
-from miso_tpu_torch.testing import simulated_event
+from miso_tpu_torch.testing import cap_test_threads, simulated_event
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from exact_posterior import exact_posterior_mean_2iso  # noqa: E402
+
+cap_test_threads()
 
 SE_GENE = ([100, 50, 100], [[1, 2, 3], [1, 3]])
 CPU = (torch.device("cpu"),)   # a mesh of one entry

@@ -15,10 +15,12 @@ from miso_tpu_torch.sampler import deep
 from miso_tpu_torch.sampler import marginal_kernel as mk
 from miso_tpu_torch.sampler import reassign_kernel as rk
 from miso_tpu_torch.sampler.mcmc import SamplerConfig
-from miso_tpu_torch.testing import (PAIRED_GENE, lane_test_batch,
-                                    marginal_lane_batch,
+from miso_tpu_torch.testing import (PAIRED_GENE, cap_test_threads,
+                                    lane_test_batch, marginal_lane_batch,
                                     multinomial_lane_batch, padded_batch,
                                     paired_event)
+
+cap_test_threads()
 
 pytestmark = pytest.mark.cuda
 

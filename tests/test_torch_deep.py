@@ -17,8 +17,10 @@ from miso_tpu_torch.sampler import deep
 from miso_tpu_torch.sampler import reassign_kernel as rk
 from miso_tpu_torch.sampler.mcmc import SamplerConfig, batch_from_numpy
 from miso_tpu_torch.sampler.model import gibbs_reassign
-from miso_tpu_torch.testing import (class_batch, deepened, simulated_event,
-                                    wide_event)
+from miso_tpu_torch.testing import (cap_test_threads, class_batch, deepened,
+                                    simulated_event, wide_event)
+
+cap_test_threads()
 
 
 def _deep_event(scale=500, n_base=2000):

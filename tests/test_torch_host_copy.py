@@ -9,9 +9,11 @@ copies are run beside the originals on seeded numpy inputs: the results
 must be equal to the last bit.
 """
 import dataclasses
+import fcntl
 import inspect
 import os
 import re
+import tempfile
 
 import numpy as np
 import pytest
@@ -36,6 +38,28 @@ from miso_tpu_torch.core.gene import make_gene as tmake_gene
 from miso_tpu_torch.core.simulate import simulate_reads as tsimulate
 from miso_tpu_torch.io import miso_file as tmiso
 from miso_tpu_torch.stats import intervals as tint
+from miso_tpu_torch.testing import cap_test_threads
+
+cap_test_threads()
+
+
+def _load_native_libraries():
+    """Both packages' native host libraries, built by one test process at
+    a time.  Every worker imports this file before it runs a test, and two
+    workers that build one library at once race on its temporary file:
+    the loser's load returns None for the rest of its run, and its tests
+    take the numpy routes."""
+    with open(os.path.join(tempfile.gettempdir(),
+                           "miso_native_build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            jnative.load()
+            tnative.load()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+_load_native_libraries()
 
 JAX_PKG = os.path.dirname(os.path.abspath(miso_tpu.__file__))
 PORT_PKG = os.path.dirname(os.path.abspath(miso_tpu_torch.__file__))

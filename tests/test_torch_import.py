@@ -14,6 +14,10 @@ import sys
 import pytest
 
 import miso_tpu_torch
+from miso_tpu_torch.testing import cap_test_threads
+
+# a child interpreter takes the cap too
+CHILD_THREADS = cap_test_threads()
 
 PKG = os.path.dirname(os.path.abspath(miso_tpu_torch.__file__))
 ROOT = os.path.dirname(PKG)
@@ -42,7 +46,7 @@ def _free_port() -> int:
 
 
 def _fresh(code, timeout=600):
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, **CHILD_THREADS)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=timeout)
     assert out.returncode == 0, out.stderr[-4000:]

@@ -4,12 +4,13 @@ There is no ``nvcc`` and no card where these tests run, so a wrong index
 or a wrong shuffle in ``miso_tpu_torch/csrc/*.cu`` would show only on the
 card.  Here each source is compiled by the host's C++20 compiler against
 ``miso_tpu_torch/csrc/host_shim/cuda_runtime.h`` (a block's threads as
-``std::thread``s, warp shuffles through a barrier), loaded in the
+fibers, warp shuffles and votes through a barrier), loaded in the
 kernels' place, and the port's own wrappers launch it on CPU tensors: the
 REASSIGN and MARGINAL kernels in every layout of their launch plans,
 against their plain versions under fixed uniforms with the card's
 tolerances, and one Philox chain whatever the layout; the multinomial kernel B3 of the deep
-route likewise in every plan, and its binomial draws' moments.
+route likewise in every plan, its binomial draws' moments and chi2, and
+its step-breakdown build.
 What ``nvcc`` makes of the source, and every time, stay the card's to
 show.
 """
@@ -31,11 +32,15 @@ from miso_tpu_torch.sampler import deep
 from miso_tpu_torch.sampler import marginal_kernel as mk
 from miso_tpu_torch.sampler import reassign_kernel as rk
 from miso_tpu_torch.sampler.mcmc import SamplerConfig
-from miso_tpu_torch.testing import (PAIRED_GENE, binomial_batch,
-                                    binomial_moments, class_batch, deepened,
-                                    lane_test_batch, marginal_lane_batch,
+from miso_tpu_torch.testing import (BINOMIAL_REGIMES, PAIRED_GENE,
+                                    binomial_batch, binomial_chi2,
+                                    binomial_moments, cap_test_threads,
+                                    class_batch, deepened, lane_test_batch,
+                                    marginal_lane_batch,
                                     multinomial_lane_batch, padded_batch,
                                     paired_event, simulated_event)
+
+cap_test_threads()
 
 SHIM = os.path.join(kernels.CSRC, "host_shim")
 # the tolerances of tests/test_torch_cuda.py
@@ -58,32 +63,46 @@ def host_source(text):
                   r"float* \1 = shim_dynamic_shared();", text)
 
 
-@pytest.fixture(scope="module")
-def shim_library(tmp_path_factory):
+def host_build(work, names, defines=()):
+    """csrc/``names`` built for the CPU against the shim into one
+    library under ``work``; skips where no C++20 compiler is."""
     cxx = shutil.which(os.environ.get("CXX", "g++")) or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a C++ compiler")
-    work = tmp_path_factory.mktemp("kernel_source")
     probe = work / "probe.cpp"
     probe.write_text("#include <barrier>\nstd::barrier<> b(1);\n")
     flags = ["-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-             "-ffp-contract=off", "-I", SHIM]
+             "-ffp-contract=off", "-I", SHIM] + ["-D" + d for d in defines]
     if subprocess.run([cxx] + flags + [str(probe), "-o",
                                        str(work / "probe.so")],
                       capture_output=True).returncode != 0:
         pytest.skip("needs a C++20 compiler with <barrier>")
     sources = []
-    for name in sorted(os.listdir(kernels.CSRC)):
-        if name.endswith(".cu"):
-            with open(os.path.join(kernels.CSRC, name)) as f:
-                out = work / (name[:-3] + ".cpp")
-                out.write_text(host_source(f.read()))
-                sources.append(str(out))
+    for name in names:
+        with open(os.path.join(kernels.CSRC, name)) as f:
+            out = work / (name[:-3] + ".cpp")
+            out.write_text(host_source(f.read()))
+            sources.append(str(out))
     lib_path = str(work / "libmiso_kernels_host.so")
     built = subprocess.run([cxx] + flags + sources + ["-o", lib_path],
                            capture_output=True, text=True)
     assert built.returncode == 0, built.stderr[-4000:]
-    return kernels.bind(ctypes.CDLL(lib_path))
+    return ctypes.CDLL(lib_path)
+
+
+@pytest.fixture(scope="module")
+def shim_library(tmp_path_factory):
+    return kernels.bind(host_build(
+        tmp_path_factory.mktemp("kernel_source"),
+        sorted(n for n in os.listdir(kernels.CSRC) if n.endswith(".cu"))))
+
+
+@pytest.fixture(scope="module")
+def clocks_library(shim_library, tmp_path_factory):
+    """B3's step-breakdown build (-DMISO_B3_CLOCKS) for the CPU."""
+    return kernels.bind_b3_clocks(host_build(
+        tmp_path_factory.mktemp("b3_clocks"), ["multinomial_kernel.cu"],
+        ["MISO_B3_CLOCKS"]), shim_library)
 
 
 @pytest.fixture
@@ -309,43 +328,6 @@ def test_marginal_source_draws_one_philox_chain_in_every_plan(on_cpu):
     assert not np.array_equal(other.psi_samples, first.psi_samples)
 
 
-def test_multinomial_source_and_plain_agree_with_the_jax_deep_route(
-        on_cpu):
-    """The million-read event of tests/test_deep_events.py through the
-    JAX package's deep route (``mcmc.run_batch(..., gibbs=
-    "multinomial")``), B3's source and its plain version, each seeded,
-    at that test's schedule: each posterior mean within 0.01 of the JAX
-    route's (the posterior's sd is about 0.001 at 10^6 reads) and within
-    0.02 of the grid-exact mean, and every chain's final_n sums to the
-    reads."""
-    import jax
-    from exact_posterior import exact_posterior_mean_2iso
-    from miso_tpu.core.events import pad_events
-    from miso_tpu.sampler import mcmc
-
-    ev = deepened(simulated_event([100, 50, 100], [[1, 2, 3], [1, 3]],
-                                  [0.3, 0.7], 2000, 25, seed=4), 500)
-    exact = exact_posterior_mean_2iso(ev)
-    pad = pad_events([ev], per_read=False)
-    ref = mcmc.run_batch(
-        jax.random.PRNGKey(0),
-        mcmc.EventBatch(**{k: np.asarray(v) for k, v in pad.items()}),
-        mcmc.SamplerConfig(iters=800, burn_in=200, lag=4, chains=4,
-                           gibbs="multinomial"))
-    ref_mean = float(np.asarray(ref.flat_samples())[0, :, 0].mean())
-    assert abs(ref_mean - exact) < 0.02
-    batch = class_batch([ev], "cpu")
-    cfg = SamplerConfig(iters=800, burn_in=200, lag=4, chains=4)
-    consts = deep._event_consts(batch)
-    for res in (deep._multinomial_cuda(3, batch, cfg, consts, None, False),
-                deep._multinomial_plain(3, batch, cfg, consts)):
-        res = res.to_numpy()
-        mean = float(res.flat_samples()[0, :, 0].mean())
-        assert abs(mean - ref_mean) < 0.01, (mean, ref_mean)
-        assert abs(mean - exact) < 0.02, (mean, exact)
-        np.testing.assert_array_equal(res.final_n.sum(-1), 1_000_000.0)
-
-
 @pytest.mark.parametrize("change", [
     dict(T=3), dict(T=64, lanes_per_block=2), dict(T=0),
     dict(T=8, lanes_per_block=3), dict(lanes_per_block=0),
@@ -363,24 +345,31 @@ def test_marginal_launcher_refuses_a_plan_it_cannot_lay_out(on_cpu, change):
 
 # ------------------------------------------------ the multinomial kernel B3
 # every lane width by width and class count (I = 2, 3; C = 4 one class a
-# thread at T = 4, C = 5 no lane width divides it; I = 16 and 128, narrow
-# lanes only at 128), each with a padding event, counts of 3,000-6,000
-# reads, non-zero read scores, from AUTO and from a GIVEN start
-B3_PLANS = [(I, num_iso, C, plan.T)
+# slot from T = 4 on, C = 5 no lane width divides it; I = 16 and 128,
+# narrow lanes only at 128), each with a padding event, counts of
+# 3,000-6,000 reads, non-zero read scores, from AUTO and from a GIVEN
+# start; the lane arrays in shared memory, and in scratch ("scratch":
+# forced at I = 16, and I = 3,700, past the block's shared memory)
+B3_PLANS = [(I, num_iso, C, plan.T, "shared")
             for I, num_iso, C in ((2, 2, 4), (3, 3, 5), (16, 9, 6),
                                   (128, 70, 4))
             for plan in deep.all_multinomial_plans(3, C, I, 2)
-            if I <= 16 or plan.T <= 4]
+            if I <= 16 or plan.T <= 4] + [
+    (16, 9, 6, 32, "scratch"), (16, 9, 6, 2, "scratch"),
+    (3700, 5, 3, 32, "scratch")]
 
 
-@pytest.mark.parametrize("I,num_iso,C,T", B3_PLANS)
+@pytest.mark.parametrize("I,num_iso,C,T,arrays", B3_PLANS)
 def test_multinomial_source_matches_plain_in_every_plan(on_cpu, I, num_iso,
-                                                        C, T):
+                                                        C, T, arrays):
     cfg = SamplerConfig(**SMALL)
     batch = multinomial_lane_batch(I, num_iso, I, "cpu", C=C, scale=100.0)
     consts = deep._event_consts(batch)
     plan = next(p for p in deep.all_multinomial_plans(3, C, I, 2)
                 if p.T == T)
+    if arrays == "scratch" and I <= 16:
+        plan = plan._replace(shared_bytes=0)
+    assert (plan.shared_bytes > 0) == (arrays == "shared")
     given = torch.cat([_start(num_iso, 2, 2, I), torch.zeros((1, 2, I))])
     for start in (None, given):
         ref = deep._multinomial_plain(0, batch, cfg, consts, start,
@@ -416,8 +405,13 @@ def test_multinomial_source_draws_one_philox_chain_in_every_plan(on_cpu):
     consts = deep._event_consts(batch)
     plans = deep.all_multinomial_plans(E, C, I, cfg.chains)
     assert [p.T for p in plans] == list(deep.LANE_THREADS)
+    # a warp a lane (T = 32: 8 class slots of 4 threads that try a draw's
+    # calls at once), lanes packed into warps (T < 32; T <= 8: one thread
+    # a slot, its calls in turn), the lane arrays in shared memory and in
+    # scratch
+    scratch = [p._replace(shared_bytes=0) for p in plans if p.T in (1, 32)]
     first = None
-    for plan in plans:
+    for plan in plans + scratch:
         got = deep._multinomial_cuda(17, batch, cfg, consts, None, False,
                                      plan=plan).to_numpy()
         if first is None:
@@ -436,14 +430,24 @@ def test_multinomial_source_draws_one_philox_chain_in_every_plan(on_cpu):
     assert not np.array_equal(other.final_n, first.final_n)
 
 
-def test_multinomial_source_draws_binomials_of_the_right_moments(on_cpu):
-    """Each class's draw at a lane's psi: the standardised draws of 256
-    lanes have mean 0 and variance 1 within 5 and 6 standard errors, at
-    n p below 10 (inversion) and above (BTRS), p below and above 1/2."""
+@pytest.mark.parametrize("check", ["moments", "chi2"])
+def test_multinomial_source_draws_binomials_of_the_right_moments(on_cpu,
+                                                                 check):
+    """Each class's draw at a lane's psi, at n p below 10 (inversion) and
+    above (BTRS), p below and above 1/2: the standardised draws of 256
+    lanes have mean 0 and variance 1 within 5 and 6 standard errors;
+    against the exact pmf, their randomised probability integral
+    transforms in 8 equal bins give a chi2 of p-value above 1e-3
+    (chip_smoke.py runs both at the card's sample size)."""
     batch = binomial_batch(64, "cpu")
     cfg = SamplerConfig(iters=0, burn_in=0, lag=1, chains=4)
     res = deep._multinomial_cuda(5, batch, cfg, deep._event_consts(batch),
                                  None, False)
+    if check == "chi2":
+        chi2 = binomial_chi2(batch, res, 8)
+        assert [n for _, _, n in chi2] == [256] * len(BINOMIAL_REGIMES)
+        assert all(p > 1e-3 for _, p, _ in chi2), chi2
+        return
     moments, sums = binomial_moments(batch, res)
     assert sums
     for mean, var, lanes in moments:
@@ -524,16 +528,57 @@ def test_multinomial_launcher_refuses_a_plan_it_cannot_lay_out(on_cpu,
 @pytest.mark.parametrize("I,num_iso", [(2, 2), (16, 9)])
 def test_multinomial_launcher_refuses_a_launch_without_scratch(on_cpu, I,
                                                                num_iso):
-    """The kernel keeps a thread's arrays in scratch at every width: a
-    launch without it is refused, not run."""
+    """The lane arrays lie in shared memory or in scratch: a launch with
+    neither (no scratch and less shared memory than the lanes take) is
+    refused, not run; the source's size of a lane's arrays is
+    deep.lane_floats's."""
     batch = multinomial_lane_batch(I, num_iso, 0, "cpu")
     E, C, I = batch.weights.shape
     out = [torch.empty(n) for n in (E * I, E, E * 2, E * 2 * I,
                                     E * 2 * I)]
     consts = deep._event_consts(batch)
-    rc = on_cpu.miso_multinomial(
-        batch.weights.data_ptr(), batch.log_read.data_ptr(),
-        batch.counts.data_ptr(), *[c.data_ptr() for c in consts], None,
-        *[t.data_ptr() for t in out], None, E, C, I, 2, 4, 0, 1, 1, 0, 0, 1,
-        1, 128, None)
-    assert rc != 0
+    plan = deep.multinomial_plan(E, C, I, 2)
+    for T in deep.LANE_THREADS:
+        assert on_cpu.miso_multinomial_lane_floats(C, I, T) == \
+            deep.lane_floats(C, I, T)
+    for shared in (0, plan.shared_bytes - 4):
+        rc = on_cpu.miso_multinomial(
+            batch.weights.data_ptr(), batch.log_read.data_ptr(),
+            batch.counts.data_ptr(), *[c.data_ptr() for c in consts], None,
+            *[t.data_ptr() for t in out], None, E, C, I, 2, 4, 0, 1, 1, 0,
+            0, 1, plan.T, plan.lanes_per_block, shared, None)
+        assert rc != 0
+
+
+def test_multinomial_step_breakdown_build_draws_the_same_chain(
+        on_cpu, clocks_library, monkeypatch):
+    """The step-breakdown build (-DMISO_B3_CLOCKS) changes no draw: its
+    chain is the production build's, bit for bit; its sums count every
+    step of every real lane, a round of tries and a try or more for every
+    BTRS draw, at most one squeeze hit a draw, and stamps in every
+    phase."""
+    batch = multinomial_lane_batch(3, 3, 5, "cpu", C=5, scale=50.0)
+    E, C, I = batch.weights.shape
+    cfg = SamplerConfig(iters=61, burn_in=10, lag=5, chains=3)
+    consts = deep._event_consts(batch)
+    want = deep._multinomial_cuda(17, batch, cfg, consts, None, False)
+    slots = kernels.source_enum("ClockSlot")
+    sums = np.zeros(len(slots), np.uint64)
+    assert clocks_library.miso_multinomial_clocks(sums.ctypes.data) == 0
+    monkeypatch.setattr(kernels, "load", lambda: clocks_library)
+    got = deep._multinomial_cuda(17, batch, cfg, consts, None, False)
+    _assert_same_chain(got, want)
+    np.testing.assert_array_equal(got.final_n.numpy(), want.final_n.numpy())
+    assert clocks_library.miso_multinomial_clocks(sums.ctypes.data) == 0
+    v = dict(zip(slots, sums.tolist()))
+    assert v["kCntSteps"] == E * cfg.chains * cfg.iters
+    btrs = v["kCntDraws"] - v["kCntInversion"]
+    assert btrs > 0 and v["kCntInversion"] >= 0
+    assert v["kCntTries"] >= btrs and v["kCntRounds"] >= btrs
+    assert 0 < v["kCntSqueeze"] < btrs and v["kCntSlow"] > 0
+    for name in ("kClkRandoms", "kClkMH", "kClkProbs", "kClkDraws",
+                 "kClkButterfly"):
+        assert v[name] > 0, name
+    # the read clears them
+    assert clocks_library.miso_multinomial_clocks(sums.ctypes.data) == 0
+    assert not sums.any()

@@ -25,8 +25,10 @@ from miso_tpu_torch._host import RunConfig
 from miso_tpu_torch.sampler import deep
 from miso_tpu_torch.sampler import marginal_kernel as mk
 from miso_tpu_torch.sampler.mcmc import SamplerConfig, batch_from_numpy
-from miso_tpu_torch.testing import (exact_marginal_mean_2iso,
+from miso_tpu_torch.testing import (cap_test_threads, exact_marginal_mean_2iso,
                                     marginal_lane_batch, simulated_event)
+
+cap_test_threads()
 
 # Tolerances of tests/test_pallas_interpret.py: f32 chains that follow
 # the same path differ only by rounding.

@@ -37,6 +37,9 @@ from miso_tpu_torch.sampler import marginal_kernel as mk
 from miso_tpu_torch.sampler import reassign_kernel as rk
 from miso_tpu_torch.sampler.mcmc import (SamplerConfig, SamplerResult,
                                          batch_from_numpy)
+from miso_tpu_torch.testing import cap_test_threads
+
+cap_test_threads()
 
 # f32 chains that follow the same path differ only by rounding
 # (tests/test_torch_reassign.py::_assert_same_chain)

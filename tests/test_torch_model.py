@@ -17,6 +17,9 @@ from miso_tpu.sampler import model as jm
 from miso_tpu_torch.sampler import model as tm
 from miso_tpu_torch.sampler import reassign_kernel as rk
 from miso_tpu_torch.sampler.mcmc import EventBatch
+from miso_tpu_torch.testing import cap_test_threads
+
+cap_test_threads()
 
 E, R, C = 6, 24, 5
 RTOL = ATOL = 1e-5

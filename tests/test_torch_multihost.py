@@ -24,7 +24,10 @@ import miso_tpu_torch.pipeline as tp
 from miso_tpu.parallel import distributed as jdist
 from miso_tpu_torch._host import RunConfig
 from miso_tpu_torch.parallel import distributed as tdist
-from miso_tpu_torch.testing import simulated_event
+from miso_tpu_torch.testing import cap_test_threads, simulated_event
+
+# a child interpreter takes the cap too
+CHILD_THREADS = cap_test_threads()
 
 N_EVENTS = 8
 READ_LEN = 36
@@ -61,7 +64,7 @@ def catalog(tmp_path_factory):
 
 
 def _run_cli(args):
-    env = dict(os.environ)
+    env = dict(os.environ, **CHILD_THREADS)
     env.setdefault("PYTHONPATH", os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     return subprocess.Popen(

@@ -20,11 +20,13 @@ from miso_tpu.core.events import pad_events
 from miso_tpu.sampler import mcmc as jmcmc
 from miso_tpu_torch.sampler import reassign_kernel as rk
 from miso_tpu_torch.sampler.mcmc import SamplerConfig, batch_from_numpy
-from miso_tpu_torch.testing import PAIRED_GENE, paired_event
+from miso_tpu_torch.testing import PAIRED_GENE, cap_test_threads, paired_event
 from test_pallas_interpret import _sim_event
 from test_torch_pipeline import (MEAN_TOL, N_EVENTS, _check_truth,
                                  _header, _means, _miso_files, _run_both,
                                  _summary)
+
+cap_test_threads()
 
 # tests/test_pallas_interpret.py's tolerances: f32 against the f64
 # replica of the same chain

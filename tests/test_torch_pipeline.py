@@ -26,6 +26,9 @@ import miso_tpu_torch.quantize as tz
 from miso_tpu.core.events import compile_single_end
 from miso_tpu.core.gene import make_gene
 from miso_tpu.core.simulate import simulate_reads
+from miso_tpu_torch.testing import cap_test_threads
+
+cap_test_threads()
 
 FAST_SETTINGS = """\
 [data]

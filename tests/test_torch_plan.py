@@ -10,6 +10,9 @@ import miso_tpu_torch
 from miso_tpu_torch.sampler import deep
 from miso_tpu_torch.sampler import marginal_kernel as mk
 from miso_tpu_torch.sampler import reassign_kernel as rk
+from miso_tpu_torch.testing import cap_test_threads
+
+cap_test_threads()
 
 CSRC_DIR = os.path.join(
     os.path.dirname(os.path.abspath(miso_tpu_torch.__file__)), "csrc")
@@ -336,34 +339,63 @@ def test_marginal_bound_does_not_depend_on_the_plan():
 # ------------------------------------------ the multinomial kernel B3's plan
 @pytest.mark.parametrize("C", [1, 3, 4, 5, 128, 256])
 def test_a_multinomial_plan_exists_for_every_width_and_class_count(C):
-    """The plan reads the width only to refuse I < 2: the narrowest
-    width and a wide one stand for every other."""
+    """The lane width reads E * K alone; the width sizes the lanes'
+    arrays: the narrowest width and a wide one stand for every other."""
     for I in (2, 1024):
-        for E in (1, 3, 16, 64, 2048):
+        for E in (1, 3, 16, 64, 2048, 16384):
             for K in (1, 2, 6):
                 plan = deep.multinomial_plan(E, C, I, K)
-                _m_well_formed(plan)
-                assert plan.threads <= deep.MAX_THREADS
+                assert plan.T in deep.LANE_THREADS
+                # a block is one warp
+                assert plan.threads == plan.lanes_per_block * plan.T == 32
+                assert plan.threads == deep.MAX_THREADS
                 assert plan in deep.all_multinomial_plans(E, C, I, K)
-                # no thread beyond the classes' power of two, none beyond
-                # the warps that fill the card, but one thread a lane
-                assert plan.T == 1 or (plan.T < 2 * C and E * K * plan.T
-                                       <= 32 * rk.FILL_WARPS)
+                # a warp a lane while the launch keeps a warp a scheduler
+                # at most, but one thread a lane
+                assert plan.T == 1 or E * K * plan.T <= 32 * deep.LANE_WARPS
                 wider = 2 * plan.T
-                assert wider > 32 or wider >= 2 * C or (
-                    E * K * wider > 32 * rk.FILL_WARPS)
+                assert wider > 32 or E * K * wider > 32 * deep.LANE_WARPS
+                # the lanes' arrays in shared memory where they fit
+                need = 4 * plan.lanes_per_block * deep.lane_floats(
+                    C, I, plan.T)
+                assert plan.shared_bytes == (need if need <= deep.MAX_SHARED
+                                             else 0)
 
 
-def test_multinomial_plan_of_the_deep_paths():
-    """The deep catalog's bucket (16 events of 4 classes, 6 chains), the
-    threshold's 64 events, a paired-end deep bucket of 256 classes."""
-    assert deep.multinomial_plan(16, 4, 2, 6).T == 4
-    assert deep.multinomial_plan(64, 4, 2, 6).T == 4
-    assert deep.multinomial_plan(16, 256, 2, 6).T == 32
-    assert deep.multinomial_plan(2048, 256, 2, 6).T == 4
-    assert deep.multinomial_plan(4, 1, 2, 6).T == 1
-    assert [p.T for p in deep.all_multinomial_plans(3, 5, 2, 2)] == list(
+@pytest.mark.parametrize("E,C,T,G,S", [
+    (16, 4, 32, 4, 8),       # the deep catalog's bucket: 96 lanes
+    (64, 4, 32, 4, 8),       # 64 events (threshold, 10^6 reads): 384
+    (16, 256, 32, 32, 1),    # a paired-end deep bucket of 256 classes
+    (4, 1, 32, 1, 32),       # one class: a slot of 32 tries
+    (110, 4, 32, 4, 8),      # 660 lanes: the last warp-per-lane launch
+    (111, 4, 16, 4, 4),      # 666 lanes: two a warp
+    (256, 4, 8, 4, 2),       # 1,536 lanes: four a warp
+    (2048, 256, 1, 1, 1)])   # 12,288 lanes: 32 a warp
+def test_multinomial_plan_of_the_deep_paths(E, C, T, G, S):
+    """A warp per lane up to LANE_WARPS lanes (6 chains), lanes packed
+    into warps past it; a lane's T threads form G class slots of S
+    threads that try a draw's calls at once."""
+    plan = deep.multinomial_plan(E, C, 2, 6)
+    assert (plan.T, plan.lanes_per_block) == (T, 32 // T)
+    assert deep.class_slots(C, plan.T) == G and plan.T // G == S
+    assert plan.shared_bytes == 4 * plan.lanes_per_block * (
+        (deep.LANE_ARRAYS + G) * 2 + min(T, deep.AHEAD_FLOATS // 3) * 3)
+    assert [p.T for p in deep.all_multinomial_plans(E, C, 2, 6)] == list(
         deep.LANE_THREADS)
+
+
+@pytest.mark.parametrize("C,I,T,shared", [
+    (4, 2, 32, True), (256, 1024, 32, True), (4, 3600, 32, True),
+    (4, 3700, 32, False), (256, 1300, 32, False), (1, 60000, 1, False)])
+def test_multinomial_lane_arrays_leave_shared_memory_only_past_it(C, I, T,
+                                                                  shared):
+    """The widths whose lane arrays pass the block's shared memory take
+    them from scratch (shared_bytes 0): from about 3,630 isoforms at 4
+    classes, 1,260 at 32 classes or more."""
+    plan = next(p for p in deep.all_multinomial_plans(1, C, I, 1)
+                if p.T == T)
+    assert (plan.shared_bytes > 0) == shared
+    assert deep.ahead_steps(I, T) == max(1, min(T, 4096 // (I + 1)))
 
 
 @pytest.mark.parametrize("E,C,I,K", [(0, 4, 2, 6), (8, 0, 2, 6),
@@ -384,11 +416,17 @@ def test_multinomial_plan_constants_equal_the_kernel_source():
                              src).group(1))
 
     assert const("kMaxThreads") == deep.MAX_THREADS
-    assert const("kArrays") == deep.SCRATCH_ARRAYS
-    # one instance, of runtime width, its arrays in scratch
+    assert const("kLaneArrays") == deep.LANE_ARRAYS
+    assert const("kAheadFloats") == deep.AHEAD_FLOATS
+    assert const("kMaxShared") == deep.MAX_SHARED
+    # one instance, of runtime width, its lane arrays in dynamic shared
+    # memory, the kLaneArrays of them named once each
     assert "template <int" not in src
     assert src.count("multinomial_kernel<<<") == 1
-    assert "* kArrays * I" in src
+    assert "extern __shared__" in src
+    at = re.findall(r"L\.\w+ = base \+ (\d+) \* I;",
+                    src.replace("= base;", "= base + 0 * I;"))
+    assert sorted(map(int, at)) == list(range(deep.LANE_ARRAYS))
     from miso_tpu_torch import kernels
     assert kernels.SOURCE_FLAGS["multinomial_kernel.cu"] == ["-fmad=false"]
 
@@ -417,13 +455,17 @@ def test_multinomial_bound_arithmetic():
 
 
 def test_multinomial_floor_is_a_chain_of_steps():
-    """The dependent-chain floor grows with the steps, the classes a
-    thread walks and the isoforms, and shrinks as a lane widens over
-    the classes: about 2 ms at the deep catalog's shape."""
-    base = deep.multinomial_floor(4, 2, 4, 5000)
-    assert 1.0 < base < 3.0
-    assert deep.multinomial_floor(4, 2, 4, 10001) == pytest.approx(
+    """The dependent-chain floor grows with the steps, the rounds of
+    class slots and the isoforms, with the accepts and the slow tests,
+    and shrinks as a lane widens over the classes: about 2.5 ms at the
+    deep catalog's shape, whatever the tries' threads."""
+    base = deep.multinomial_floor(4, 2, 32, 5000)
+    assert 2.0 < base < 3.0
+    assert deep.multinomial_floor(4, 2, 4, 5000) == base
+    assert deep.multinomial_floor(4, 2, 32, 10001) == pytest.approx(
         2 * base)
     assert deep.multinomial_floor(4, 2, 1, 5000) > base
-    assert deep.multinomial_floor(4, 3, 4, 5000) > base
+    assert deep.multinomial_floor(4, 3, 32, 5000) > base
     assert deep.multinomial_floor(256, 2, 32, 5000) > base
+    assert deep.multinomial_floor(4, 2, 32, 5000, accept_share=1.0) > base
+    assert deep.multinomial_floor(4, 2, 32, 5000, slow_per_draw=0.0) < base

@@ -23,6 +23,9 @@ from miso_tpu_torch.sampler import reassign_kernel as rk
 from miso_tpu_torch.sampler.mcmc import SamplerConfig, batch_from_numpy
 
 from exact_posterior import exact_posterior_mean_2iso
+from miso_tpu_torch.testing import cap_test_threads
+
+cap_test_threads()
 
 # Tolerances of tests/test_pallas_interpret.py: f32 chains that follow
 # the same path differ only by rounding.

@@ -29,7 +29,11 @@ from miso_tpu_torch.io.comparison import (  # noqa: E402
     output_samples_comparison)
 from miso_tpu_torch.io.index import get_gene_ids_to_filenames  # noqa: E402
 from miso_tpu_torch.plot import sashimi as tsashimi  # noqa: E402
-from miso_tpu_torch.testing import indexed_catalog  # noqa: E402
+from miso_tpu_torch.testing import (  # noqa: E402
+    cap_test_threads, indexed_catalog)
+
+# a child interpreter takes the cap too
+CHILD_THREADS = cap_test_threads()
 
 FAST = "[sampler]\nburn_in = 20\nlag = 2\nnum_iters = 220\nnum_chains = 2\n"
 PLOT = """\
@@ -195,7 +199,8 @@ def test_the_port_imports_matplotlib_only_for_its_plots():
             "if m.split('.')[0] == 'matplotlib'))")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
-                         env=dict(os.environ, PYTHONPATH=root),
+                         env=dict(os.environ, PYTHONPATH=root,
+                                  **CHILD_THREADS),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1] == "[]"

@@ -13,6 +13,9 @@ import zipfile
 import numpy as np
 import pytest
 import torch
+from miso_tpu_torch.testing import cap_test_threads
+
+cap_test_threads()
 
 PACKAGES = ["miso_tpu", "miso_tpu_torch"]
 N = 8
