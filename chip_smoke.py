@@ -28,11 +28,15 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, in parallel), holds each against its plain PyTorch
-version -- at the main paths' shapes, at 128, 512 and 1,024 isoforms and
-on paired-end events; each kernel in every layout its launch plan can take (REASSIGN:
-lane width T and home of the weights; MARGINAL: lane width T), whose
-Philox chains must also be bit-equal -- and against the grid-exact
-posterior, then runs ``miso --run`` through the port
+version -- at the main paths' shapes, at up to 64 isoforms (the narrow
+B1 and B2) and at 128, 512, 2,048 and 8,192 isoforms (the wide B1w and
+B2w, ``csrc/wide_kernel.cu``, which take every bucket from
+``wide.WIDE_FROM`` isoforms on; at 8,192 their lane arrays lie in
+scratch) and on paired-end events; each kernel in every layout its
+launch plan can take (REASSIGN: lane width T and home of the weights;
+MARGINAL: lane width T; B1w and B2w: block width, shared memory or
+scratch), whose Philox chains must also be bit-equal -- and against
+the grid-exact posterior, then runs ``miso --run`` through the port
 (``miso_tpu_torch.cli.main``) at stock sampler settings: on a 2,000-gene
 single-end catalog REASSIGN, MARGINAL with the linear start, CLASSES,
 REASSIGN with convergent stop and REASSIGN with ``--pack-output``; on a
@@ -50,11 +54,13 @@ the one card into one output tree (beside one such process alone, for
 the walls); a second sample with psi moved by 0.5 in every other gene,
 then the port's ``summarize``, ``compare`` and ``filter_events`` CLIs
 over the two trees; ``run_miso.py --compute-gene-psi`` for a handful of
-genes; one bucket of 512 isoforms through ``StreamRunner`` at stock
-settings for REASSIGN and MARGINAL (each launches its kernel's 512-wide
-instance, which is held against the plain version at that bucket's shape
-and against the exact posterior); and the port's ``module_availability``
-and ``test_miso``.  The mesh phase (``parallel/mesh.py``): both kernels
+genes; buckets of 512 and 2,048 isoforms (four genes of 300 and of
+1,100 isoforms) through ``StreamRunner`` at stock settings for REASSIGN
+and MARGINAL (each one launch of B1w or B2w, which is then held against
+the plain version at that bucket's shape, timed beside it and its bound,
+and held against the exact posterior of a two-isoform event padded to
+the bucket's width); and the port's ``module_availability`` and
+``test_miso``.  The mesh phase (``parallel/mesh.py``): both kernels
 sharded at their main shapes over ``[cuda:0]`` and ``[cuda:0, cuda:0]``
 (one stream per entry) against the unsharded launch -- bit-equal under
 fixed uniforms in the shards' launch plan, every Philox shard of the
@@ -79,8 +85,10 @@ event and is timed on 64 such events and at the 16,384-read threshold
 beside B1.
 
 The last lines are ``{"kernels": [...]}`` -- per kernel, its launches in
-the main-path runs, its largest difference from the plain version, both
-times at the main path's bucket shape, and the least time the card could
+the main-path runs (for B1w and B2w: the wide buckets' runs), its
+largest difference from the plain version, both times at the main
+path's bucket shape (B1w, B2w: the bucket of 512), and the least time
+the card could
 take for that launch (``bound_ms``: the larger of bytes over 3.35 TB/s
 and operations over the FP32, integer and issue rates,
 ``reassign_bound``, ``marginal_bound`` and ``multinomial_bound``) -- and
@@ -183,14 +191,22 @@ EARLIER_B2_MS = {
     "classes I=4 C=32 E=2048": 6.101, "paired I=2 C=256 E=2048": 21.121,
     "I=8 C=24 E=2048": 7.643, "I=32 C=8 E=2048": 17.962,
     "main tile E=16384": 3.255}
-# the widest instances of both kernels, (I, real isoforms): held against
-# the plain version in every layout
-WIDE_ISO = ((512, 300), (1024, 600))
-# the wide bucket of the main path: genes of this many isoforms pad to a
-# bucket of 512; its plain version takes a launch or more per isoform and
-# iteration, so the two are timed side by side on this short schedule
-WIDE_GENE_ISO, WIDE_BUCKET_ISO = 300, 512
+# the widest instance of both narrow kernels, (I, real isoforms): held
+# against the plain version in every layout
+NARROW_ISO = ((64, 33),)
+# the wide kernels B1w and B2w (csrc/wide_kernel.cu), (I, real
+# isoforms): held against their plain versions in every plan; at the
+# widest a lane's arrays are past a block's shared memory, in scratch
+WIDE_CHECK_ISO = ((128, 70), (512, 300), (2048, 1100), (8192, 4500))
+# the wide buckets of the main path: four genes of each many isoforms,
+# padded to a bucket of each width, through StreamRunner at stock
+# settings; the kernel and its plain version are also timed side by side
+# on the short schedule
+WIDE_GENES = ((300, 512), (1100, 2048))
 WIDE_SHORT = dict(iters=60, burn_in=20, lag=2, chains=2)
+# the 4 x 300-isoform bucket at 5000 x 6 on the parent's 512-wide narrow
+# instances, B1 and B2 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)
+EARLIER_WIDE_MS = {"reassign": 10352.0, "marginal": 7288.0}
 # wider tiles (E, R, I) at which every layout is timed beside the plan's
 WIDE_SHAPES = ((2048, 320, 8), (512, 320, 8), (4, 320, 8), (2048, 1024, 8),
                (2048, 320, 16), (2048, 640, 4), (1024, 4096, 8),
@@ -352,7 +368,7 @@ def reassign_layouts(big, big_ref, pb, gpu):
     max_err = 0.0
     print("REASSIGN layouts, fixed uniforms (R=16 with padded reads, AUTO "
           "and GIVEN):")
-    for I, num_iso in ((2, 2), (3, 3), (8, 5), (128, 70)) + WIDE_ISO:
+    for I, num_iso in ((2, 2), (3, 3), (8, 5)) + NARROW_ISO:
         b = lane_test_batch(I, num_iso, I, DEV)
         consts = rk._event_consts(b)
         seen = set()
@@ -366,10 +382,9 @@ def reassign_layouts(big, big_ref, pb, gpu):
                     "I=%d %s %s" % (I, "GIVEN" if given else "AUTO",
                                     tag(plan)), got, ref))
                 seen.add((plan.T, plan.home))
-        # every lane width in both homes; at 1,024 isoforms the narrowest
-        # lane's four events a block are beyond shared memory
+        # every lane width in both homes
         every = {(T, h) for T in rk.LANE_THREADS for h in rk.HOMES}
-        if seen != every - ({(4, "shared")} if I == 1024 else set()):
+        if seen != every:
             raise AssertionError("I=%d: layouts run %s" % (I, sorted(seen)))
     # deeper tiles: several groups of reads per thread
     print("REASSIGN layouts, fixed uniforms, paired-end R=%d and the main "
@@ -517,8 +532,8 @@ def marginal_shapes(big_m, pb):
     in every plan: the main shape and the main path's chunk sizes at the
     stock schedule, and at 1000 x 6 a CLASSES-sized event, a paired-end
     one (one class per fragment length), wider isoform counts and a
-    launch eight times the main one; then 16, 64 and 128 isoforms, where
-    the plan caps the lane."""
+    launch eight times the main one; then 16 and 64 isoforms, where the
+    plan caps the lane."""
     quick = dict(iters=1000, burn_in=100, lag=10, chains=6)
     E = big_m.weights.shape[0]
     shapes = [("main I=2 C=4 E=%d" % E, big_m, STOCK_M)]
@@ -536,8 +551,7 @@ def marginal_shapes(big_m, pb):
         ("I=32 C=8 E=%d" % E, classes_sized_batch(E, 8, 32, 17), cfg_c),
         ("main tile E=%d" % (8 * E), tiled(big_m, 8), cfg_m),
         ("I=16 C=8 E=%d" % E, classes_sized_batch(E, 8, 16, 9), cfg_c),
-        ("I=64 C=8 E=%d" % E, classes_sized_batch(E, 8, 64, 33), cfg_c),
-        ("I=128 C=8 E=%d" % (E // 4), classes_sized_batch(E // 4, 8, 128, 70), cfg_c)]
+        ("I=64 C=8 E=%d" % E, classes_sized_batch(E, 8, 64, 33), cfg_c)]
     return shapes
 
 
@@ -551,7 +565,7 @@ def marginal_layouts(big_m, pb, gpu):
     m_err = 0.0
     print("MARGINAL plans, fixed uniforms (an empty class and a padding "
           "event; AUTO and GIVEN):")
-    for I, num_iso in ((2, 2), (3, 3), (8, 5), (128, 70)) + WIDE_ISO:
+    for I, num_iso in ((2, 2), (3, 3), (8, 5)) + NARROW_ISO:
         b = marginal_lane_batch(I, num_iso, I, DEV)
         consts = mk._marginal_consts(b)
         plans, _ = m_plans(b, K)
@@ -665,14 +679,17 @@ def marginal_layouts(big_m, pb, gpu):
 
 
 class Launches:
-    """Wraps the three kernels' CUDA launchers (B1, B2, and B3 of the deep
-    route) for one main-path run: CUDA-event times and GIVEN-start
-    launches per kernel, and the launch counts read from each wrapper's
-    own counter."""
+    """Wraps the five kernels' CUDA launchers (B1, B2, B3 of the deep
+    route, and the wide B1w and B2w) for one main-path run: CUDA-event
+    times and GIVEN-start launches per kernel, and the launch counts read
+    from each wrapper's own counter (B1w's and B2w's under "wide")."""
+
+    NAMES = ("reassign", "marginal", "multinomial", "reassign_wide",
+             "marginal_wide")
 
     def __init__(self):
-        self.spans = {"reassign": [], "marginal": [], "multinomial": []}
-        self.given = {"reassign": 0, "marginal": 0, "multinomial": 0}
+        self.spans = {name: [] for name in self.NAMES}
+        self.given = {name: 0 for name in self.NAMES}
         self.counts = None
         # each route's launch of the most events: its arguments
         self.largest = {}
@@ -696,11 +713,16 @@ class Launches:
 
     def __enter__(self):
         self._saved = (rk._reassign_cuda, mk._marginal_cuda,
-                       deep._multinomial_cuda)
+                       deep._multinomial_cuda, rk._reassign_wide_cuda,
+                       mk._marginal_wide_cuda)
         rk._reassign_cuda = self._wrap("reassign", rk._reassign_cuda)
         mk._marginal_cuda = self._wrap("marginal", mk._marginal_cuda)
         deep._multinomial_cuda = self._wrap("multinomial",
                                             deep._multinomial_cuda)
+        rk._reassign_wide_cuda = self._wrap("reassign_wide",
+                                            rk._reassign_wide_cuda)
+        mk._marginal_wide_cuda = self._wrap("marginal_wide",
+                                            mk._marginal_wide_cuda)
         for counts in (rk.LAUNCHES, mk.LAUNCHES, deep.LAUNCHES):
             for key in counts:
                 counts[key] = 0
@@ -708,8 +730,8 @@ class Launches:
 
     def __exit__(self, *exc):
         torch.cuda.synchronize()
-        (rk._reassign_cuda, mk._marginal_cuda,
-         deep._multinomial_cuda) = self._saved
+        (rk._reassign_cuda, mk._marginal_cuda, deep._multinomial_cuda,
+         rk._reassign_wide_cuda, mk._marginal_wide_cuda) = self._saved
         self.counts = {"reassign": dict(rk.LAUNCHES),
                        "marginal": dict(mk.LAUNCHES),
                        "multinomial": dict(deep.LAUNCHES)}
@@ -794,12 +816,12 @@ def run_main_path(fix, tmp, name, flags, gpu, read_len=36, max_bias=0.06,
     if rc != 0:
         raise AssertionError("miso_torch --run %s returned %d"
                              % (" ".join(flags), rc))
-    unused = "cuda" if plain_marginal else "plain"
+    unused = ("cuda", "wide") if plain_marginal else ("plain",)
     for kern in ("reassign", "marginal", "multinomial"):
-        if lc.counts[kern][unused] != 0 or (
+        if any(lc.counts[kern].get(u, 0) != 0 for u in unused) or (
                 plain_marginal and lc.counts["marginal"]["plain"] < 1):
             raise AssertionError("%s: %s launches %s"
-                                 % (name, unused, lc.counts))
+                                 % (name, "/".join(unused), lc.counts))
     lc.wall = wall
     return lc, check_run(fix, out, name, gpu, wall, lc,
                          packed="--pack-output" in flags, max_bias=max_bias)
@@ -1110,95 +1132,201 @@ def worker_cli(fix, tmp, heads_r, gpu):
     return lc
 
 
-def wide_two_iso(algorithm):
+def wide_two_iso(algorithm, width):
     """Eight copies of a two-isoform event of 2,000 reads in a bucket of
-    WIDE_BUCKET_ISO isoforms, and its grid-exact posterior mean."""
+    ``width`` isoforms, and its grid-exact posterior mean."""
     ev = simulated_event(*SE_GENE, [0.7, 0.3], 2000, 25, seed=42,
                          algorithm=algorithm)
     exact = (exact_posterior_mean_2iso(ev) if algorithm == "reassign"
              else exact_marginal_mean_2iso(ev))
     batch, _ = batch_from_numpy(pad_events(
-        [ev] * 8, pad_iso=WIDE_BUCKET_ISO, read_dtype=np.float32), DEV)
+        [ev] * 8, pad_iso=width, read_dtype=np.float32), DEV)
     return batch, exact
 
 
+def wide_case(kind, I, num_iso):
+    """(batch, consts, plans, launcher, plain version) of a wide kernel's
+    check: B1w on ``lane_test_batch`` (E=2, R=16 with padding reads), B2w
+    on ``marginal_lane_batch`` (E=3 with a padding event, C=5 with an
+    empty class)."""
+    if kind == "reassign":
+        b = lane_test_batch(I, num_iso, I, DEV)
+        return (b, rk._event_consts(b), rk.all_wide_plans(2, 16, I, 2),
+                rk._reassign_wide_cuda, rk._reassign_plain)
+    b = marginal_lane_batch(I, num_iso, I, DEV, C=5)
+    return (b, mk._marginal_consts(b), mk.all_wide_plans(3, 5, I, 2),
+            mk._marginal_wide_cuda, mk._marginal_plain)
+
+
+def wide_plans_check():
+    """B1w and B2w against their plain versions (the wide summing order)
+    under fixed uniforms in every block width of their plans and with the
+    lane arrays forced into scratch, from AUTO and GIVEN starts, at
+    WIDE_CHECK_ISO (the widest past shared memory: every plan in
+    scratch); then one Philox chain in every plan at 512 isoforms.
+    Returns {kind: largest |d psi|}."""
+    small = SamplerConfig(**SMALL)
+    K = small.chains
+    errs = {}
+    for kind in ("reassign", "marginal"):
+        cfg = SamplerConfig(algorithm=kind, **SMALL)
+        errs[kind] = 0.0
+        print("%s wide kernel, fixed uniforms, every plan:" % kind)
+        for I, num_iso in WIDE_CHECK_ISO:
+            b, consts, plans, launch, plain = wide_case(kind, I, num_iso)
+            if I == WIDE_CHECK_ISO[-1][0] and any(p.shared_bytes
+                                                  for p in plans):
+                raise AssertionError("I=%d fits shared memory" % I)
+            plans = plans + [p._replace(shared_bytes=0) for p in plans
+                             if p.shared_bytes]
+            E = b.weights.shape[0]
+            for given in (False, True):
+                start = None
+                if given:
+                    start = dirichlet_start(num_iso, 2, K, I)
+                    start = torch.cat([start, torch.zeros_like(
+                        start[:E - 2])])
+                ref = plain(0, b, cfg, consts, start, rk.FIXED_U)
+                for plan in plans:
+                    got = launch(0, b, cfg, consts, start, True, plan=plan)
+                    torch.cuda.synchronize()
+                    errs[kind] = max(errs[kind], compare(
+                        "I=%d (%d real) %s threads=%d %s" % (
+                            I, num_iso, "GIVEN" if given else "AUTO",
+                            plan.threads,
+                            "shared" if plan.shared_bytes else "scratch"),
+                        got, ref))
+        b, consts, plans, launch, _ = wide_case(kind, 512, 300)
+        short = SamplerConfig(algorithm=kind, **WIDE_SHORT)
+        first = None
+        for plan in plans + [plans[0]._replace(shared_bytes=0)]:
+            got = launch(7, b, short, consts, None, False,
+                         plan=plan).to_numpy()
+            if first is None:
+                first = got
+            elif bitwise(got, first) != {f: 0.0 for f in got._fields}:
+                raise AssertionError("%s wide kernel: the Philox chain "
+                                     "depends on the plan %s" % (kind, plan))
+        print("  Philox at I=512, %d x %d: bit-equal in every plan"
+              % (short.iters, short.chains))
+    return errs
+
+
 def wide_buckets(gpu):
-    """One bucket of WIDE_BUCKET_ISO isoforms through StreamRunner on the
-    card at stock settings, REASSIGN then MARGINAL: one launch of the
-    kernel's instance of that width and of nothing else, psi sums to one.
-    That instance is then held against the plain version on the bucket's
-    own events under fixed uniforms, and with Philox draws against the
-    exact posterior of a two-isoform event padded to the bucket's width.
+    """Buckets of 512 and 2,048 isoforms (four genes of 300 and of 1,100
+    isoforms) through StreamRunner on the card at stock settings,
+    REASSIGN then MARGINAL: each one launch of the wide kernel and of
+    nothing else, psi summing to one.  The wide kernel is then held
+    against its plain version on the bucket's own events under fixed
+    uniforms, timed beside it (short schedule; at 512 isoforms at stock
+    too, with its bound), and with Philox draws held against the exact
+    posterior of a two-isoform event padded to the bucket's width.
     Returns {algorithm: the numbers kept}."""
     out = {}
     for algorithm in ("reassign", "marginal"):
         mod = rk if algorithm == "reassign" else mk
-        evs = [wide_event(algorithm, num_iso=WIDE_GENE_ISO, seed=3 + j)
-               for j in range(4)]
-        cfg = tp.RunConfig(read_len=25, algorithm=algorithm)
-        with Launches() as lc:
-            t = time.time()
-            results = tp.run_events(evs, cfg, seed=0, device=DEV)
-            wall = time.time() - t
-        sums = np.array([r["samples"][:, :WIDE_GENE_ISO].sum(axis=1)
-                         for r in results])
-        mine = {"cuda": 1, "plain": 0}
-        idle = {"cuda": 0, "plain": 0}
-        ok = (lc.counts["reassign"] == (mine if mod is rk else idle)
-              and lc.counts["marginal"] == (mine if mod is mk else idle)
-              and lc.counts["multinomial"] == idle
-              and lc.largest[algorithm][1].weights.shape[2]
-              == WIDE_BUCKET_ISO
-              and np.all(np.abs(sums - 1.0) < 0.03)
-              and all(np.isfinite(r["loglik"]).all() for r in results))
-        print("wide bucket, %s: %d events of %d isoforms in a bucket of %d, "
-              "%d x %d: %.2fs, kernel %.1f ms; launches %s; psi sums "
-              "%.4f..%.4f  [%s]"
-              % (algorithm, len(evs), WIDE_GENE_ISO, WIDE_BUCKET_ISO,
-                 cfg.iters, cfg.chains, wall, lc.ms(algorithm), lc.counts,
-                 sums.min(), sums.max(), gpu))
-        if not ok:
-            raise AssertionError("wide %s bucket: launches or psi"
-                                 % algorithm)
-        # the instance against the plain version at the bucket's shape
-        b = padded_batch(evs, DEV)
-        if b.weights.shape[2] != WIDE_BUCKET_ISO:
-            raise AssertionError("wide bucket pads to %d isoforms"
-                                 % b.weights.shape[2])
-        short = SamplerConfig(algorithm=algorithm, **WIDE_SHORT)
-        err = 0.0
-        for given in (False, True):
-            start = (dirichlet_start(WIDE_GENE_ISO, len(evs), short.chains,
-                                     WIDE_BUCKET_ISO) if given else None)
-            err = max(err, compare(
-                "%s wide bucket I=%d (%d real) %s" % (
-                    algorithm, WIDE_BUCKET_ISO, WIDE_GENE_ISO,
-                    "GIVEN" if given else "AUTO"),
-                *both(0, b, short, start, mod.FIXED_U)))
         run = rk.run_batch_reassign if mod is rk else mk.run_batch_marginal
-        plain = ((lambda: rk._reassign_plain(
-            3, b, short, rk._event_consts(b))) if mod is rk else
-            (lambda: mk._marginal_plain(3, b, short,
-                                        mk._marginal_consts(b))))
-        short_ms = timed(lambda: run(3, b, short), reps=3)
-        plain_ms = timed(plain, reps=1)
-        stock_ms = lc.ms(algorithm)     # the launch of the run above
-        # Philox draws through the same instance: the exact posterior
-        tb, exact = wide_two_iso(algorithm)
-        res = run(1, tb, SamplerConfig(algorithm=algorithm, **PHILOX))
-        means = res.to_numpy().flat_samples()[:, :, 0].mean(axis=1)
-        print("wide bucket, %s kernel at I=%d E=%d: %d x %d %.2f ms (plain "
-              "version %.2f ms), %d x %d %.2f ms; a two-isoform event in "
-              "that bucket: exact %.4f, kernel means %s  [%s]"
-              % (algorithm, WIDE_BUCKET_ISO, len(evs), short.iters,
-                 short.chains, short_ms, plain_ms, cfg.iters, cfg.chains,
-                 stock_ms, exact, np.array2string(means, precision=4), gpu))
-        if not np.all(np.abs(means - exact) < 0.02):
-            raise AssertionError("the %d-wide %s instance misses the exact "
-                                 "posterior" % (WIDE_BUCKET_ISO, algorithm))
-        out[algorithm] = {"launches": lc.counts[algorithm]["cuda"],
-                          "max_err": err, "short_ms": short_ms,
-                          "plain_short_ms": plain_ms, "stock_ms": stock_ms}
+        stock = SamplerConfig(algorithm=algorithm)
+        row = {"launches": 0, "max_err": 0.0}
+        for gene_iso, width in WIDE_GENES:
+            evs = [wide_event(algorithm, num_iso=gene_iso, seed=3 + j)
+                   for j in range(4)]
+            cfg = tp.RunConfig(read_len=25, algorithm=algorithm)
+            with Launches() as lc:
+                t = time.time()
+                results = tp.run_events(evs, cfg, seed=0, device=DEV)
+                wall = time.time() - t
+            sums = np.array([r["samples"][:, :gene_iso].sum(axis=1)
+                             for r in results])
+            mine = {"cuda": 0, "wide": 1, "plain": 0}
+            idle = {"cuda": 0, "wide": 0, "plain": 0}
+            kernel = algorithm + "_wide"
+            ok = (lc.counts["reassign"] == (mine if mod is rk else idle)
+                  and lc.counts["marginal"] == (mine if mod is mk else idle)
+                  and lc.counts["multinomial"] == {"cuda": 0, "plain": 0}
+                  and lc.largest[kernel][1].weights.shape[2] == width
+                  and np.all(np.abs(sums - 1.0) < 0.03)
+                  and all(np.isfinite(r["loglik"]).all() for r in results))
+            stock_ms = lc.ms(kernel)    # the launch of the run above
+            print("wide bucket, %s: %d events of %d isoforms in a bucket of "
+                  "%d, %d x %d: %.2fs, kernel %.1f ms; launches %s; psi sums "
+                  "%.4f..%.4f  [%s]"
+                  % (algorithm, len(evs), gene_iso, width, cfg.iters,
+                     cfg.chains, wall, stock_ms, lc.counts, sums.min(),
+                     sums.max(), gpu))
+            if not ok:
+                raise AssertionError("wide %s bucket of %d: launches or psi"
+                                     % (algorithm, width))
+            row["launches"] += lc.counts[algorithm]["wide"]
+            # the wide kernel against the plain version at the bucket's
+            # shape, and both timed
+            b = padded_batch(evs, DEV)
+            if b.weights.shape[2] != width:
+                raise AssertionError("wide bucket pads to %d isoforms"
+                                     % b.weights.shape[2])
+            short = SamplerConfig(algorithm=algorithm, **WIDE_SHORT)
+            for given in (False, True):
+                start = (dirichlet_start(gene_iso, len(evs), short.chains,
+                                         width) if given else None)
+                row["max_err"] = max(row["max_err"], compare(
+                    "%s wide bucket I=%d (%d real) %s" % (
+                        algorithm, width, gene_iso,
+                        "GIVEN" if given else "AUTO"),
+                    *both(0, b, short, start, mod.FIXED_U)))
+            consts = (rk._event_consts(b) if mod is rk
+                      else mk._marginal_consts(b))
+            plain = rk._reassign_plain if mod is rk else mk._marginal_plain
+            short_ms = timed(lambda: run(3, b, short), reps=3)
+            plain_short_ms = timed(lambda: plain(3, b, short, consts),
+                                   reps=1)
+            direct_ms = timed(lambda: run(3, b, stock), reps=2)
+            if mod is rk:
+                bound = rk.reassign_bound(
+                    *b.read_w.shape, stock.chains, stock.iters,
+                    stock.num_records,
+                    valid_reads=int((b.read_w.sum(-1) > 0).sum()))
+            else:
+                bound = mk.marginal_bound(
+                    *b.weights.shape, stock.chains, stock.iters,
+                    stock.num_records,
+                    live_classes=int((b.counts > 0).sum()))
+            entry = {"stock_ms": stock_ms, "direct_ms": direct_ms,
+                     "short_ms": short_ms, "plain_short_ms": plain_short_ms,
+                     "bound_ms": bound["bound_ms"],
+                     "bound_by": bound["bound_by"],
+                     "shape": list(b.read_w.shape if mod is rk
+                                   else b.weights.shape)}
+            if width == 512:
+                entry["plain_stock_ms"] = timed(
+                    lambda: plain(3, b, stock, consts), reps=1)
+            print("wide bucket, %s kernel at I=%d %s=%d E=%d: %d x %d %.2f ms "
+                  "(plain version %.2f ms); %d x %d %.2f ms in the run, %.2f "
+                  "ms alone%s; bound %.4f ms (%s)  [%s]"
+                  % (algorithm, width, "R" if mod is rk else "C",
+                     entry["shape"][1], len(evs), short.iters, short.chains,
+                     short_ms, plain_short_ms, stock.iters, stock.chains,
+                     stock_ms, direct_ms,
+                     ", plain version %.1f ms" % entry["plain_stock_ms"]
+                     if "plain_stock_ms" in entry else "",
+                     bound["bound_ms"], bound["bound_by"], gpu))
+            # Philox draws through the same kernel: the exact posterior
+            tb, exact = wide_two_iso(algorithm, width)
+            res = run(1, tb, SamplerConfig(algorithm=algorithm, **PHILOX))
+            means = res.to_numpy().flat_samples()[:, :, 0].mean(axis=1)
+            print("  a two-isoform event in a bucket of %d: exact %.4f, "
+                  "kernel means %s" % (width, exact,
+                                       np.array2string(means, precision=4)))
+            if not np.all(np.abs(means - exact) < 0.02):
+                raise AssertionError("the wide %s kernel misses the exact "
+                                     "posterior at %d isoforms"
+                                     % (algorithm, width))
+            row["I=%d" % width] = entry
+        print("wide %s kernel at 4 genes of 300 isoforms, 5000 x 6: %.1f ms "
+              "in the run, %.1f ms alone; the parent's 512-wide narrow "
+              "instance %.0f ms (PERF.md, not timed here)  [%s]"
+              % (algorithm, row["I=512"]["stock_ms"],
+                 row["I=512"]["direct_ms"], EARLIER_WIDE_MS[algorithm], gpu))
+        out[algorithm] = row
     return out
 
 
@@ -1898,16 +2026,18 @@ def main(only=None, sass_dir=None) -> int:
     entry, registers = None, {}
     for line in kernels.BUILD_INFO["log"].splitlines():
         m = re.search(r"entry function '\S*?(reassign|marginal|multinomial)"
-                      r"_kernel", line)
+                      r"(_wide)?_kernel", line)
         if m:
-            # the width of a template instance (B3 has one instance, of
-            # runtime width); the name's namespace holds the file's name
+            # the width of a template instance (B3, B1w and B2w have one
+            # instance each, of runtime width); the name's namespace holds
+            # the file's name
             width = re.search(r"_kernelILi(\d+)E", line)
-            entry = m.group(1) + (" I=%s" % width.group(1) if width else "")
+            entry = m.group(1) + (m.group(2) or "") + (
+                " I=%s" % width.group(1) if width else "")
         elif entry and ("spill" in line or "registers" in line):
             print("  %s: %s" % (entry, line.split(":", 1)[-1].strip()))
             used = re.search(r"Used (\d+) registers", line)
-            if used and entry.startswith("reassign"):
+            if used and entry.startswith("reassign I="):
                 registers[int(entry.split("=")[1])] = int(used.group(1))
     # the launch plan reckons an SM's resident blocks from these
     if registers and registers != rk.KERNEL_REGISTERS:
@@ -2048,16 +2178,19 @@ def main(only=None, sass_dir=None) -> int:
                                algorithm=algo)
         three_iso(algo, both(2, padded_batch([ev3a] * 8, DEV), cfg_a), cfg_a)
 
-    # -- (e) fixed uniforms at 128 isoforms (about 70 real), and on
-    # paired-end events: fragment-probability weights, log_iso_w =
-    # assscores near 11, non-zero read scores; B2 on the same events
+    # -- (e) fixed uniforms at 128 isoforms (about 70 real) through the
+    # wrappers, which take the wide kernels there (and B1w and B2w in
+    # every plan at 128 ... 8,192 isoforms), and on paired-end events:
+    # fragment-probability weights, log_iso_w = assscores near 11,
+    # non-zero read scores; B2 on the same events
+    wide_err = wide_plans_check()
     for given in (False, True):
         start = dirichlet_start(70, 2, 2, 128) if given else None
-        max_err = max(max_err, compare(
+        wide_err["reassign"] = max(wide_err["reassign"], compare(
             "reassign I=128 (70 real) %s" % ("GIVEN" if given else "AUTO"),
             *both(0, lane_test_batch(128, 70, 128, DEV), small, start,
                   rk.FIXED_U)))
-        m_err = max(m_err, compare(
+        wide_err["marginal"] = max(wide_err["marginal"], compare(
             "marginal I=128 (70 real) %s" % ("GIVEN" if given else "AUTO"),
             *both(0, marginal_lane_batch(128, 70, 128, DEV), small_m,
                   None if start is None else torch.cat(
@@ -2221,10 +2354,10 @@ def main(only=None, sass_dir=None) -> int:
           "(final iters %s)" % ((iters > STOCK.iters).sum(), len(iters),
                                 sorted(set(iters.tolist()))))
 
-    # -- (m) a bucket of 512 isoforms, and the port's probes
+    # -- (m) buckets of 512 and 2,048 isoforms, and the port's probes
     wide = wide_buckets(gpu)
-    max_err = max(max_err, wide["reassign"]["max_err"])
-    m_err = max(m_err, wide["marginal"]["max_err"])
+    for kind in ("reassign", "marginal"):
+        wide_err[kind] = max(wide_err[kind], wide[kind]["max_err"])
     probes()
 
     # -- 5 and (d). kernel and plain version at the main paths' buckets
@@ -2277,7 +2410,7 @@ def main(only=None, sass_dir=None) -> int:
         "launches": lc_r.counts["reassign"]["cuda"]
         + lc_v.counts["reassign"]["cuda"] + lc_k.counts["reassign"]["cuda"]
         + lc_p.counts["reassign"]["cuda"] + lc_s.counts["reassign"]["cuda"]
-        + lc_w.counts["reassign"]["cuda"] + wide["reassign"]["launches"]
+        + lc_w.counts["reassign"]["cuda"]
         + mesh_runs["out"].counts["reassign"]["cuda"]
         + mesh_runs["convergent"].counts["reassign"]["cuda"],
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
@@ -2286,7 +2419,6 @@ def main(only=None, sass_dir=None) -> int:
         "main_path_launches": lc_r.counts["reassign"]["cuda"],
         "main_path_ms": lc_r.ms("reassign"),
         "chunk_ms": layouts["chunk_ms"],
-        "wide_bucket": wide["reassign"],
         "mesh": {"launches": mesh_runs["out"].counts["reassign"]["cuda"]
                  + mesh_runs["convergent"].counts["reassign"]["cuda"],
                  "walls_s": [mesh_runs["out"].wall,
@@ -2297,7 +2429,7 @@ def main(only=None, sass_dir=None) -> int:
         "replaces": "miso_tpu/sampler/pallas_marginal.py:48",
         "launches": lc_m.counts["marginal"]["cuda"]
         + lc_c.counts["marginal"]["cuda"] + lc_q.counts["marginal"]["cuda"]
-        + lc_qk.counts["marginal"]["cuda"] + wide["marginal"]["launches"]
+        + lc_qk.counts["marginal"]["cuda"]
         + mesh_runs["marginal_linear"].counts["marginal"]["cuda"],
         "max_abs_err": m_err, "ms": m_ms, "plain_ms": m_plain_ms,
         "bound_ms": m_bound["bound_ms"], "bound_by": m_bound["bound_by"],
@@ -2305,7 +2437,6 @@ def main(only=None, sass_dir=None) -> int:
         "main_path_launches": lc_m.counts["marginal"]["cuda"],
         "main_path_ms": lc_m.ms("marginal"),
         "chunk_ms": m_layouts["chunk_ms"], "plan": m_layouts["plan"],
-        "wide_bucket": wide["marginal"],
         "mesh": {"launches":
                  mesh_runs["marginal_linear"].counts["marginal"]["cuda"],
                  "walls_s": [mesh_runs["marginal_linear"].wall]}}, {
@@ -2330,7 +2461,21 @@ def main(only=None, sass_dir=None) -> int:
                         "e64": b3_t["breakdown_e64"]["step_clocks"],
                         "threshold":
                         b3_t["breakdown_threshold"]["step_clocks"]},
-        "posterior": b3_k["posterior"]}]}))
+        "posterior": b3_k["posterior"]}] + [{
+        "name": kind + "_wide", "route": "cuda",
+        "source": "miso_tpu_torch/csrc/wide_kernel.cu",
+        "replaces": replaces,
+        "launches": wide[kind]["launches"],
+        "max_abs_err": wide_err[kind],
+        "ms": wide[kind]["I=512"]["direct_ms"],
+        "plain_ms": wide[kind]["I=512"]["plain_stock_ms"],
+        "bound_ms": wide[kind]["I=512"]["bound_ms"],
+        "bound_by": wide[kind]["I=512"]["bound_by"], "library_ms": None,
+        "main_path_ms": wide[kind]["I=512"]["stock_ms"],
+        "bucket_2048": wide[kind]["I=2048"]}
+        for kind, replaces in (
+            ("reassign", "miso_tpu/sampler/pallas_kernel.py:120"),
+            ("marginal", "miso_tpu/sampler/pallas_marginal.py:48"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -116,6 +116,11 @@ inline V __shfl_sync(unsigned, V v, int src, int width = 32) {
   const int lane = (int)(threadIdx.x & 31u);
   return shim_exchange(v, (lane & ~(width - 1)) | (src & (width - 1)));
 }
+template <class V>
+inline V __shfl_up_sync(unsigned, V v, unsigned delta, int = 32) {
+  const int lane = (int)(threadIdx.x & 31u);
+  return shim_exchange(v, lane >= (int)delta ? lane - (int)delta : lane);
+}
 inline int __any_sync(unsigned, int pred) {
   shim_warp->buf[threadIdx.x & 31u] = pred ? 1.0 : 0.0;
   shim_warp->bar.arrive_and_wait();

@@ -60,13 +60,11 @@
 
 namespace {
 
-// Loops over the isoforms (and the I/2 normal pairs) unroll fully up to
-// I = 64.  The instances from 128 isoforms on (128, 256, 512, 1024) keep
-// their per-isoform arrays in local memory either way, and fully unrolled
-// they took ptxas minutes to build.  Their loops unroll by eight,
-// "#pragma unroll (I > 64 ? 8 : I)": rolled, every step of a loop waited
-// for its own load from local memory, and a bucket of 512 isoforms took
-// 2.5 to 2.9 times as long (PERF.md).
+// Instances for I = 2 ... 64 (KERNEL_ISO in reassign_kernel.py); their
+// loops over the isoforms (and the I/2 normal pairs) unroll fully.  From
+// wide.WIDE_FROM isoforms on, of any width, the wide kernel
+// (wide_kernel.cu) takes a bucket: a lane a block, its arrays once in
+// shared memory.
 
 constexpr float kFixedU = 0.4999f;
 constexpr float kTwoPi = 6.28318530717958647692f;
@@ -170,7 +168,7 @@ template <int I>
 __device__ __forceinline__ void normals(const Params& p, uint32_t lane,
                                         uint32_t step, int k, float z[I]) {
   constexpr int H = (I + 1) / 2;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
   for (int j = 0; j < H; ++j) {
     float u1 = kFixedU, u2 = kFixedU;
     if (!p.fixed_u) {
@@ -214,11 +212,11 @@ struct Ahead {
     const int src = (int)(step & (uint32_t)(g.T - 1));
     if (src == 0) refill(p, g, lane, step, k);
     if (g.T == 1) {
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
       for (int i = 0; i < I; ++i) zs[i] = z[i];
       return log_u;
     }
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
     for (int i = 0; i < I; ++i) zs[i] = g.from(z[i], src);
     return g.from(log_u, src);
   }
@@ -233,7 +231,7 @@ __device__ __forceinline__ void psi_of_alpha(const float alpha[I], int k,
                                              float psi[I]) {
   float e[I];
   float s = 0.f;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
   for (int i = 0; i < I; ++i) {
     e[i] = 0.f;
     if (i < k - 1) e[i] = expf(alpha[i]);
@@ -241,12 +239,12 @@ __device__ __forceinline__ void psi_of_alpha(const float alpha[I], int k,
   }
   const float denom = 1.0f + s;
   float hs = 0.f;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
   for (int i = 0; i < I; ++i) {
     if (i < k - 1) e[i] = e[i] / denom;
     hs = hs + e[i];
   }
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
   for (int i = 0; i < I; ++i) psi[i] = e[i] + last(i, k) * (1.0f - hs);
 }
 
@@ -257,7 +255,7 @@ __device__ __forceinline__ void psi_of_alpha(const float alpha[I], int k,
 template <int I>
 __device__ __forceinline__ void log_psi(const float psi[I], int k,
                                         float lp[I]) {
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
   for (int i = 0; i < I; i += 2) {
     float a = 0.f, b = 0.f;
     if (i == 0 || i < k) {
@@ -297,7 +295,7 @@ __device__ __forceinline__ float round_dot(const Group& g, const float* w,
   const int c = mine ? c0 + g.t : C - 1;
   const float* wc = w + (size_t)c * I;
   float s = 0.f;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
   for (int i = 0; i < I; ++i) s = s + __ldg(wc + i) * psi[i];
   *count = __ldg(cnt + c);
   return mine && *count > 0.f ? s : 0.f;
@@ -331,7 +329,7 @@ __device__ __forceinline__ float read_term(const Group& g, const float* w,
     for (int c = 1; c < C; ++c) {
       const float* wc = w + (size_t)c * I;
       float s = 0.f;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
       for (int i = 0; i < I; ++i) s = s + __ldg(wc + i) * psi[i];
       if (s > 0.f) rt = rt + __ldg(cnt + c) * logf(fmaxf(s, kTiny));
     }
@@ -361,7 +359,7 @@ __device__ __forceinline__ float state_of_alpha(
   log_psi<I>(psi, k, lp);
   const float rt = read_term<I>(g, w, cnt, C, psi, first);
   float ds = 0.f;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
   for (int i = 0; i < I; ++i)
     if (i < k) ds = ds + h1[i] * lp[i];
   return rt + (ds + dir_const);
@@ -380,7 +378,7 @@ __device__ __forceinline__ float last_log(const float lp[I], int k,
   // as a chain of selects, the compiler indexed lp by k and moved the
   // array to local memory
   float lt = 0.f;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
   for (int i = 0; i < I; ++i) lt = lt + lp[i] * last(i, k);
   return k > 0 ? lt : log_tiny;
 }
@@ -391,7 +389,7 @@ template <int I>
 __device__ __forceinline__ float proposal_base(const float lp[I], float lt,
                                                int k, float prop_const) {
   float slp = 0.f;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
   for (int i = 0; i < I; ++i) slp = slp + (i < k - 1 ? lp[i] : 0.f);
   return (prop_const - slp) - lt;
 }
@@ -401,7 +399,7 @@ template <int I>
 __device__ __forceinline__ float proposal_quad(const float lp[I], float lt,
                                                const float mu[I], int k) {
   float ss = 0.f;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
   for (int i = 0; i < I; ++i) {
     const float t = i < k - 1 ? (lp[i] - lt) - mu[i] : 0.f;
     ss = ss + t * t;
@@ -433,7 +431,7 @@ __global__ void __launch_bounds__(kMaxThreads) marginal_kernel(const Params p) {
   const float dir_const = p.scal[4 * e + 3];
   float h1[I];
   float km1 = 0.f;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
   for (int i = 0; i < I; ++i) {
     h1[i] = i < k ? p.hyper[(size_t)e * I + i] - 1.0f : 0.f;
     km1 = km1 + head(i, k);
@@ -445,20 +443,20 @@ __global__ void __launch_bounds__(kMaxThreads) marginal_kernel(const Params p) {
   if (p.start != nullptr) {
     const float* sp = p.start + (size_t)lane_i * I;
     float sl = 0.f;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
     for (int i = 0; i < I; ++i) sl = sl + sp[i] * last(i, k);
     const float lsl = logf(fmaxf(sl, 1e-30f));
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
     for (int i = 0; i < I; ++i)
       alpha[i] = i < k - 1 ? logf(fmaxf(sp[i], 1e-30f)) - lsl : 0.f;
   } else {
     const float a0 = km1 == 1.0f ? 0.f : 1.0f / fmaxf(km1, 1.0f);
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
     for (int i = 0; i < I; ++i) alpha[i] = i < k - 1 ? a0 : 0.f;
   }
   Ahead<I> ahead;
   ahead.take(p, grp, lane, 0u, k, z);  // step 0 has no accept draw
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
   for (int i = 0; i < I; ++i) alpha[i] = alpha[i] + ns * z[i] * head(i, k);
   float cjs =
       state_of_alpha<I>(grp, w, cnt, p.C, alpha, h1, k, dir_const, psi, lp);
@@ -474,7 +472,7 @@ __global__ void __launch_bounds__(kMaxThreads) marginal_kernel(const Params p) {
     const uint32_t step = (uint32_t)m + 1u;
     float an[I], pn[I], lpn[I];
     const float log_u = ahead.take(p, grp, lane, step, k, z);
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
     for (int i = 0; i < I; ++i) an[i] = alpha[i] + ns * z[i] * head(i, k);
     const float pjs = state_of_alpha<I>(grp, w, cnt, p.C, an, h1, k,
                                         dir_const, pn, lpn);
@@ -488,7 +486,7 @@ __global__ void __launch_bounds__(kMaxThreads) marginal_kernel(const Params p) {
     const float logr = (pjs - cjs) + full * (pto_c - cto_p);
     // a select, not a branch: the lanes of a warp accept differently
     const bool acc = logr >= 0.f || log_u < logr;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
     for (int i = 0; i < I; ++i) {
       alpha[i] = acc ? an[i] : alpha[i];
       psi[i] = acc ? pn[i] : psi[i];
@@ -505,7 +503,7 @@ __global__ void __launch_bounds__(kMaxThreads) marginal_kernel(const Params p) {
           // the absolute joint score of the state after this step
           const size_t o =
               ((size_t)e * p.rrec + rec) * p.K + (lane_i - e * p.K);
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
           for (int i = 0; i < I; ++i) p.psi_out[o * I + i] = psi[i];
           p.loglik_out[o] = cjs;
         }
@@ -515,7 +513,7 @@ __global__ void __launch_bounds__(kMaxThreads) marginal_kernel(const Params p) {
   }
   if (leader) {
     p.acc_out[lane_i] = accepted;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
     for (int i = 0; i < I; ++i)
       p.final_psi[(size_t)lane_i * I + i] = psi[i];
   }
@@ -573,10 +571,6 @@ extern "C" int miso_marginal(
     case 16: return launch<16>(p, blocks, threads, s);
     case 32: return launch<32>(p, blocks, threads, s);
     case 64: return launch<64>(p, blocks, threads, s);
-    case 128: return launch<128>(p, blocks, threads, s);
-    case 256: return launch<256>(p, blocks, threads, s);
-    case 512: return launch<512>(p, blocks, threads, s);
-    case 1024: return launch<1024>(p, blocks, threads, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

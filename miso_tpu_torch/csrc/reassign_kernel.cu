@@ -62,14 +62,12 @@
 
 namespace {
 
-// Loops over the isoforms (and the I/2 normal pairs) unroll fully up to
-// I = 64.  The instances from 128 isoforms on (128, 256, 512, 1024) keep
-// their per-isoform arrays in local memory either way, and fully unrolled
-// they took ptxas minutes to build.  Their loops unroll by eight,
-// "#pragma unroll (I > 64 ? 8 : I)": rolled, every step of a loop waited
-// for its own load from local memory, and a bucket of 512 isoforms took
-// 2.5 to 2.9 times as long (PERF.md).  A thread of the widest instance
-// holds fifteen such arrays, 60 KB of local memory.
+// Instances for I = 2 ... 64 (KERNEL_ISO in reassign_kernel.py); their
+// loops over the isoforms (and the I/2 normal pairs) unroll fully, and a
+// lane's per-isoform arrays live in each thread's registers.  From
+// wide.WIDE_FROM isoforms on, of any width, the wide kernel
+// (wide_kernel.cu) takes a bucket: a lane a block, its arrays once in
+// shared memory.
 
 constexpr float kFixedU = 0.4999f;
 constexpr float kTwoPi = 6.28318530717958647692f;
@@ -154,10 +152,10 @@ struct Group {
   }
   // the same for N sums and one more at once: a level's shuffles are
   // independent, so they overlap instead of queueing sum after sum
-  template <int N, int I>
+  template <int N>
   __device__ __forceinline__ void sum_all(float v[N], float& extra) const {
     for (int o = T >> 1; o > 0; o >>= 1) {
-#pragma unroll (I > 64 ? 8 : N)
+#pragma unroll
       for (int i = 0; i < N; ++i)
         v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
       extra += __shfl_xor_sync(0xffffffffu, extra, o);
@@ -175,7 +173,7 @@ template <int I>
 __device__ __forceinline__ void normal_rows(const Params& p, uint32_t lane,
                                             uint32_t step, float z[I]) {
   constexpr int H = (I + 1) / 2;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
   for (int j = 0; j < H; ++j) {
     float u1 = kFixedU, u2 = kFixedU;
     if (!p.fixed_u) {
@@ -213,7 +211,7 @@ struct Ahead {
                                         float zs[I]) {
     const int src = (int)(step & (uint32_t)(g.T - 1));
     if (src == 0) refill(p, g, lane, step);
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
     for (int i = 0; i < I; ++i) zs[i] = g.from(z[i], src);
     return g.from(log_u, src);
   }
@@ -228,7 +226,7 @@ __device__ __forceinline__ void stats(const float alpha[I], const float am[I],
                                       float psi[I], float& ld, float& logS) {
   float e[I];
   float s = 0.f;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
   for (int i = 0; i < I; ++i) {
     e[i] = expf(alpha[i]) * am[i];
     s += e[i];
@@ -236,7 +234,7 @@ __device__ __forceinline__ void stats(const float alpha[I], const float am[I],
   const float denom = 1.0f + s;
   ld = logf(fmaxf(denom, kTiny));
   float S = 0.f;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
   for (int i = 0; i < I; ++i) {
     const float ea = e[i] + last[i];
     psi[i] = ea / denom;
@@ -315,7 +313,7 @@ __device__ __forceinline__ void gibbs(const Params& p, const Group& grp,
                                       const float psi[I], float n_valid,
                                       float n[I], float& rp) {
   float cnt[I - 1];
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
   for (int i = 0; i < I - 1; ++i) cnt[i] = 0.f;
   float acc_rp = 0.f;
   // one group at a time: unrolled by two, the loop took 80 registers for
@@ -334,7 +332,7 @@ __device__ __forceinline__ void gibbs(const Params& p, const Group& grp,
       // no FMA contraction: the plain version multiplies, then sums
       float acc = __fmul_rn(wsum, psi[0]);
       c[0] = acc;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
       for (int i = 1; i < I; ++i) {
         const float wi = w.at(wv, g, j, i);
         wsum += wi;
@@ -345,22 +343,17 @@ __device__ __forceinline__ void gibbs(const Params& p, const Group& grp,
       const float one = valid ? 1.f : 0.f;
       const float u = gibbs_uniform(bits[j], p) * acc;
       int ch = I - 1;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
       for (int i = I - 2; i >= 0; --i)
         if (c[i] >= u) ch = i;
-      if constexpr (I > 64) {
-        // the counts lie in local memory: indexed, not walked
-        if (ch < I - 1) cnt[ch] += one;
-      } else {
 #pragma unroll
-        for (int i = 0; i < I - 1; ++i) cnt[i] += (ch == i) ? one : 0.f;
-      }
+      for (int i = 0; i < I - 1; ++i) cnt[i] += (ch == i) ? one : 0.f;
       if (RP) acc_rp += valid ? rl[(4 * g + j) * I + ch] : 0.f;
     }
   }
-  grp.sum_all<I - 1, I>(cnt, acc_rp);  // acc_rp stays 0 without RP
+  grp.sum_all<I - 1>(cnt, acc_rp);  // acc_rp stays 0 without RP
   float rest = n_valid;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
   for (int i = 0; i < I - 1; ++i) {
     n[i] = cnt[i];
     rest -= cnt[i];
@@ -418,7 +411,7 @@ __global__ void __launch_bounds__(kMaxThreads) reassign_kernel(const Params p) {
   // per-event constants (efflen, log efflen, hyper - 1 on real isoforms)
   float am[I], last[I], eiw[I], aliw[I], h1[I];
   float km1 = 0.f, H1 = 0.f;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
   for (int i = 0; i < I; ++i) {
     const size_t o = (size_t)e * I + i;
     const float liw = fmaxf(p.log_iso_w[o], kNegBig);
@@ -438,7 +431,7 @@ __global__ void __launch_bounds__(kMaxThreads) reassign_kernel(const Params p) {
   float nv = 0.f;
   for (int r = grp.t; r < p.R; r += p.T) {
     float s = 0.f;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
     for (int i = 0; i < I; ++i) s += rw[(size_t)r * I + i];
     nv += s > 0.f ? 1.f : 0.f;
   }
@@ -450,20 +443,20 @@ __global__ void __launch_bounds__(kMaxThreads) reassign_kernel(const Params p) {
   if (p.start != nullptr) {
     const float* sp = p.start + ((size_t)e * p.K + k) * I;
     float sl = 0.f;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
     for (int i = 0; i < I; ++i) sl += sp[i] * last[i];
     const float lsl = logf(fmaxf(sl, 1e-30f));
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
     for (int i = 0; i < I; ++i)
       alpha[i] = am[i] > 0.f ? logf(fmaxf(sp[i], 1e-30f)) - lsl : 0.f;
   } else {
     const float a0 = km1 == 1.0f ? 0.f : 1.0f / fmaxf(km1, 1.0f);
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
     for (int i = 0; i < I; ++i) alpha[i] = am[i] > 0.f ? a0 : 0.f;
   }
   Ahead<I> ahead;
   ahead.take(p, grp, lane, 0u, z);  // step 0 has no accept draw
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
   for (int i = 0; i < I; ++i) alpha[i] += ns * z[i] * am[i];
   float psi[I], n[I], ld, logS, rp;
   stats<I>(alpha, am, last, eiw, psi, ld, logS);
@@ -481,7 +474,7 @@ __global__ void __launch_bounds__(kMaxThreads) reassign_kernel(const Params p) {
     const uint32_t step = (uint32_t)m + 1u;
     float d[I], an[I], pn[I], ldn, logSn;
     const float log_u = ahead.take(p, grp, lane, step, z);
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
     for (int i = 0; i < I; ++i) {
       d[i] = ns * z[i] * am[i];
       an[i] = alpha[i] + d[i];
@@ -490,7 +483,7 @@ __global__ void __launch_bounds__(kMaxThreads) reassign_kernel(const Params p) {
     // MH log-ratio in alpha space: the proposal quadratic and the read
     // score cancel; iteration 0 drops the proposal correction
     float s1 = 0.f, sd = 0.f;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
     for (int i = 0; i < I; ++i) {
       s1 += (n[i] + h1[i]) * d[i];
       sd += d[i];
@@ -499,7 +492,7 @@ __global__ void __launch_bounds__(kMaxThreads) reassign_kernel(const Params p) {
     const float logr = s1 - n_valid * (logSn - logS) - H1 * (ldn - ld) +
                        full * (sd + kk * (ld - ldn));
     if (logr >= 0.f || log_u < logr) {
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
       for (int i = 0; i < I; ++i) {
         alpha[i] = an[i];
         psi[i] = pn[i];
@@ -514,13 +507,13 @@ __global__ void __launch_bounds__(kMaxThreads) reassign_kernel(const Params p) {
         // joint score (miso.c:243-307) with the n and read score from
         // before this step's Gibbs draw
         float t = 0.f;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
         for (int i = 0; i < I; ++i)
           t += (n[i] + h1[i]) * (alpha[i] * am[i]) + n[i] * aliw[i];
         const float score = rp + t - n_valid * logS - H1 * ld + dir_const;
         if (leader) {
           const size_t o = ((size_t)e * p.rrec + rec) * p.K + k;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
           for (int i = 0; i < I; ++i) p.psi_out[o * I + i] = psi[i];
           p.loglik_out[o] = score;
         }
@@ -534,7 +527,7 @@ __global__ void __launch_bounds__(kMaxThreads) reassign_kernel(const Params p) {
   }
   if (leader) {
     p.acc_out[lane_i] = accepted;
-#pragma unroll (I > 64 ? 8 : I)
+#pragma unroll
     for (int i = 0; i < I; ++i) {
       p.final_n[(size_t)lane_i * I + i] = n[i];
       p.final_psi[(size_t)lane_i * I + i] = psi[i];
@@ -572,10 +565,6 @@ int launch(const Params& p, const Launch& l) {
     case 16: return f<16>(__VA_ARGS__);       \
     case 32: return f<32>(__VA_ARGS__);       \
     case 64: return f<64>(__VA_ARGS__);       \
-    case 128: return f<128>(__VA_ARGS__);     \
-    case 256: return f<256>(__VA_ARGS__);     \
-    case 512: return f<512>(__VA_ARGS__);     \
-    case 1024: return f<1024>(__VA_ARGS__);   \
     default: return -1;                       \
   }
 

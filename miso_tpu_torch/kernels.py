@@ -35,11 +35,12 @@ CLOCKS_LIB_PATH = os.path.join(BUILD_DIR, "libmiso_b3_clocks.so")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v"]
-# per-source flags: the marginal and multinomial kernels must round every
-# product and sum on their own, as their plain versions do (see their
-# headers)
+# per-source flags: the marginal, multinomial and wide kernels must round
+# every product and sum on their own, as their plain versions do (see
+# their headers)
 SOURCE_FLAGS = {"marginal_kernel.cu": ["-fmad=false"],
-                "multinomial_kernel.cu": ["-fmad=false"]}
+                "multinomial_kernel.cu": ["-fmad=false"],
+                "wide_kernel.cu": ["-fmad=false"]}
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -141,6 +142,24 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [ctypes.c_longlong, vp])   # shared bytes, stream
     lib.miso_multinomial_lane_floats.restype = ctypes.c_longlong
     lib.miso_multinomial_lane_floats.argtypes = [ci] * 3
+    lib.miso_reassign_wide.restype = ci
+    lib.miso_reassign_wide.argtypes = (
+        [vp] * 13          # 7 inputs (start may be null), 5 outputs,
+                           # scratch (null: the lane arrays in shared)
+        + [ci] * 8         # E, R, I, K, iters, burn_in, lag, rrec
+        + [cu, cu]         # seed words
+        + [ci] * 2         # fixed_u, threads
+        + [ctypes.c_longlong, vp])   # shared bytes, stream
+    lib.miso_marginal_wide.restype = ci
+    lib.miso_marginal_wide.argtypes = (
+        [vp] * 11          # 6 inputs (start may be null), 4 outputs,
+                           # scratch
+        + [ci] * 8         # E, C, I, K, iters, burn_in, lag, rrec
+        + [cu, cu]         # seed words
+        + [ci] * 2         # fixed_u, threads
+        + [ctypes.c_longlong, vp])   # shared bytes, stream
+    lib.miso_wide_lane_floats.restype = ctypes.c_longlong
+    lib.miso_wide_lane_floats.argtypes = [ci] * 3
     lib.miso_cuda_error_string.restype = ctypes.c_char_p
     lib.miso_cuda_error_string.argtypes = [ci]
     return lib

@@ -34,11 +34,11 @@ chunk's events over all of them (``parallel/mesh.py``, ``resolve_mesh``):
 each shard runs its kernel on its own card and stream, and the
 materializer joins the shards in event order.
 
-The REASSIGN and MARGINAL kernels have an instance for every bucket of
-up to 1,024 isoforms (``KERNEL_ISO``).  On a CUDA device a wider bucket
-is refused before any tensor moves, unless it is a deep REASSIGN bucket,
-whose kernel takes any width; nothing takes a kernel's place on the
-card.
+Every kernel takes a bucket of any width: the REASSIGN and MARGINAL
+wrappers run their narrow instances (B1, B2) below ``wide.WIDE_FROM``
+isoforms and the wide kernels (B1w, B2w: a lane a block, any width)
+from there on, and the deep route's B3 takes any width; nothing takes a
+kernel's place on the card.
 """
 from __future__ import annotations
 
@@ -76,8 +76,7 @@ from miso_tpu_torch.sampler.deep import run_batch_multinomial
 from miso_tpu_torch.sampler.marginal_kernel import run_batch_marginal
 from miso_tpu_torch.sampler.mcmc import (EventBatch, SamplerConfig,
                                          _pow2_pad_events)
-from miso_tpu_torch.sampler.reassign_kernel import (KERNEL_ISO,
-                                                    run_batch_reassign)
+from miso_tpu_torch.sampler.reassign_kernel import run_batch_reassign
 
 # Above this many reads a REASSIGN bucket takes the multinomial Gibbs
 # step and builds no per-read tiles, as in the JAX package
@@ -303,14 +302,6 @@ class StreamRunner:
     def _dispatch(self, key, evs, tags) -> None:
         cfg = self.cfg
         pad_iso, pad_classes, pad_reads = key
-        # a deep REASSIGN bucket runs the multinomial kernel, which takes
-        # any width (run_sampler)
-        deep = pad_reads > DEEP_READS and cfg.algorithm == "reassign"
-        if (any(d.type == "cuda" for d in self.mesh) and not deep
-                and pad_iso not in KERNEL_ISO):
-            raise NotImplementedError(
-                "not ported yet: events with more than %d isoforms on the "
-                "CUDA kernels (ROADMAP B.6)" % max(KERNEL_ISO))
         t_bucket = time.time()
         batch = EventBatch(**pad_events(
             evs, pad_iso=pad_iso, pad_classes=pad_classes,

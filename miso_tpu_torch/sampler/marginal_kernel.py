@@ -8,8 +8,10 @@ result layout.  The collapsed algorithms have no Gibbs step, so
 ``final_n`` is zeros: the pipeline draws the final assignment on the host
 (``CompiledEvent.final_assignment_counts``).
 
-- A batch on a CUDA device runs ``csrc/marginal_kernel.cu``.  If the
-  kernel does not build or launch, the call raises; nothing falls back.
+- A batch on a CUDA device runs ``csrc/marginal_kernel.cu`` (B2) below
+  ``wide.WIDE_FROM`` isoforms and ``csrc/wide_kernel.cu`` (B2w, a lane a
+  block, any width) from there on.  If the kernel does not build or
+  launch, the call raises; nothing falls back.
 - A batch on the CPU runs ``_marginal_plain``: batched torch over the
   (event, chain) lanes with a Python loop over iterations.  It computes
   what the kernel computes, in the TPU kernel's psi-space form
@@ -33,7 +35,9 @@ contraction that rounds through TF32 moves the MH ratio by whole units
 (docs/VALIDATION.md:106-114).  ``fixed_uniform=0.4999`` replaces every
 uniform, as the TPU kernel's ``_DEBUG_NO_PRNG`` does; the proposal
 normals are then cos-only Box-Muller (``pallas_kernel._normal``), so
-both routes reproduce the JAX kernel's chain.
+both routes reproduce the JAX kernel's chain.  From ``WIDE_FROM``
+isoforms on the plain version sums as B2w does (``wide.wide_sum``, over
+isoforms and over classes).
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from typing import NamedTuple
 
 import torch
 
+from miso_tpu_torch.sampler import wide
 from miso_tpu_torch.sampler.mcmc import EventBatch, SamplerConfig
 from miso_tpu_torch.sampler.reassign_kernel import (FILL_WARPS, FIXED_U,
                                                     KERNEL_ISO,
@@ -50,7 +55,8 @@ from miso_tpu_torch.sampler.reassign_kernel import (FILL_WARPS, FIXED_U,
                                                     _is_record, _result,
                                                     _seq_sum, bound)
 
-LAUNCHES = {"cuda": 0, "plain": 0}
+# launches of B2 ("cuda"), of B2w ("wide") and of the plain version
+LAUNCHES = {"cuda": 0, "wide": 0, "plain": 0}
 TINY = 1e-38
 # A logf / expf call beside an FP32 instruction: the special-function
 # unit takes 16 a clock on each SM, the FP32 pipe 128.
@@ -66,9 +72,8 @@ MAX_THREADS = 128
 AHEAD_WARPS = FILL_WARPS // 2
 # (from this many isoforms on, the widest lane): a thread's I-wide state
 # fills the register file from 16 isoforms on (206 to 255 registers,
-# spills from 32) and lies in local memory from 128 on; wider lanes lost
-# at every such width timed (PERF.md).
-WIDE_ISO = ((128, 1), (16, 2))
+# spills from 32); wider lanes lost at every such width timed (PERF.md).
+WIDE_ISO = ((16, 2),)
 
 
 class MarginalPlan(NamedTuple):
@@ -113,6 +118,18 @@ def marginal_plan(E: int, C: int, I: int, K: int) -> MarginalPlan:
         if wider <= cap and lanes * wider <= 32 * fill:
             T = wider
     return _layout(T)
+
+
+def wide_plan(E: int, C: int, I: int, K: int) -> wide.WidePlan:
+    """B2w's launch for E events of (C, I) class weights and K chains
+    (``wide.wide_plan``): a block a lane, its warps over the classes and
+    its threads over a class row's isoforms."""
+    return wide.wide_plan("marginal", E, C, I, K)
+
+
+def all_wide_plans(E: int, C: int, I: int, K: int):
+    """Every block width B2w can be launched with at this shape."""
+    return wide.all_wide_plans("marginal", E, C, I, K)
 
 
 def all_marginal_plans(E: int, C: int, I: int, K: int):
@@ -188,25 +205,34 @@ def run_batch_marginal(seed: int, batch: EventBatch, cfg: SamplerConfig,
         raise ValueError("fixed_uniform must be None or %r" % FIXED_U)
     dev = batch.weights.device
     consts = _marginal_consts(batch)
+    # from WIDE_FROM isoforms on the wide kernel, or on the CPU the plain
+    # version in its summing order
+    wide_route = batch.weights.shape[2] >= wide.WIDE_FROM
     if dev.type == "cuda":
-        return _marginal_cuda(seed, batch, cfg, consts, start_psi,
-                              fixed_uniform is not None)
+        launch = _marginal_wide_cuda if wide_route else _marginal_cuda
+        return launch(seed, batch, cfg, consts, start_psi,
+                      fixed_uniform is not None)
     if dev.type == "cpu":
         return _marginal_plain(seed, batch, cfg, consts, start_psi,
-                               fixed_uniform)
+                               fixed_uniform, wide_order=wide_route)
     raise ValueError("no MARGINAL route for device %s" % dev)
 
 
 def _marginal_plain(seed, batch, cfg, consts, start_psi=None,
-                    fixed_uniform=None):
+                    fixed_uniform=None, wide_order=None):
     """Plain PyTorch version of the kernel, batched over (E, K) lanes on
     any device.  ``fixed_uniform`` replaces every uniform; otherwise a
-    ``torch.Generator`` seeded with ``seed`` draws them."""
+    ``torch.Generator`` seeded with ``seed`` draws them.  ``wide_order``
+    (default: from ``wide.WIDE_FROM`` isoforms on) sums as B2w does, the
+    kernel that takes such widths on the card."""
     LAUNCHES["plain"] += 1
     f32 = torch.float32
     E, C, I = batch.weights.shape
     K = cfg.chains
     dev = batch.weights.device
+    if wide_order is None:
+        wide_order = I >= wide.WIDE_FROM
+    total = wide.wide_sum if wide_order else _seq_sum
     gen = None
     if fixed_uniform is None:
         gen = torch.Generator(device=dev)
@@ -240,28 +266,31 @@ def _marginal_plain(seed, batch, cfg, consts, start_psi=None,
 
     def logistic_inv(alpha):
         e = torch.exp(alpha) * amf
-        head = e / (1.0 + _seq_sum(e))[..., None]
-        psi = head + lastf * (1.0 - _seq_sum(head))[..., None]
+        head = e / (1.0 + total(e))[..., None]
+        psi = head + lastf * (1.0 - total(head))[..., None]
         return psi, torch.log(psi.clamp_min(TINY))
 
     def joint(psi, lp):
-        s = W[..., 0] * psi[..., 0:1]                    # (E, K, C)
-        for i in range(1, I):
-            s = s + W[..., i] * psi[..., i:i + 1]
+        if wide_order:
+            s = wide.wide_sum(W * psi[:, :, None, :])   # (E, K, C)
+        else:
+            s = W[..., 0] * psi[..., 0:1]                # (E, K, C)
+            for i in range(1, I):
+                s = s + W[..., i] * psi[..., i:i + 1]
         term = torch.where(s > 0, cnt * torch.log(s.clamp_min(TINY)), zero)
-        return _seq_sum(term) + (_seq_sum(torch.where(real, h1 * lp, zero))
-                                 + dir_const)
+        return total(term) + (total(torch.where(real, h1 * lp, zero))
+                              + dir_const)
 
     def proposal(psi, lp, mu):
-        lt = torch.log(_seq_sum(psi * lastf).clamp_min(TINY))
+        lt = torch.log(total(psi * lastf).clamp_min(TINY))
         a = torch.where(am, lp, zero)
         t = torch.where(am, (a - lt[..., None]) - mu, zero)
-        return (prop_const - _seq_sum(a) - lt
-                + (-0.5 * _seq_sum(t * t)) * inv_sigma)
+        return (prop_const - total(a) - lt
+                + (-0.5 * total(t * t)) * inv_sigma)
 
     if start_psi is not None:
         sp = start_psi.to(f32)
-        lsl = torch.log(_seq_sum(sp * lastf).clamp_min(1e-30))
+        lsl = torch.log(total(sp * lastf).clamp_min(1e-30))
         alpha = torch.where(am, torch.log(sp.clamp_min(1e-30))
                             - lsl[..., None], zero)
     else:
@@ -304,6 +333,33 @@ def _marginal_plain(seed, batch, cfg, consts, start_psi=None,
     return _result(psi_out, ll_out, acc, final_n, psi, cfg)
 
 
+def _class_tensors(batch, cfg, consts, start_psi):
+    """(inputs, start, outputs) of a MARGINAL launch, B2's or B2w's: the
+    class tensors and constants checked on the batch's device, the GIVEN
+    start or None, and empty psi records, log-likelihood records,
+    acceptances and final psi."""
+    f32 = torch.float32
+    E, C, I = batch.weights.shape
+    K = cfg.chains
+    RREC = max(cfg.num_records, 0)
+    dev = batch.weights.device
+    inputs = [
+        _checked(batch.weights, "weights", (E, C, I), f32, dev),
+        _checked(batch.counts, "counts", (E, C), f32, dev),
+        _checked(batch.num_iso, "num_iso", (E,), torch.int32, dev),
+        _checked(consts[0], "hyper", (E, I), f32, dev),
+        _checked(consts[1], "scal", (E, 4), f32, dev),
+    ]
+    start = None
+    if start_psi is not None:
+        start = _checked(start_psi, "start_psi", (E, K, I), f32, dev)
+    outputs = (torch.empty((E, RREC, K, I), dtype=f32, device=dev),
+               torch.empty((E, RREC, K), dtype=f32, device=dev),
+               torch.empty((E, K), dtype=torch.int32, device=dev),
+               torch.empty((E, K, I), dtype=f32, device=dev))
+    return inputs, start, outputs
+
+
 def _marginal_cuda(seed, batch, cfg, consts, start_psi, fixed, plan=None):
     """Launch csrc/marginal_kernel.cu on the batch's CUDA device, laid
     out by ``marginal_plan`` (``plan`` forces another lane width: the
@@ -318,20 +374,8 @@ def _marginal_cuda(seed, batch, cfg, consts, start_psi, fixed, plan=None):
     _check_shape(E, C, I, K)
     if plan is None:
         plan = marginal_plan(E, C, I, K)
-    inputs = [
-        _checked(batch.weights, "weights", (E, C, I), f32, dev),
-        _checked(batch.counts, "counts", (E, C), f32, dev),
-        _checked(batch.num_iso, "num_iso", (E,), torch.int32, dev),
-        _checked(consts[0], "hyper", (E, I), f32, dev),
-        _checked(consts[1], "scal", (E, 4), f32, dev),
-    ]
-    start = None
-    if start_psi is not None:
-        start = _checked(start_psi, "start_psi", (E, K, I), f32, dev)
-    psi_out = torch.empty((E, RREC, K, I), dtype=f32, device=dev)
-    ll_out = torch.empty((E, RREC, K), dtype=f32, device=dev)
-    acc = torch.empty((E, K), dtype=torch.int32, device=dev)
-    final_psi = torch.empty((E, K, I), dtype=f32, device=dev)
+    inputs, start, (psi_out, ll_out, acc, final_psi) = _class_tensors(
+        batch, cfg, consts, start_psi)
     lib = kernels.load()
     seed = int(seed) & ((1 << 64) - 1)
     with torch.cuda.device(dev):
@@ -345,5 +389,44 @@ def _marginal_cuda(seed, batch, cfg, consts, start_psi, fixed, plan=None):
             plan.T, plan.lanes_per_block, stream)
     kernels.check(lib, rc, "marginal kernel launch (%s)" % (plan,))
     LAUNCHES["cuda"] += 1
+    final_n = torch.zeros((E, K, I), dtype=f32, device=dev)
+    return _result(psi_out, ll_out, acc, final_n, final_psi, cfg)
+
+
+def _marginal_wide_cuda(seed, batch, cfg, consts, start_psi, fixed,
+                        plan=None):
+    """Launch B2w (csrc/wide_kernel.cu) on the batch's CUDA device, laid
+    out by ``wide_plan`` (``plan`` forces another block width, or
+    ``shared_bytes=0`` the lane arrays into scratch)."""
+    from miso_tpu_torch import kernels
+
+    f32 = torch.float32
+    E, C, I = batch.weights.shape
+    K = cfg.chains
+    RREC = max(cfg.num_records, 0)
+    dev = batch.weights.device
+    if plan is None:
+        plan = wide_plan(E, C, I, K)
+    inputs, start, (psi_out, ll_out, acc, final_psi) = _class_tensors(
+        batch, cfg, consts, start_psi)
+    scratch = None
+    if plan.shared_bytes == 0:
+        scratch = torch.empty(E * K * wide.lane_floats("marginal", C, I),
+                              dtype=f32, device=dev)
+    lib = kernels.load()
+    seed = int(seed) & ((1 << 64) - 1)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.miso_marginal_wide(
+            *[t.data_ptr() for t in inputs],
+            None if start is None else start.data_ptr(),
+            psi_out.data_ptr(), ll_out.data_ptr(), acc.data_ptr(),
+            final_psi.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            E, C, I, K, cfg.iters, cfg.burn_in, cfg.lag, RREC,
+            seed & 0xFFFFFFFF, seed >> 32, int(bool(fixed)),
+            plan.threads, plan.shared_bytes, stream)
+    kernels.check(lib, rc, "wide marginal kernel launch (%s)" % (plan,))
+    LAUNCHES["wide"] += 1
     final_n = torch.zeros((E, K, I), dtype=f32, device=dev)
     return _result(psi_out, ll_out, acc, final_n, final_psi, cfg)

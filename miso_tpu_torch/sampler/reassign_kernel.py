@@ -4,8 +4,10 @@ Replaces ``miso_tpu/sampler/pallas_kernel.py::_sampler_kernel`` (launcher
 ``run_batch_pallas``, ``pl.pallas_call`` at :508).  ``run_batch_reassign``
 takes the same batch, ``start_psi`` (E, K, I) and result layout.
 
-- A batch on a CUDA device runs ``csrc/reassign_kernel.cu``.  If the
-  kernel does not build or launch, the call raises; nothing falls back.
+- A batch on a CUDA device runs ``csrc/reassign_kernel.cu`` (B1) below
+  ``wide.WIDE_FROM`` isoforms and ``csrc/wide_kernel.cu`` (B1w, a lane a
+  block, any width) from there on.  If the kernel does not build or
+  launch, the call raises; nothing falls back.
 - A batch on the CPU runs ``_reassign_plain``: batched torch over the
   (event, chain) lanes with a Python loop over iterations.  It computes
   what the kernel computes, in the same alpha-space form as the TPU
@@ -25,6 +27,10 @@ their weights live in shared memory, staged once per event, else behind
 the cache; the randoms that depend on (lane, step) alone are drawn ahead
 of the chain, one step per thread of the lane.
 
+From ``WIDE_FROM`` isoforms on the plain version sums in B1w's order
+(``wide.wide_sum``, ``wide.wide_cumsum``), so that the two follow one
+chain at any width.
+
 ``fixed_uniform=0.4999`` replaces every uniform, as the TPU kernel's
 ``_DEBUG_NO_PRNG`` does, so both routes then reproduce the JAX kernel's
 chain exactly; the proposal normals keep ``_normal_rows``' cos/sin split.
@@ -36,17 +42,20 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from miso_tpu_torch.sampler import wide
 from miso_tpu_torch.sampler.mcmc import (EventBatch, SamplerConfig,
                                          SamplerResult)
 
-LAUNCHES = {"cuda": 0, "plain": 0}
+# launches of B1 ("cuda"), of B1w ("wide") and of the plain version
+LAUNCHES = {"cuda": 0, "wide": 0, "plain": 0}
 FIXED_U = 0.4999
 NEG_BIG = -1e30
 TWO_PI = 2.0 * math.pi
 _U24 = 2.0 ** -24
-# the isoform widths both kernels are instantiated for: every bucketed I
-# (core/events._round_up_iso) of a gene with up to 1,024 isoforms
-KERNEL_ISO = (2, 3, 4, 6, 8, 16, 32, 64, 128, 256, 512, 1024)
+# the isoform widths both narrow kernels (B1, B2) are instantiated for:
+# every bucketed I (core/events._round_up_iso) below wide.WIDE_FROM; the
+# wide kernels take the rest
+KERNEL_ISO = (2, 3, 4, 6, 8, 16, 32, 64)
 
 # The launch plan's constants; csrc/reassign_kernel.cu holds the same
 # values (kShared/kCache, kMaxThreads).
@@ -65,12 +74,11 @@ SMS = 132                 # an H100's streaming multiprocessors
 SM_SHARED = 233472
 BLOCK_RESERVE = 1024
 # Registers: 65,536 on an SM, and what ptxas gives a thread of each
-# width's instance (from 128 isoforms on they keep their arrays in local
-# memory).  They cap the warps an SM holds whatever shared memory does;
-# chip_smoke.py holds this table to the build's own log.
+# width's instance.  They cap the warps an SM holds whatever shared
+# memory does; chip_smoke.py holds this table to the build's own log.
 SM_REGISTERS = 65536
 KERNEL_REGISTERS = {2: 64, 3: 80, 4: 100, 6: 120, 8: 156, 16: 255, 32: 255,
-                    64: 255, 128: 63, 256: 63, 512: 63, 1024: 63}
+                    64: 255}
 
 
 class LaunchPlan(NamedTuple):
@@ -147,6 +155,18 @@ def launch_plan(E: int, R: int, I: int, K: int) -> LaunchPlan:
         if "shared" in layouts and not crowded:
             break
     return shared or _layouts(E, R, I, K, widths[0])[1]["cache"]
+
+
+def wide_plan(E: int, R: int, I: int, K: int) -> wide.WidePlan:
+    """B1w's launch for E events of (R, I) tiles and K chains
+    (``wide.wide_plan``): a block a lane, its threads chosen from I and
+    the launch's lanes, the lane's arrays in shared memory or scratch."""
+    return wide.wide_plan("reassign", E, R, I, K)
+
+
+def all_wide_plans(E: int, R: int, I: int, K: int):
+    """Every block width B1w can be launched with at this shape."""
+    return wide.all_wide_plans("reassign", E, R, I, K)
 
 
 def all_plans(E: int, R: int, I: int, K: int):
@@ -319,12 +339,16 @@ def run_batch_reassign(seed: int, batch: EventBatch, cfg: SamplerConfig,
         raise ValueError("fixed_uniform must be None or %r" % FIXED_U)
     dev = batch.read_w.device
     consts = _event_consts(batch)
+    # from WIDE_FROM isoforms on the wide kernel, or on the CPU the plain
+    # version in its summing order
+    wide_route = batch.read_w.shape[2] >= wide.WIDE_FROM
     if dev.type == "cuda":
-        return _reassign_cuda(seed, batch, cfg, consts, start_psi,
-                              fixed_uniform is not None)
+        launch = _reassign_wide_cuda if wide_route else _reassign_cuda
+        return launch(seed, batch, cfg, consts, start_psi,
+                      fixed_uniform is not None)
     if dev.type == "cpu":
         return _reassign_plain(seed, batch, cfg, consts, start_psi,
-                               fixed_uniform)
+                               fixed_uniform, wide_order=wide_route)
     raise ValueError("no REASSIGN route for device %s" % dev)
 
 
@@ -350,22 +374,51 @@ def _uniforms(seed, dev, fixed_uniform):
 
 
 def _reassign_plain(seed, batch, cfg, consts, start_psi=None,
-                    fixed_uniform=None) -> SamplerResult:
+                    fixed_uniform=None, wide_order=None) -> SamplerResult:
     """Plain PyTorch version of the kernel, batched over (E, K) lanes on
     any device.  ``fixed_uniform`` replaces every uniform; otherwise a
-    ``torch.Generator`` seeded with ``seed`` draws them."""
+    ``torch.Generator`` seeded with ``seed`` draws them.  ``wide_order``
+    (default: from ``wide.WIDE_FROM`` isoforms on) sums as B1w does, the
+    kernel that takes such widths on the card."""
     LAUNCHES["plain"] += 1
     f32 = torch.float32
     E, R, I = batch.read_w.shape
     K = cfg.chains
     dev = batch.read_w.device
     gen, uniform = _uniforms(seed, dev, fixed_uniform)
+    if wide_order is None:
+        wide_order = I >= wide.WIDE_FROM
     rw = batch.read_w.to(f32)[:, None]                 # (E, 1, R, I)
     rls = batch.read_logscore.to(f32)[:, None]
     valid = rw.sum(-1) > 0                             # (E, 1, R)
     iso = torch.arange(I, device=dev)
 
+    # B1w's order of the cumulative weights (wide.wide_cumsum): the
+    # weights laid out by quarters once, psi every step
+    rw_q = wide.quarters(rw) if wide_order else None
+
+    def wide_gibbs(psi, u, want_rp):
+        # the first cumulative weight that reaches u * total, else I-1;
+        # the counts and read scores by index: at wide widths an (R, I)
+        # one-hot costs more than the rest of the step
+        w = rw_q * wide.quarters(psi)[..., None]      # (4, C, 32, E, K, R)
+        choice, _ = wide.wide_first(w, I, u)
+        # padding reads (valid = False) count into no isoform
+        one = valid.expand(E, K, R).to(f32)
+        n = torch.zeros((E, K, I), dtype=f32, device=dev).scatter_add_(
+            -1, choice, one)
+        if not want_rp:
+            return n, torch.zeros((E, K), dtype=f32, device=dev)
+        picked = torch.gather(rls.expand(E, K, R, I), -1,
+                              choice[..., None])[..., 0]
+        return n, wide.read_sum(picked * one)
+
     def gibbs(psi, want_rp):
+        u = uniform(E, K, R)
+        if gen is not None:
+            u = u.clamp_min(_U24)      # strictly positive Gibbs uniforms
+        if wide_order:
+            return wide_gibbs(psi, u, want_rp)
         # cumulative weights over isoforms, summed in order as the kernel
         # does; torch.cumsum over this short last axis ran ~100x slower
         # on the card than the whole rest of the step
@@ -373,9 +426,6 @@ def _reassign_plain(seed, batch, cfg, consts, start_psi=None,
         cums = [w[..., 0]]
         for i in range(1, I):
             cums.append(cums[-1] + w[..., i])
-        u = uniform(E, K, R)
-        if gen is not None:
-            u = u.clamp_min(_U24)      # strictly positive Gibbs uniforms
         ge = torch.stack(cums[:-1], -1) >= (u * cums[-1])[..., None]
         choice = (I - 1) - ge.sum(-1)          # first cums_i >= u, else I-1
         # padding reads (valid = False) count into no isoform
@@ -386,7 +436,8 @@ def _reassign_plain(seed, batch, cfg, consts, start_psi=None,
         return n, rp
 
     return _mh_chain(cfg, consts, start_psi, uniform, gibbs,
-                     valid.sum(-1).to(f32))
+                     valid.sum(-1).to(f32),
+                     wide.wide_sum if wide_order else _sum)
 
 
 def _mh_chain(cfg, consts, start_psi, uniform, gibbs, n_valid,
@@ -476,6 +527,35 @@ def _checked(t, name, shape, dtype, dev):
     return t
 
 
+def _read_tiles(batch):
+    """The batch's per-read tiles as both REASSIGN kernels take them:
+    checked f32 (E, R, I) on the batch's device, R padded to a multiple
+    of 4 (the kernels draw reads four at a time, the Philox counter keyed
+    by read / 4; a zero-weight read counts into no isoform)."""
+    f32 = torch.float32
+    E, R, I = batch.read_w.shape
+    dev = batch.read_w.device
+    read_w = _checked(batch.read_w, "read_w", (E, R, I), f32, dev)
+    read_ls = _checked(batch.read_logscore, "read_logscore", (E, R, I), f32,
+                       dev)
+    if R % 4:
+        pad = (0, 0, 0, 4 - R % 4)
+        read_w = torch.nn.functional.pad(read_w, pad).contiguous()
+        read_ls = torch.nn.functional.pad(read_ls, pad).contiguous()
+    return read_w, read_ls
+
+
+def _chain_outputs(E, K, I, RREC, dev):
+    """A REASSIGN launch's outputs: psi records, log-likelihood records,
+    acceptances, final counts and final psi."""
+    f32 = torch.float32
+    return (torch.empty((E, RREC, K, I), dtype=f32, device=dev),
+            torch.empty((E, RREC, K), dtype=f32, device=dev),
+            torch.empty((E, K), dtype=torch.int32, device=dev),
+            torch.empty((E, K, I), dtype=f32, device=dev),
+            torch.empty((E, K, I), dtype=f32, device=dev))
+
+
 def _reassign_cuda(seed, batch, cfg, consts, start_psi, fixed, plan=None):
     """Launch csrc/reassign_kernel.cu on the batch's CUDA device, laid
     out by ``launch_plan`` (``plan`` forces another layout: the card's
@@ -490,16 +570,8 @@ def _reassign_cuda(seed, batch, cfg, consts, start_psi, fixed, plan=None):
     if I not in KERNEL_ISO:
         raise ValueError("the REASSIGN kernel takes I in %s, got %d"
                          % (KERNEL_ISO, I))
-    read_w = _checked(batch.read_w, "read_w", (E, R, I), f32, dev)
-    read_ls = _checked(batch.read_logscore, "read_logscore", (E, R, I), f32,
-                       dev)
-    if R % 4:
-        # the kernel draws reads four at a time; zero-weight reads count
-        # into no isoform and the Philox counter is keyed by read / 4
-        pad = (0, 0, 0, 4 - R % 4)
-        read_w = torch.nn.functional.pad(read_w, pad).contiguous()
-        read_ls = torch.nn.functional.pad(read_ls, pad).contiguous()
-        R = read_w.shape[1]
+    read_w, read_ls = _read_tiles(batch)
+    R = read_w.shape[1]
     if plan is None:
         plan = launch_plan(E, R, I, K)
     inputs = [read_w, read_ls]
@@ -510,11 +582,8 @@ def _reassign_cuda(seed, batch, cfg, consts, start_psi, fixed, plan=None):
     start = None
     if start_psi is not None:
         start = _checked(start_psi, "start_psi", (E, K, I), f32, dev)
-    psi_out = torch.empty((E, RREC, K, I), dtype=f32, device=dev)
-    ll_out = torch.empty((E, RREC, K), dtype=f32, device=dev)
-    acc = torch.empty((E, K), dtype=torch.int32, device=dev)
-    final_n = torch.empty((E, K, I), dtype=f32, device=dev)
-    final_psi = torch.empty((E, K, I), dtype=f32, device=dev)
+    psi_out, ll_out, acc, final_n, final_psi = _chain_outputs(E, K, I, RREC,
+                                                              dev)
     lib = kernels.load()
     seed = int(seed) & ((1 << 64) - 1)
     with torch.cuda.device(dev):
@@ -530,4 +599,52 @@ def _reassign_cuda(seed, batch, cfg, consts, start_psi, fixed, plan=None):
             plan.shared_bytes, stream)
     kernels.check(lib, rc, "reassign kernel launch (%s)" % (plan,))
     LAUNCHES["cuda"] += 1
+    return _result(psi_out, ll_out, acc, final_n, final_psi, cfg)
+
+
+def _reassign_wide_cuda(seed, batch, cfg, consts, start_psi, fixed,
+                        plan=None):
+    """Launch B1w (csrc/wide_kernel.cu) on the batch's CUDA device, laid
+    out by ``wide_plan`` (``plan`` forces another block width, or
+    ``shared_bytes=0`` the lane arrays into scratch)."""
+    from miso_tpu_torch import kernels
+
+    f32 = torch.float32
+    E, R, I = batch.read_w.shape
+    K = cfg.chains
+    RREC = max(cfg.num_records, 0)
+    dev = batch.read_w.device
+    read_w, read_ls = _read_tiles(batch)
+    R = read_w.shape[1]
+    if plan is None:
+        plan = wide_plan(E, R, I, K)
+    inputs = [read_w, read_ls,
+              _checked(consts[0], "log_iso_w", (E, I), f32, dev),
+              _checked(consts[1], "hyper", (E, I), f32, dev),
+              _checked(batch.num_iso, "num_iso", (E,), torch.int32, dev),
+              _checked(consts[5], "scal", (E, 2), f32, dev)]
+    start = None
+    if start_psi is not None:
+        start = _checked(start_psi, "start_psi", (E, K, I), f32, dev)
+    psi_out, ll_out, acc, final_n, final_psi = _chain_outputs(E, K, I, RREC,
+                                                              dev)
+    scratch = None
+    if plan.shared_bytes == 0:
+        scratch = torch.empty(E * K * wide.lane_floats("reassign", R, I),
+                              dtype=f32, device=dev)
+    lib = kernels.load()
+    seed = int(seed) & ((1 << 64) - 1)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.miso_reassign_wide(
+            *[t.data_ptr() for t in inputs],
+            None if start is None else start.data_ptr(),
+            psi_out.data_ptr(), ll_out.data_ptr(), acc.data_ptr(),
+            final_n.data_ptr(), final_psi.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            E, R, I, K, cfg.iters, cfg.burn_in, cfg.lag, RREC,
+            seed & 0xFFFFFFFF, seed >> 32, int(bool(fixed)),
+            plan.threads, plan.shared_bytes, stream)
+    kernels.check(lib, rc, "wide reassign kernel launch (%s)" % (plan,))
+    LAUNCHES["wide"] += 1
     return _result(psi_out, ll_out, acc, final_n, final_psi, cfg)

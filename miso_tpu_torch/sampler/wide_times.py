@@ -1,0 +1,225 @@
+"""Times of the REASSIGN and MARGINAL kernels at wide isoform widths on
+one CUDA card: what ``wide.WIDE_FROM`` is chosen from.
+
+    python3 miso_tpu_torch/sampler/wide_times.py [--tree DIR] [--reps N]
+    python3 miso_tpu_torch/sampler/wide_times.py --plans [--reps N]
+
+``--tree DIR`` imports ``miso_tpu_torch`` from DIR, another checkout of
+the repo (a tree whose narrow kernels B1 and B2 still have instances of
+these widths), so that one script times two trees alike: run it once
+per tree, in one call to the card.  At I = 16 ... 2,048 isoforms (genes
+of 9, 17, 40, 70, 150, 300, 600 and 1,100 isoforms, 400 simulated reads
+each, four genes tiled to E = 4, 64 and, up to 128 isoforms, 2,048
+events) it times, by CUDA events: the wrapper (``run_batch_reassign``,
+``run_batch_marginal``: the route the tree takes at that width, where it
+has one) and, where the tree has them, the wide kernels B1w and B2w
+launched directly; at 1000 iterations x 6 chains, 100 x 6 at E = 2,048.
+Before timing a wide kernel it holds it against its plain version under
+fixed uniforms (24 iterations x 2 chains, E = 4) and raises where they
+differ.  The last line is a JSON object of the best of ``--reps`` times
+in milliseconds per case.
+
+``--plans`` times instead B1w and B2w in every block width of their
+plans (32 ... 512 threads a lane) at I = 16, 128, 512 and 2,048 (E = 4
+events, 1000 iterations x 6 chains): B1w at R = 16 and 416 reads
+(``lane_test_batch``), B2w at C = 4 and 64 classes
+(``marginal_lane_batch``, E = 3): how a lane's step time splits between
+the Gibbs sweep over the reads and the rest.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+WIDTHS = ((16, 9), (32, 17), (64, 40), (128, 70), (256, 150), (512, 300),
+          (1024, 600), (2048, 1100))
+QUICK = dict(iters=1000, burn_in=100, lag=10, chains=6)
+FULL_CARD = dict(iters=100, burn_in=10, lag=10, chains=6)
+CHECK = dict(iters=24, burn_in=6, lag=3, chains=2)
+# (copies of the four genes, schedule, widest I): E = 4, 64, 2,048
+TILES = ((1, QUICK, 2048), (16, QUICK, 2048), (512, FULL_CARD, 128))
+
+
+def wide_gene_event(algorithm, num_iso, seed):
+    """A gene of ``num_iso`` isoforms, 400 reads: ``testing.wide_event``
+    built from ``simulated_event`` alone, which every tree has."""
+    import numpy as np
+
+    from miso_tpu_torch.testing import simulated_event
+
+    middle = max(9, (num_iso - 1).bit_length())
+    subsets = [[1] + [2 + b for b in range(middle) if m >> b & 1]
+               + [middle + 2] for m in range(num_iso)]
+    psi = np.random.default_rng(seed).dirichlet(np.ones(num_iso))
+    return simulated_event([60] * (middle + 2), subsets, psi, 400, 25,
+                           seed=seed, algorithm=algorithm)
+
+
+def timed(fn, reps):
+    """Best milliseconds of fn() over reps runs, by CUDA events, after
+    one run that is not timed."""
+    import torch
+
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        best = min(best, t0.elapsed_time(t1))
+    return best
+
+
+def check(name, got, ref):
+    """Raise unless a kernel's result is its plain version's (the
+    tolerances of tests/test_torch_cuda.py)."""
+    import numpy as np
+
+    got, ref = got.to_numpy(), ref.to_numpy()
+    errs = {f: float(np.abs(getattr(got, f) - getattr(ref, f)).max(
+        initial=0.0)) for f in ("psi_samples", "loglik", "final_n",
+                                "final_psi")}
+    ok = (errs["psi_samples"] <= 2e-4 and errs["final_psi"] <= 2e-4
+          and errs["loglik"] <= 2e-3 and errs["final_n"] <= 1e-5
+          and np.array_equal(got.accepted, ref.accepted))
+    print("  check %-28s %s  %s" % (name, "ok" if ok else "DIFFERS", errs))
+    if not ok:
+        raise AssertionError("wide kernel disagrees with its plain version "
+                             "at %s" % name)
+
+
+def plan_times(reps):
+    """{case: ms} of B1w and B2w in every block width (``--plans``)."""
+    from miso_tpu_torch.sampler import marginal_kernel as mk
+    from miso_tpu_torch.sampler import reassign_kernel as rk
+    from miso_tpu_torch.sampler.mcmc import SamplerConfig
+    from miso_tpu_torch.testing import lane_test_batch, marginal_lane_batch
+
+    out = {}
+    for kind in ("reassign", "marginal"):
+        cfg = SamplerConfig(algorithm=kind, **QUICK)
+        for I in (16, 128, 512, 2048):
+            for n in ((16, 416) if kind == "reassign" else (4, 64)):
+                num_iso = max(2, I * 6 // 10)
+                if kind == "reassign":
+                    b = lane_test_batch(I, num_iso, 3, "cuda", E=4, R=n)
+                    consts = rk._event_consts(b)
+                    launch = rk._reassign_wide_cuda
+                    plans = rk.all_wide_plans(4, n, I, cfg.chains)
+                else:
+                    b = marginal_lane_batch(I, num_iso, 3, "cuda", C=n)
+                    consts = mk._marginal_consts(b)
+                    launch = mk._marginal_wide_cuda
+                    plans = mk.all_wide_plans(3, n, I, cfg.chains)
+                row = []
+                for plan in plans:
+                    label = "%s I=%d %s=%d threads=%d" % (
+                        kind, I, "R" if kind == "reassign" else "C", n,
+                        plan.threads)
+                    out[label] = timed(lambda: launch(
+                        1, b, cfg, consts, None, False, plan=plan), reps)
+                    row.append("%d: %.2f" % (plan.threads, out[label]))
+                print("  %s I=%d %s=%d, %d x %d, ms by threads a lane: %s"
+                      % (kind, I, "R" if kind == "reassign" else "C", n,
+                         cfg.iters, cfg.chains, "  ".join(row)), flush=True)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=None,
+                    help="checkout to import miso_tpu_torch from")
+    ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--plans", action="store_true",
+                    help="time B1w and B2w in every block width instead")
+    args = ap.parse_args(argv)
+    # this file's own directory is no place to import the package from
+    sys.path[0] = os.path.abspath(args.tree or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "..", ".."))
+    import torch
+
+    import miso_tpu_torch
+    from miso_tpu_torch import kernels
+    from miso_tpu_torch.sampler import marginal_kernel as mk
+    from miso_tpu_torch.sampler import reassign_kernel as rk
+    from miso_tpu_torch.sampler.mcmc import EventBatch, SamplerConfig
+    from miso_tpu_torch.testing import padded_batch
+
+    if not torch.cuda.is_available():
+        print("wide_times: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    kernels.load()
+    print("miso_tpu_torch from %s; card %s; build %s s"
+          % (os.path.dirname(miso_tpu_torch.__file__), card,
+             kernels.BUILD_INFO["seconds"]))
+    if args.plans:
+        print(json.dumps({"card": card, "plans_ms": plan_times(args.reps)}))
+        return 0
+    wide_b1 = getattr(rk, "_reassign_wide_cuda", None)
+    wide_b2 = getattr(mk, "_marginal_wide_cuda", None)
+    out = {}
+    for algorithm in ("reassign", "marginal"):
+        mod = rk if algorithm == "reassign" else mk
+        launch_wide = wide_b1 if mod is rk else wide_b2
+        consts_of = (rk._event_consts if mod is rk
+                     else mk._marginal_consts)
+        run = rk.run_batch_reassign if mod is rk else mk.run_batch_marginal
+        short = SamplerConfig(algorithm=algorithm, **CHECK)
+        for I, num_iso in WIDTHS:
+            narrow = I in rk.KERNEL_ISO
+            if launch_wide is None and not narrow:
+                continue      # the tree has no kernel of this width
+            evs = [wide_gene_event(algorithm, num_iso, 3 + j)
+                   for j in range(4)]
+            base = padded_batch(evs, "cuda")
+            if base.weights.shape[2] != I:
+                raise AssertionError("%d isoforms pad to %d, not %d" % (
+                    num_iso, base.weights.shape[2], I))
+            if launch_wide is not None:
+                consts = consts_of(base)
+                plain = (rk._reassign_plain if mod is rk
+                         else mk._marginal_plain)
+                check("%s I=%d" % (algorithm, I),
+                      launch_wide(0, base, short, consts, None, True),
+                      plain(0, base, short, consts, None, mod.FIXED_U,
+                            wide_order=True))
+            for tiles, schedule, widest in TILES:
+                if I > widest:
+                    continue
+                cfg = SamplerConfig(algorithm=algorithm, **schedule)
+                b = EventBatch(*[t.repeat(tiles, *[1] * (t.dim() - 1))
+                                 .contiguous() for t in base])
+                E, n = b.weights.shape[0], (b.read_w.shape[1] if mod is rk
+                                            else b.weights.shape[1])
+                label = "%s I=%d E=%d" % (algorithm, I, E)
+                line = "  %-24s %s=%d %d x %d" % (
+                    label, "R" if mod is rk else "C", n, cfg.iters,
+                    cfg.chains)
+                if narrow or launch_wide is None:
+                    out[label + " wrapper"] = timed(
+                        lambda: run(5, b, cfg), args.reps)
+                    line += "  wrapper %10.2f ms" % out[label + " wrapper"]
+                if launch_wide is not None:
+                    consts = consts_of(b)
+                    out[label + " wide"] = timed(
+                        lambda: launch_wide(5, b, cfg, consts, None,
+                                            False), args.reps)
+                    line += "  wide %10.2f ms" % out[label + " wide"]
+                print(line, flush=True)
+    print(json.dumps({"card": card, "tree": os.path.dirname(
+        miso_tpu_torch.__file__), "ms": out}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -202,15 +202,18 @@ def simulated_event(exon_lens, isoforms, psi, n_reads, read_len, seed,
 
 
 def wide_event(algorithm="reassign", num_iso=300, n_reads=400, seed=3):
-    """One wide event: a gene of ``num_iso`` isoforms (of the 512 exon
-    subsets that keep the first and last of 11 exons; 300 pad to a bucket
-    of 512, the kernels' second widest instance), ``n_reads`` simulated
-    reads at a seeded Dirichlet psi."""
-    subsets = [[1] + [2 + b for b in range(9) if m >> b & 1] + [11]
-               for m in range(512)][:num_iso]
+    """One wide event: a gene of ``num_iso`` isoforms, the first of the
+    2^m subsets of m middle exons that keep the first and last exon (m =
+    9, 11 exons, up to 512 isoforms; more middle exons for more: 1,100
+    isoforms take 11, 13 exons), ``n_reads`` simulated reads at a seeded
+    Dirichlet psi.  300 isoforms pad to a bucket of 512, 1,100 to one of
+    2,048."""
+    middle = max(9, (num_iso - 1).bit_length())
+    subsets = [[1] + [2 + b for b in range(middle) if m >> b & 1]
+               + [middle + 2] for m in range(num_iso)]
     psi = np.random.default_rng(seed).dirichlet(np.ones(num_iso))
-    return simulated_event([60] * 11, subsets, psi, n_reads, 25, seed=seed,
-                           algorithm=algorithm)
+    return simulated_event([60] * (middle + 2), subsets, psi, n_reads, 25,
+                           seed=seed, algorithm=algorithm)
 
 
 # the paired-end gene of tests/test_pallas.py and tests/test_sampler.py

@@ -14,6 +14,7 @@ import torch
 from miso_tpu_torch.sampler import deep
 from miso_tpu_torch.sampler import marginal_kernel as mk
 from miso_tpu_torch.sampler import reassign_kernel as rk
+from miso_tpu_torch.sampler import wide
 from miso_tpu_torch.sampler.mcmc import SamplerConfig
 from miso_tpu_torch.testing import (PAIRED_GENE, cap_test_threads,
                                     lane_test_batch, marginal_lane_batch,
@@ -48,10 +49,16 @@ def _assert_same_chain(got, ref):
     np.testing.assert_array_equal(got.accepted, ref.accepted)
 
 
-# (I, num_iso): every width the kernel is built for, some with padded
-# isoforms
+# (I, num_iso): every width the narrow kernel is built for, and the wide
+# kernel's from wide.WIDE_FROM on, some with padded isoforms
 WIDTHS = [(2, 2), (3, 3), (4, 3), (6, 5), (8, 8), (16, 9), (32, 17),
-          (64, 33), (128, 70), (256, 130), (512, 300), (1024, 600)]
+          (64, 33), (128, 70), (256, 130), (512, 300), (1024, 600),
+          (2048, 1100)]
+
+
+def _route(I):
+    """The LAUNCHES key of the kernel a bucket of I isoforms runs."""
+    return "wide" if I >= wide.WIDE_FROM else "cuda"
 
 
 @pytest.mark.parametrize("given", [False, True])
@@ -67,11 +74,12 @@ def test_kernel_matches_plain_fixed_uniform(cuda, I, num_iso, given):
         start = torch.from_numpy(sp).to(cuda)
     ref = rk._reassign_plain(0, batch, cfg, rk._event_consts(batch), start,
                              rk.FIXED_U)
-    launches = rk.LAUNCHES["cuda"]
+    launches = dict(rk.LAUNCHES)
     got = rk.run_batch_reassign(0, batch, cfg, start_psi=start,
                                 fixed_uniform=rk.FIXED_U)
     torch.cuda.synchronize()
-    assert rk.LAUNCHES["cuda"] == launches + 1
+    launches[_route(I)] += 1
+    assert rk.LAUNCHES == launches
     _assert_same_chain(got, ref)
 
 
@@ -79,7 +87,7 @@ def test_kernel_matches_plain_fixed_uniform(cuda, I, num_iso, given):
 # at R = 16 (lane_test_batch), by isoform width: plain Python, the same
 # list on every machine
 LAYOUTS = [(I, num_iso, plan.T, plan.home)
-           for I, num_iso in ((2, 2), (3, 3), (8, 5), (128, 70))
+           for I, num_iso in ((2, 2), (3, 3), (8, 5), (64, 33))
            for plan in rk.all_plans(2, 16, I, 2)]
 
 
@@ -109,7 +117,7 @@ def test_kernel_matches_plain_in_every_layout(cuda, I, num_iso, T, home,
 
 
 def test_layouts_cover_every_lane_width_and_home():
-    for width in (2, 3, 8, 128):
+    for width in (2, 3, 8, 64):
         assert {(T, home) for I, _, T, home in LAYOUTS if I == width} == {
             (T, home) for T in rk.LANE_THREADS for home in rk.HOMES}
 
@@ -191,11 +199,12 @@ def test_marginal_kernel_matches_plain_fixed_uniform(cuda, I, num_iso,
         start = torch.from_numpy(sp).to(cuda)
     ref = mk._marginal_plain(0, batch, cfg, mk._marginal_consts(batch),
                              start, mk.FIXED_U)
-    launches = mk.LAUNCHES["cuda"]
+    launches = dict(mk.LAUNCHES)
     got = mk.run_batch_marginal(0, batch, cfg, start_psi=start,
                                 fixed_uniform=mk.FIXED_U)
     torch.cuda.synchronize()
-    assert mk.LAUNCHES["cuda"] == launches + 1
+    launches[_route(I)] += 1
+    assert mk.LAUNCHES == launches
     _assert_same_chain(got, ref)
 
 
@@ -203,7 +212,7 @@ def test_marginal_kernel_matches_plain_fixed_uniform(cuda, I, num_iso,
 # thread at T = 4; 5: no lane width divides it; 40: above the widest
 # lane): plain Python, the same list on every machine
 M_LAYOUTS = [(I, num_iso, C, plan.T)
-             for I, num_iso in ((2, 2), (3, 3), (8, 5), (128, 70))
+             for I, num_iso in ((2, 2), (3, 3), (8, 5), (64, 33))
              for C in (4, 5, 40)
              for plan in mk.all_marginal_plans(3, C, I, 2)]
 
@@ -338,6 +347,68 @@ def test_shards_on_two_streams_of_one_card_are_their_slices_alone(
     np.testing.assert_array_equal(fixed.accepted[:E], whole.accepted)
     np.testing.assert_allclose(fixed.loglik[:E], whole.loglik, rtol=0,
                                atol=LL_ATOL)
+
+
+# the wide kernels B1w and B2w in every block width of their plans, and
+# with the lane arrays in scratch (shared_bytes 0), at 128 and 2,048
+# isoforms
+WIDE_PLANS = [(kind, I, num_iso, threads, arrays)
+              for kind in wide.KINDS
+              for I, num_iso in ((128, 70), (2048, 1100))
+              for threads in wide.WIDE_THREADS
+              for arrays in ("shared", "scratch")]
+
+
+def _wide_case(kind, I, num_iso, device):
+    """(batch, consts, plans, launcher, plain) of a wide kernel's check."""
+    if kind == "reassign":
+        batch = lane_test_batch(I, num_iso, I, device)
+        return (batch, rk._event_consts(batch), rk.all_wide_plans(2, 16, I, 2),
+                rk._reassign_wide_cuda, rk._reassign_plain)
+    batch = marginal_lane_batch(I, num_iso, I, device, C=5)
+    return (batch, mk._marginal_consts(batch),
+            mk.all_wide_plans(3, 5, I, 2), mk._marginal_wide_cuda,
+            mk._marginal_plain)
+
+
+@pytest.mark.parametrize("kind,I,num_iso,threads,arrays", WIDE_PLANS)
+def test_wide_kernel_matches_plain_in_every_plan(cuda, kind, I, num_iso,
+                                                 threads, arrays):
+    cfg = SamplerConfig(iters=24, burn_in=6, lag=3, chains=2,
+                        algorithm=kind)
+    batch, consts, plans, launch, plain = _wide_case(kind, I, num_iso, cuda)
+    plan = next(p for p in plans if p.threads == threads)
+    if arrays == "scratch":
+        plan = plan._replace(shared_bytes=0)
+    E = batch.weights.shape[0]
+    sp = np.zeros((E, 2, I), np.float32)
+    sp[:2, :, :num_iso] = np.random.default_rng(9).dirichlet(
+        np.ones(num_iso), size=(2, 2))
+    for start in (None, torch.from_numpy(sp).to(cuda)):
+        ref = plain(0, batch, cfg, consts, start, rk.FIXED_U)
+        got = launch(0, batch, cfg, consts, start, True, plan=plan)
+        torch.cuda.synchronize()
+        _assert_same_chain(got, ref)
+
+
+@pytest.mark.parametrize("kind", wide.KINDS)
+def test_wide_philox_chain_is_the_same_in_every_plan(cuda, kind):
+    """One seed, one chain: every output bit-equal in every block width
+    and in scratch (every sum runs in one order whatever the block)."""
+    cfg = SamplerConfig(iters=300, burn_in=50, lag=5, chains=3,
+                        algorithm=kind)
+    batch, consts, plans, launch, _ = _wide_case(kind, 128, 70, cuda)
+    first = None
+    for plan in plans + [p._replace(shared_bytes=0) for p in plans]:
+        got = launch(17, batch, cfg, consts, None, False,
+                     plan=plan).to_numpy()
+        if first is None:
+            first = got
+            continue
+        for a, b in zip(got, first):
+            np.testing.assert_array_equal(a, b)
+    other = launch(18, batch, cfg, consts, None, False).to_numpy()
+    assert not np.array_equal(other.psi_samples, first.psi_samples)
 
 
 # the multinomial kernel B3 at narrow and wide widths (2 to 128

@@ -187,18 +187,33 @@ def _runner_on_a_pretended_card(monkeypatch, cfg, results):
     return runner
 
 
+def _recorded_plain(monkeypatch, mod):
+    """Record (I, wide_order) of every call of a module's plain version."""
+    name = "_reassign_plain" if mod is rk else "_marginal_plain"
+    real = getattr(mod, name)
+    calls = []
+
+    def recorded(seed, batch, *args, **kw):
+        calls.append((batch.weights.shape[2], kw.get("wide_order")))
+        return real(seed, batch, *args, **kw)
+
+    monkeypatch.setattr(mod, name, recorded)
+    return calls
+
+
 @pytest.mark.parametrize("algorithm", ["reassign", "marginal", "classes"])
 def test_card_refuses_only_shallow_buckets_above_its_widest_kernel(
         monkeypatch, capsys, algorithm):
-    """On a CUDA device a bucket of up to 1,024 isoforms goes to its
-    kernel's wrapper (the kernels have an instance that wide) and to
-    nothing else; a wider one raises NotImplementedError naming its
-    ROADMAP item before any tensor moves, unless it is a deep REASSIGN
-    bucket, whose kernel takes any width."""
+    """The card refuses no bucket now: on a CUDA device a bucket of 2,048
+    isoforms and one of 512 each go to their kernel's wrapper once, and
+    there to its wide route (B1w or B2w on a card; here, the tensors
+    being the CPU's, its plain version in the wide kernel's summing
+    order), and to nothing else: no narrow instance, no deep route.  The
+    narrow instances stop below wide.WIDE_FROM."""
     from miso_tpu_torch.sampler import marginal_kernel as mk
+    from miso_tpu_torch.sampler import wide
 
-    assert max(tp.KERNEL_ISO) == 1024
-    assert {512, 1024} <= set(tp.KERNEL_ISO)
+    assert max(rk.KERNEL_ISO) < wide.WIDE_FROM <= 512
     ev = wide_event(algorithm)
     key = tp._bucket_key(ev)
     assert key[0] == 512 and key[2] <= tp.DEEP_READS
@@ -214,13 +229,12 @@ def test_card_refuses_only_shallow_buckets_above_its_widest_kernel(
         return real(seed, batch, *args, **kw)
 
     monkeypatch.setattr(tp, wrapper, counted)
+    mine, other = ((rk, mk) if algorithm == "reassign" else (mk, rk))
+    calls = _recorded_plain(monkeypatch, mine)
     runner = _runner_on_a_pretended_card(monkeypatch, cfg, results)
-    before = (dict(deep.LAUNCHES), dict(mk.LAUNCHES), dict(rk.LAUNCHES))
+    before = (dict(deep.LAUNCHES), dict(mine.LAUNCHES), dict(other.LAUNCHES))
     try:
-        # nothing wider than the widest instance but a deep REASSIGN bucket
-        with pytest.raises(NotImplementedError, match="ROADMAP B.6"):
-            runner._dispatch((2048, key[1], key[2]), [ev], [0])
-        assert not went
+        runner._dispatch((2048, key[1], key[2]), [ev], [0])
         runner.add(ev)
         runner.add(ev)
         runner.finish()
@@ -228,18 +242,15 @@ def test_card_refuses_only_shallow_buckets_above_its_widest_kernel(
         runner.abort()
         raise
     assert "wider than" not in capsys.readouterr().out
-    # one launch of the bucket's own wrapper at 512 isoforms, on the
-    # tensors it was given (here the CPU's: its plain version), and no
-    # deep route in its place
-    assert went == [(2, key[1], 512)]
+    # one launch of the bucket's own wrapper at each width, on the tensors
+    # it was given (here the CPU's: its plain version, in the wide order),
+    # and no deep route, no other kernel, no narrow instance in its place
+    assert [w[1:] for w in went] == [(key[1], 2048), (key[1], 512)]
+    assert calls == [(2048, True), (512, True)]
     assert deep.LAUNCHES == before[0]
-    mine, other = ((rk, mk) if algorithm == "reassign" else (mk, rk))
-    assert mine.LAUNCHES["plain"] == before[1 if mine is mk else 2][
-        "plain"] + 1
-    assert other.LAUNCHES == before[2 if mine is mk else 1]
-    assert mk.LAUNCHES["cuda"] == before[1]["cuda"]
-    assert rk.LAUNCHES["cuda"] == before[2]["cuda"]
-    assert len(results) == 2
+    assert mine.LAUNCHES == dict(before[1], plain=before[1]["plain"] + 2)
+    assert other.LAUNCHES == before[2]
+    assert len(results) == 3
     for res in results:
         ticks = res["psi_ticks"]
         assert ticks.shape == (4, 300)
@@ -247,6 +258,34 @@ def test_card_refuses_only_shallow_buckets_above_its_widest_kernel(
         assert np.isfinite(res["loglik"]).all()
         if algorithm == "reassign":
             assert float(np.sum(res["final_n"])) == float(ev.counts.sum())
+
+
+def test_convergent_rounds_of_a_wide_bucket_take_the_wide_route(
+        monkeypatch):
+    """Convergent rounds go through the same wrapper (``run_sampler``):
+    on a pretended card every round of a bucket of 512 isoforms reaches
+    the wrapper's wide route (here its plain version in the wide summing
+    order) and nothing else."""
+    from miso_tpu_torch.sampler import marginal_kernel as mk
+
+    ev = wide_event("reassign")
+    cfg = RunConfig(read_len=25, iters=20, burn_in=10, lag=5, chains=2,
+                    stop="convergent", max_iters=80)
+    calls = _recorded_plain(monkeypatch, rk)
+    results = []
+    runner = _runner_on_a_pretended_card(monkeypatch, cfg, results)
+    before = (dict(deep.LAUNCHES), dict(mk.LAUNCHES), dict(rk.LAUNCHES))
+    try:
+        runner.add(ev)
+        runner.finish()
+    except BaseException:
+        runner.abort()
+        raise
+    assert calls and all(c == (512, True) for c in calls)
+    assert rk.LAUNCHES == dict(before[2],
+                               plain=before[2]["plain"] + len(calls))
+    assert (dict(deep.LAUNCHES), dict(mk.LAUNCHES)) == before[:2]
+    assert len(results) == 1 and results[0]["samples"].shape[1] == 300
 
 
 def test_deep_bucket_of_any_width_passes_the_width_check(monkeypatch):
@@ -290,16 +329,40 @@ def test_a_kernel_that_fails_is_never_rerouted(monkeypatch, capsys):
         runner.abort()
     assert (dict(mk.LAUNCHES), dict(rk.LAUNCHES),
             dict(deep.LAUNCHES)) == before
-    # and a CUDA tensor has no route but the kernel: the wrappers choose
-    # by the tensors' device alone
+    # the same for the wide kernels: a bucket of 2,048 isoforms whose
+    # wrapper fails raises, and nothing else runs it
+    for algorithm, name in (("reassign", "run_batch_reassign"),
+                            ("marginal", "run_batch_marginal")):
+        monkeypatch.setattr(tp, name, broken)
+        wide_ev = simulated_event([100, 50, 100], [[1, 2, 3], [1, 3]],
+                                  [0.3, 0.7], 100, 25, seed=4,
+                                  algorithm=algorithm)
+        key = tp._bucket_key(wide_ev)
+        runner = _runner_on_a_pretended_card(
+            monkeypatch, RunConfig(read_len=25, iters=20, burn_in=10, lag=5,
+                                   chains=2, algorithm=algorithm), [])
+        try:
+            with pytest.raises(RuntimeError, match="nvcc failed"):
+                runner._dispatch((2048, key[1], key[2]), [wide_ev], [0])
+        finally:
+            runner.abort()
+        assert (dict(mk.LAUNCHES), dict(rk.LAUNCHES),
+                dict(deep.LAUNCHES)) == before
+    # and a CUDA tensor has no route but the kernel, B1 / B2 or their wide
+    # forms by width: the wrappers choose by the tensors' device alone
     import inspect
-    for wrapper, plain in ((mk.run_batch_marginal, "_marginal_plain"),
-                           (rk.run_batch_reassign, "_reassign_plain"),
-                           (deep.run_batch_multinomial,
-                            "_multinomial_plain")):
+    for wrapper, kernels, plain in (
+            (mk.run_batch_marginal, ("_marginal_wide_cuda", "_marginal_cuda"),
+             "_marginal_plain"),
+            (rk.run_batch_reassign, ("_reassign_wide_cuda", "_reassign_cuda"),
+             "_reassign_plain"),
+            (deep.run_batch_multinomial, ("_multinomial_cuda",),
+             "_multinomial_plain")):
         src = inspect.getsource(wrapper)
-        assert src.index('dev.type == "cuda"') < src.index(
-            'dev.type == "cpu"') < src.index(plain)
+        cuda = src.index('dev.type == "cuda"')
+        cpu = src.index('dev.type == "cpu"')
+        assert cuda < cpu < src.index(plain)
+        assert all(cuda < src.index(k) < cpu for k in kernels)
 
 
 def test_fixed_uniform_gibbs_sums_exactly_and_ends_on_degenerate_p():

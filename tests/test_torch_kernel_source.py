@@ -8,9 +8,11 @@ fibers, warp shuffles and votes through a barrier), loaded in the
 kernels' place, and the port's own wrappers launch it on CPU tensors: the
 REASSIGN and MARGINAL kernels in every layout of their launch plans,
 against their plain versions under fixed uniforms with the card's
-tolerances, and one Philox chain whatever the layout; the multinomial kernel B3 of the deep
-route likewise in every plan, its binomial draws' moments and chi2, and
-its step-breakdown build.
+tolerances, and one Philox chain whatever the layout; their wide forms
+B1w and B2w (``wide_kernel.cu``) likewise in every block width and with
+their lane arrays in scratch, at 128 and 2,048 isoforms (``-k wide``);
+the multinomial kernel B3 of the deep route likewise in every plan, its
+binomial draws' moments and chi2, and its step-breakdown build.
 What ``nvcc`` makes of the source, and every time, stay the card's to
 show.
 """
@@ -31,6 +33,7 @@ from miso_tpu_torch import kernels
 from miso_tpu_torch.sampler import deep
 from miso_tpu_torch.sampler import marginal_kernel as mk
 from miso_tpu_torch.sampler import reassign_kernel as rk
+from miso_tpu_torch.sampler import wide
 from miso_tpu_torch.sampler.mcmc import SamplerConfig
 from miso_tpu_torch.testing import (BINOMIAL_REGIMES, PAIRED_GENE,
                                     binomial_batch, binomial_chi2,
@@ -120,7 +123,9 @@ def on_cpu(shim_library, monkeypatch):
 @pytest.mark.parametrize("entry,source", [
     ("miso_reassign", "reassign_kernel.cu"),
     ("miso_marginal", "marginal_kernel.cu"),
-    ("miso_multinomial", "multinomial_kernel.cu")])
+    ("miso_multinomial", "multinomial_kernel.cu"),
+    ("miso_reassign_wide", "wide_kernel.cu"),
+    ("miso_marginal_wide", "wide_kernel.cu")])
 def test_binding_declares_every_argument(shim_library, entry, source):
     """ctypes passes an argument it has no type for as a 32-bit int: one
     declared type too few and the stream pointer, the last argument, is
@@ -156,15 +161,13 @@ def _start(num_iso, E, K, I):
 
 
 # every lane width and home of the weights at R = 16, by isoform width:
-# the vector loads (I <= 8), the scalar ones, and the loops that are not
-# fully unrolled (I > 64; narrow lanes only: a wide one shuffles 128
-# counts through the shim's barriers five times a step; at 512 isoforms
-# the weights behind the cache alone)
+# the vector loads (I <= 8) and the scalar ones (the narrowest lane only
+# at 64 isoforms: a wider one shuffles 63 counts through the shim's
+# barriers every step)
 LAYOUTS = [(I, num_iso, plan.T, plan.home)
-           for I, num_iso in ((2, 2), (3, 3), (8, 5), (16, 9), (128, 70),
-                              (512, 300))
+           for I, num_iso in ((2, 2), (3, 3), (8, 5), (16, 9), (64, 33))
            for plan in rk.all_plans(2, 16, I, 2)
-           if I <= 64 or (plan.T == 4 and (I == 128 or plan.home == "cache"))]
+           if I <= 16 or plan.T == 4]
 
 
 @pytest.mark.parametrize("I,num_iso,T,home", LAYOUTS)
@@ -246,16 +249,19 @@ def test_launcher_refuses_a_plan_it_cannot_lay_out(on_cpu):
             rk._reassign_cuda(0, batch, cfg, consts, None, True, plan=bad)
 
 
-# (512 isoforms from the AUTO start alone: a GIVEN Dirichlet start puts
-# the scores near 1,370, where the host's logf and torch's differ by more
-# than the tolerance; on the card the two agree to the bit)
+# (from wide.WIDE_FROM isoforms on the wide kernel B2w, as the wrapper
+# chooses; 512 isoforms from the AUTO start alone: a GIVEN Dirichlet
+# start puts the scores near 1,370, where the host's logf and torch's
+# differ by more than the tolerance; on the card the two agree to the
+# bit)
 @pytest.mark.parametrize("I,num_iso,given", [
     (I, num_iso, given)
-    for I, num_iso in ((2, 2), (3, 3), (8, 5), (128, 70), (512, 300))
+    for I, num_iso in ((2, 2), (3, 3), (8, 5), (64, 33), (128, 70),
+                       (512, 300))
     for given in (False, True) if I < 512 or not given])
 def test_marginal_source_matches_plain(on_cpu, I, num_iso, given):
-    """B2 with padded isoforms, an empty class and a padding event, in
-    the plan the wrapper chooses."""
+    """B2 (B2w from wide.WIDE_FROM isoforms on) with padded isoforms, an
+    empty class and a padding event, in the plan the wrapper chooses."""
     cfg = SamplerConfig(algorithm="marginal", **SMALL)
     batch = marginal_lane_batch(I, num_iso, I, "cpu")
     consts = mk._marginal_consts(batch)
@@ -264,19 +270,22 @@ def test_marginal_source_matches_plain(on_cpu, I, num_iso, given):
         start = torch.cat([_start(num_iso, 2, 2, I),
                            torch.zeros((1, 2, I))])
     ref = mk._marginal_plain(0, batch, cfg, consts, start, mk.FIXED_U)
-    launches = mk.LAUNCHES["cuda"]
-    got = mk._marginal_cuda(0, batch, cfg, consts, start, True)
-    assert mk.LAUNCHES["cuda"] == launches + 1
+    launches = dict(mk.LAUNCHES)
+    route = "wide" if I >= wide.WIDE_FROM else "cuda"
+    launch = mk._marginal_wide_cuda if route == "wide" else mk._marginal_cuda
+    got = launch(0, batch, cfg, consts, start, True)
+    launches[route] += 1
+    assert mk.LAUNCHES == launches
     _assert_same_chain(got, ref)
 
 
 # every lane width by isoform width and class count: C = 4 (one class a
 # thread at T = 4), 5 (no lane width divides it) and 40 (more classes
-# than the widest lane has threads); the rolled loops (I > 64) at the
-# narrow lanes only: a wide lane shuffles 128 normals through the shim's
-# barriers every step
+# than the widest lane has threads); 64 isoforms at the narrow lanes
+# only: a wide lane shuffles 64 normals through the shim's barriers
+# every step
 M_LAYOUTS = [(I, num_iso, C, plan.T)
-             for I, num_iso in ((2, 2), (3, 3), (8, 5), (128, 70))
+             for I, num_iso in ((2, 2), (3, 3), (8, 5), (64, 33))
              for C in (4, 5, 40)
              for plan in mk.all_marginal_plans(3, C, I, 2)
              if I <= 64 or plan.T <= 4]
@@ -341,6 +350,168 @@ def test_marginal_launcher_refuses_a_plan_it_cannot_lay_out(on_cpu, change):
     with pytest.raises(RuntimeError, match="marginal kernel launch"):
         mk._marginal_cuda(0, batch, cfg, consts, None, True, plan=bad)
     assert mk.LAUNCHES["cuda"] == launches
+
+
+# ------------------------------------------ the wide kernels B1w and B2w
+WIDE = dict(iters=10, burn_in=2, lag=2, chains=2)
+
+
+def _wide_case(kind, I, num_iso):
+    """(batch, consts, plans, launcher, plain version) of a wide kernel's
+    check: B1w on ``lane_test_batch`` (E=2, R=16 with padding reads), B2w
+    on ``marginal_lane_batch`` (E=3 with a padding event, C=5 with an
+    empty class)."""
+    if kind == "reassign":
+        batch = lane_test_batch(I, num_iso, I, "cpu")
+        return (batch, rk._event_consts(batch), rk.all_wide_plans(2, 16, I, 2),
+                rk._reassign_wide_cuda, rk._reassign_plain)
+    batch = marginal_lane_batch(I, num_iso, I, "cpu", C=5)
+    return (batch, mk._marginal_consts(batch), mk.all_wide_plans(3, 5, I, 2),
+            mk._marginal_wide_cuda, mk._marginal_plain)
+
+
+# every block width of wide_plan at 128 and 2,048 isoforms (70 and 1,100
+# real), and the lane arrays in scratch (as the card takes them past its
+# shared memory: here forced by a plan of no shared memory)
+WIDE_PLANS = [(kind, I, num_iso, threads, "shared")
+              for kind in wide.KINDS
+              for I, num_iso in ((128, 70), (2048, 1100))
+              for threads in wide.WIDE_THREADS] + [
+    (kind, I, num_iso, 64, "scratch") for kind in wide.KINDS
+    for I, num_iso in ((128, 70), (2048, 1100))]
+
+
+@pytest.mark.parametrize("kind,I,num_iso,threads,arrays", WIDE_PLANS)
+def test_wide_source_matches_plain_in_every_plan(on_cpu, kind, I, num_iso,
+                                                 threads, arrays):
+    """B1w / B2w against their plain versions in the wide summing order,
+    under fixed uniforms, from the AUTO start (and a GIVEN one at 128
+    isoforms)."""
+    cfg = SamplerConfig(algorithm=kind, **WIDE)
+    batch, consts, plans, launch, plain = _wide_case(kind, I, num_iso)
+    plan = next(p for p in plans if p.threads == threads)
+    assert plan.shared_bytes == 4 * wide.lane_floats(
+        kind, batch.weights.shape[1], I)
+    if arrays == "scratch":
+        plan = plan._replace(shared_bytes=0)
+    E = batch.weights.shape[0]
+    starts = [None]
+    if I == 128:
+        starts.append(torch.cat([_start(num_iso, 2, 2, I),
+                                 torch.zeros((E - 2, 2, I))]))
+    for start in starts:
+        ref = plain(0, batch, cfg, consts, start, rk.FIXED_U)
+        got = launch(0, batch, cfg, consts, start, True, plan=plan)
+        _assert_same_chain(got, ref)
+        if kind == "reassign":
+            # every compatible read counted once, in every chain
+            valid = (batch.read_w.sum(-1) > 0).sum(-1, keepdim=True)
+            np.testing.assert_array_equal(
+                got.final_n.sum(-1).numpy(), valid.expand(E, 2).numpy())
+
+
+@pytest.mark.parametrize("kind", wide.KINDS)
+def test_wide_source_draws_one_philox_chain_in_every_plan(on_cpu, kind):
+    """One seed, one chain: every output bit-equal in every block width
+    and in scratch, the log-likelihood too (every sum runs in one order
+    whatever the block); another seed, another chain."""
+    cfg = SamplerConfig(algorithm=kind, iters=20, burn_in=5, lag=5,
+                        chains=2)
+    batch, consts, plans, launch, _ = _wide_case(kind, 128, 70)
+    first = None
+    for plan in plans + [plans[0]._replace(shared_bytes=0)]:
+        got = launch(17, batch, cfg, consts, None, False,
+                     plan=plan).to_numpy()
+        if first is None:
+            first = got
+            continue
+        for a, b in zip(got, first):
+            np.testing.assert_array_equal(a, b)
+    assert first.accepted[:2].sum() > 0
+    assert np.all(np.isfinite(first.psi_samples))
+    other = launch(18, batch, cfg, consts, None, False,
+                   plan=plans[0]).to_numpy()
+    assert not np.array_equal(other.psi_samples, first.psi_samples)
+
+
+@pytest.mark.parametrize("kind", wide.KINDS)
+def test_wide_source_through_the_wrapper(on_cpu, kind):
+    """The wide launcher as the wrapper calls it, in the plan
+    ``wide_plan`` chooses, on reads that need padding to a multiple of
+    four: counted once, as a wide launch."""
+    cfg = SamplerConfig(algorithm=kind, **WIDE)
+    batch, consts, _, launch, plain = _wide_case(kind, 128, 70)
+    if kind == "reassign":
+        batch = batch._replace(read_w=batch.read_w[:, :14].contiguous(),
+                               read_logscore=batch.read_logscore[:, :14]
+                               .contiguous())
+    launches = dict(LAUNCHES_OF[kind])
+    ref = plain(0, batch, cfg, consts, None, rk.FIXED_U)
+    got = launch(0, batch, cfg, consts, None, True)
+    launches["wide"] += 1
+    launches["plain"] += 1
+    assert LAUNCHES_OF[kind] == launches
+    _assert_same_chain(got, ref)
+
+
+LAUNCHES_OF = {"reassign": rk.LAUNCHES, "marginal": mk.LAUNCHES}
+
+
+@pytest.mark.parametrize("kind", wide.KINDS)
+@pytest.mark.parametrize("change", [
+    dict(threads=48), dict(threads=1024), dict(threads=0),
+    dict(shared_bytes=4)])
+def test_wide_launcher_refuses_a_plan_it_cannot_lay_out(on_cpu, kind,
+                                                        change):
+    """A block of whole warps up to 512 threads, and the lane's arrays in
+    shared memory of exactly their size: anything else is refused, not
+    run, and not counted."""
+    cfg = SamplerConfig(algorithm=kind, **WIDE)
+    batch, consts, plans, launch, _ = _wide_case(kind, 128, 70)
+    bad = plans[0]._replace(**change)
+    launches = dict(LAUNCHES_OF[kind])
+    with pytest.raises(RuntimeError, match="wide %s kernel launch" % kind):
+        launch(0, batch, cfg, consts, None, True, plan=bad)
+    assert LAUNCHES_OF[kind] == launches
+
+
+@pytest.mark.parametrize("kind", wide.KINDS)
+def test_wide_launcher_refuses_a_launch_without_its_arrays(on_cpu, kind):
+    """The lane arrays lie in shared memory or in scratch, never both and
+    never neither: a launch with scratch and shared memory, or with
+    neither, or asking for more shared memory than a block has, is
+    refused; the source's size of a lane's arrays is
+    wide.lane_floats's."""
+    n = 16 if kind == "reassign" else 5
+    for I in (2, 128, 2048, 8192):
+        assert on_cpu.miso_wide_lane_floats(wide.KINDS.index(kind), n, I) \
+            == wide.lane_floats(kind, n, I)
+    assert wide.all_wide_plans(kind, 2, n, 8192, 2)[0].shared_bytes == 0
+    batch, _, plans, _, _ = _wide_case(kind, 128, 70)
+    E, I = batch.weights.shape[0], 128
+    need = plans[0].shared_bytes
+    scratch = torch.empty(E * 2 * wide.lane_floats(kind, n, I))
+    out = [torch.empty(m) for m in (E * I, E, E * 2, E * 2 * I, E * 2 * I)]
+    consts = (rk._event_consts(batch) if kind == "reassign"
+              else mk._marginal_consts(batch))
+    for arrays, shared in ((scratch, need), (None, 0), (None, need - 4),
+                           (None, 4 * wide.lane_floats(kind, n, 8192))):
+        ptr = None if arrays is None else arrays.data_ptr()
+        if kind == "reassign":
+            rc = on_cpu.miso_reassign_wide(
+                batch.read_w.data_ptr(), batch.read_logscore.data_ptr(),
+                consts[0].data_ptr(), consts[1].data_ptr(),
+                batch.num_iso.data_ptr(), consts[5].data_ptr(), None,
+                *[t.data_ptr() for t in out], ptr, E, 16, I, 2, 4, 0, 1,
+                1, 0, 0, 1, 32, shared, None)
+        else:
+            rc = on_cpu.miso_marginal_wide(
+                batch.weights.data_ptr(), batch.counts.data_ptr(),
+                batch.num_iso.data_ptr(), consts[0].data_ptr(),
+                consts[1].data_ptr(), None, *[t.data_ptr() for t in out[:3]],
+                out[4].data_ptr(), ptr, E, 5, I, 2, 4, 0, 1, 1, 0, 0, 1, 32,
+                shared, None)
+        assert rc != 0, (arrays is not None, shared)
 
 
 # ------------------------------------------------ the multinomial kernel B3

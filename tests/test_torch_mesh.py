@@ -383,20 +383,51 @@ def test_a_catalog_run_over_the_mesh(tmp_path, capsys):
     assert outs["two"] != outs["alone"]
 
 
-def test_a_mesh_with_a_cuda_entry_refuses_buckets_wider_than_its_kernels():
-    """The refusal of buckets wider than ``KERNEL_ISO`` holds for a mesh
-    as soon as one entry is a card, before any tensor moves (here the
-    entry only says CUDA: no card, no stream)."""
+def test_a_mesh_with_a_cuda_entry_refuses_buckets_wider_than_its_kernels(
+        monkeypatch):
+    """A mesh with a card among its entries refuses no bucket now: a
+    bucket of 2,048 isoforms is split over the entries, and each shard
+    goes to the wrapper once, there to its wide route (on a card B1w;
+    here the entry only says CUDA and the tensors stay on the CPU: the
+    plain version in the wide kernel's summing order), each shard on its
+    own seed."""
+    from miso_tpu_torch.sampler import reassign_kernel as rk
     from miso_tpu_torch.testing import wide_event
 
     ev = wide_event("reassign")
     key = tp._bucket_key(ev)
+    real = tmesh.batch_from_numpy
+    monkeypatch.setattr(
+        tmesh, "batch_from_numpy",
+        lambda batch, device, start=None: real(batch, "cpu", start))
+    calls, seeds = [], []
+    real_plain = rk._reassign_plain
+
+    def recorded(seed, batch, *args, **kw):
+        calls.append((batch.weights.shape, kw.get("wide_order")))
+        seeds.append(seed)
+        return real_plain(seed, batch, *args, **kw)
+
+    monkeypatch.setattr(rk, "_reassign_plain", recorded)
+    results = []
     runner = tp.StreamRunner(RunConfig(read_len=25, iters=20, burn_in=10,
                                        lag=5, chains=2),
-                             device=["cpu", "cpu"])
+                             device=["cpu", "cpu"],
+                             on_chunk=lambda tags, res: results.extend(res))
     runner.mesh = (torch.device("cpu"), torch.device("cuda"))
+    launches = dict(rk.LAUNCHES)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP B.6"):
-            runner._dispatch((2048, key[1], key[2]), [ev], [0])
-    finally:
+        runner._dispatch((2048, key[1], key[2]), [ev, ev], [0, 1])
+        runner.finish()
+    except BaseException:
         runner.abort()
+        raise
+    assert [(tuple(shape), order) for shape, order in calls] == [
+        ((1, key[1], 2048), True)] * 2
+    assert seeds == [tp.chunk_seed(0, 0, 2048, key[1], key[2], shard=k)
+                     for k in range(2)]
+    assert rk.LAUNCHES == dict(launches, plain=launches["plain"] + 2)
+    assert len(results) == 2
+    for res in results:
+        assert res["psi_ticks"].shape == (4, 300)
+        assert float(np.sum(res["final_n"])) == float(ev.counts.sum())

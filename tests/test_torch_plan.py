@@ -10,6 +10,7 @@ import miso_tpu_torch
 from miso_tpu_torch.sampler import deep
 from miso_tpu_torch.sampler import marginal_kernel as mk
 from miso_tpu_torch.sampler import reassign_kernel as rk
+from miso_tpu_torch.sampler import wide
 from miso_tpu_torch.testing import cap_test_threads
 
 cap_test_threads()
@@ -80,7 +81,7 @@ def test_main_path_chunks_get_the_lane_that_fills_the_card():
 @pytest.mark.parametrize("E,R,I,home", [
     (64, 1024, 2, "shared"), (64, 16384, 2, "shared"),
     (2048, 320, 8, "shared"), (64, 16384, 4, "cache"),
-    (64, 4096, 16, "cache"), (64, 1024, 128, "cache"),
+    (64, 4096, 16, "cache"), (64, 1024, 64, "cache"),
     (4096, 16384, 2, "shared")])
 def test_tiles_beyond_shared_memory_go_to_the_cache(E, R, I, home):
     plan = rk.launch_plan(E, R, I, 6)
@@ -90,7 +91,7 @@ def test_tiles_beyond_shared_memory_go_to_the_cache(E, R, I, home):
 
 
 def test_every_lane_width_and_home_can_be_forced_where_it_fits():
-    for I in (2, 128):
+    for I in (2, 64):
         plans = rk.all_plans(2, 16, I, 2)
         assert {(p.T, p.home) for p in plans} == {
             (T, h) for T in rk.LANE_THREADS for h in rk.HOMES}
@@ -183,7 +184,7 @@ def test_a_marginal_plan_exists_for_every_width_and_class_count(I, C):
             if plan.T >= 2 * C:
                 assert E * K * plan.T <= 32 * mk.AHEAD_WARPS
             if I >= 16:
-                assert plan.T <= (1 if I >= 128 else 2)
+                assert plan.T <= 2
 
 
 def test_marginal_main_path_chunks_get_their_lane():
@@ -214,14 +215,14 @@ def test_marginal_lane_narrows_as_the_launch_grows():
             for E in (4, 2048, 4096, 8192)] == [2, 2, 2, 1]
     assert mk.marginal_plan(2048, 8, 16, 6).T == 2
     assert mk.marginal_plan(2048, 24, 8, 6).T == 4
-    # arrays in local memory: one thread (T = 1 is reachable at any E)
-    assert [mk.marginal_plan(E, 8, 128, 6).T for E in (4, 512)] == [1, 1]
+    # T = 1 is reachable at any E
+    assert mk.marginal_plan(65536, 8, 64, 6).T == 1
     assert mk.marginal_plan(4, 8, 64, 6).T == 2
-    assert mk.WIDE_ISO == ((128, 1), (16, 2))
+    assert mk.WIDE_ISO == ((16, 2),)
 
 
 def test_every_marginal_lane_width_can_be_forced():
-    for I, C in ((2, 4), (128, 5), (256, 40)):
+    for I, C in ((2, 4), (64, 5), (32, 40)):
         plans = mk.all_marginal_plans(3, C, I, 2)
         assert [p.T for p in plans] == [1, 2, 4, 8, 16, 32]
         for plan in plans:
@@ -250,6 +251,221 @@ def test_marginal_plan_constants_equal_the_kernel_source():
     # the source is built without FMA contraction
     from miso_tpu_torch import kernels
     assert kernels.SOURCE_FLAGS["marginal_kernel.cu"] == ["-fmad=false"]
+
+
+# ------------------------------------------ the wide kernels' plan (wide.py)
+def test_wide_plan_constants_equal_the_kernel_source():
+    with open(os.path.join(CSRC_DIR, "wide_kernel.cu")) as f:
+        src = f.read()
+
+    def const(name):
+        return int(re.search(r"constexpr int %s = (\d+)" % name,
+                             src).group(1))
+
+    assert const("kMaxThreads") == max(wide.WIDE_THREADS)
+    assert const("kHeadFloats") == wide.HEAD_FLOATS
+    assert const("kReassignArrays") == wide.REASSIGN_ARRAYS
+    assert const("kMarginalArrays") == wide.MARGINAL_ARRAYS
+    assert const("kMaxShared") == wide.MAX_SHARED
+    assert "return (n + 127) / 128;" in src      # wide.chunks
+    # the narrow instances stop below the wide kernels' first width
+    assert max(rk.KERNEL_ISO) < wide.WIDE_FROM
+    from miso_tpu_torch import kernels
+    assert kernels.SOURCE_FLAGS["wide_kernel.cu"] == ["-fmad=false"]
+
+
+@pytest.mark.parametrize("kind", wide.KINDS)
+@pytest.mark.parametrize("I", [64, 100, 128, 256, 512, 1024, 1100, 2048,
+                               4096, 8192, 16384])
+def test_a_wide_plan_exists_for_every_width(kind, I):
+    """A block of 32 ... 512 threads, as wide as ``CARD_THREADS`` allows
+    over the launch's lanes; the lane's arrays in shared memory where
+    they fit, else in scratch."""
+    plan_of = rk.wide_plan if kind == "reassign" else mk.wide_plan
+    for E in (1, 4, 64, 2048):
+        for K in (1, 6):
+            for n in (16, 512):
+                plan = plan_of(E, n, I, K)
+                assert plan in wide.all_wide_plans(kind, E, n, I, K)
+                assert plan.threads in wide.WIDE_THREADS
+                fits = [t for t in wide.WIDE_THREADS
+                        if E * K * t <= wide.CARD_THREADS]
+                assert plan.threads == max(fits or [32])
+                need = 4 * wide.lane_floats(kind, n, I)
+                assert plan.shared_bytes == (need if need <= wide.MAX_SHARED
+                                             else 0)
+
+
+def test_wide_plan_examples():
+    """The buckets chip_smoke.py runs: 4 genes of 300 and of 1,100
+    isoforms (24 lanes) in the widest blocks, a launch of 2,048 events
+    in warps; the lane arrays in scratch from ~5,800 isoforms (B1w)."""
+    assert rk.wide_plan(4, 512, 512, 6) == wide.WidePlan(512, 4 * (
+        64 + 10 * 512))
+    assert [rk.wide_plan(E, 512, 128, 6).threads
+            for E in (64, 128, 1024, 2048)] == [512, 256, 32, 32]
+    assert rk.wide_plan(4, 512, 2048, 6).threads == 512
+    assert mk.wide_plan(4, 64, 2048, 6).shared_bytes == 4 * (
+        64 + 11 * 2048 + 128)
+    assert rk.wide_plan(2048, 512, 128, 6).threads == 32
+    assert rk.wide_plan(4, 64, 5760, 2).shared_bytes > 0
+    assert rk.wide_plan(4, 64, 5761, 2).shared_bytes == 0
+    assert mk.wide_plan(2, 8, 8192, 2).shared_bytes == 0
+
+
+@pytest.mark.parametrize("kind,E,n,I,K", [
+    ("reassign", 0, 16, 128, 2), ("reassign", 2, 14, 128, 2),
+    ("reassign", 2, 16, 1, 2), ("marginal", 2, 0, 128, 2),
+    ("marginal", 2, 4, 128, 0), ("neither", 2, 4, 128, 2)])
+def test_wide_plan_rejects_what_the_kernel_does_not_take(kind, E, n, I, K):
+    with pytest.raises(ValueError):
+        wide.wide_plan(kind, E, n, I, K)
+    with pytest.raises(ValueError):
+        wide.all_wide_plans(kind, E, n, I, K)
+
+
+def _f32(x):
+    import numpy as np
+    return np.float32(x)
+
+
+def _kernel_slot_sum(x):
+    """slot_sums of csrc/wide_kernel.cu, transcribed: lane l adds the
+    float4 of isoforms 128 c + 4 l ... + 3 for c = 0, 1, ... from 0,
+    then v += shfl_xor(v, o) for o = 16 ... 1, in float32."""
+    import numpy as np
+    n = len(x)
+    v = [np.float32(0)] * 32
+    for c in range(wide.chunks(n)):
+        for l in range(32):
+            for q in range(4):
+                i = 128 * c + 4 * l + q
+                v[l] = _f32(v[l] + (x[i] if i < n else np.float32(0)))
+    o = 16
+    while o:
+        v = [_f32(v[l] + v[l ^ o]) for l in range(32)]
+        o //= 2
+    assert len(set(v)) == 1          # every lane holds the same sum
+    return v[0]
+
+
+def _kernel_cums(x):
+    """B1w's Gibbs sums, transcribed (chunk_scan and reassign_gibbs): in
+    chunk c a lane's running sums of its four products, the warp's
+    shfl_up scan of the lanes' sums, the exclusive offset, the chunks'
+    last-lane sums carried; the total a lane's sums of its four over the
+    chunks from 0, then the xor butterfly."""
+    import numpy as np
+    n = len(x)
+    cums, carry = {}, np.float32(0)
+    lane_tot = [np.float32(0)] * 32
+    for c in range(wide.chunks(n)):
+        loc = {}
+        incl = []
+        for l in range(32):
+            acc = None
+            for q in range(4):
+                i = 128 * c + 4 * l + q
+                v = x[i] if i < n else np.float32(0)
+                acc = v if acc is None else _f32(acc + v)
+                loc[l, q] = acc
+            incl.append(acc)
+            lane_tot[l] = _f32(lane_tot[l] + acc)
+        o = 1
+        while o < 32:
+            incl = [_f32(incl[l] + incl[l - o]) if l >= o else incl[l]
+                    for l in range(32)]
+            o *= 2
+        excl = [np.float32(0)] + incl[:31]
+        for l in range(32):
+            for q in range(4):
+                i = 128 * c + 4 * l + q
+                if i < n:
+                    cums[i] = _f32(carry + _f32(excl[l] + loc[l, q]))
+        carry = _f32(carry + incl[31])
+    o = 16
+    while o:
+        lane_tot = [_f32(lane_tot[l] + lane_tot[l ^ o]) for l in range(32)]
+        o //= 2
+    return [cums[i] for i in range(n)], lane_tot[0]
+
+
+def _kernel_read_sum(x, warps):
+    """B1w's read score, transcribed for a block of ``warps`` warps: warp
+    w takes groups g = w, w + warps, ...; its lane turn % (32 / warps)
+    adds the group's four reads; the slots in the head at w + warps m;
+    a butterfly over the 32 slots."""
+    import numpy as np
+    slots = 32 // warps
+    head = [np.float32(0)] * 32
+    G = -(-len(x) // 4)
+    for w in range(warps):
+        acc = [np.float32(0)] * slots
+        for turn, g in enumerate(range(w, G, warps)):
+            for j in range(4):
+                r = 4 * g + j
+                if r < len(x):
+                    acc[turn % slots] = _f32(acc[turn % slots] + x[r])
+        for m in range(slots):
+            head[w + warps * m] = acc[m]
+    o = 16
+    while o:
+        head = [_f32(head[l] + head[l ^ o]) for l in range(32)]
+        o //= 2
+    return head[0]
+
+
+@pytest.mark.parametrize("n", [1, 2, 31, 33, 128, 130, 300, 1100])
+def test_wide_orders_are_the_kernels(n):
+    """``wide_sum``, ``wide_cumsum`` and ``read_sum`` (torch, for the
+    plain versions) add in the order of the CUDA loops they mirror, to
+    the bit, on float32 values whose sums round; ``read_sum`` in every
+    block width alike."""
+    import numpy as np
+    import torch
+
+    x = (np.random.default_rng(n).random(n) * 10 ** np.random.default_rng(
+        n + 1).uniform(-3, 3, n)).astype(np.float32)
+    t = torch.from_numpy(x)
+    assert wide.wide_sum(t).item() == _kernel_slot_sum(x)
+    cums, total = wide.wide_cumsum(t)
+    want, want_total = _kernel_cums(x)
+    assert cums.tolist() == [float(v) for v in want]
+    assert total.item() == want_total
+    got = wide.read_sum(t).item()
+    for warps in (1, 2, 4, 8, 16):
+        assert _kernel_read_sum(x, warps) == got
+    # batched alike: a leading axis changes nothing
+    two = torch.stack([t, t.flip(0)])
+    assert wide.wide_sum(two)[0].item() == _kernel_slot_sum(x)
+    assert wide.wide_sum(two)[1].item() == _kernel_slot_sum(x[::-1].copy())
+
+
+@pytest.mark.parametrize("n", [2, 3, 128, 130, 300, 1100])
+def test_wide_first_is_the_first_cumulative_weight_that_reaches(n):
+    """``wide.wide_first`` (chunk by chunk) gives what a full walk of
+    ``wide_cumsum`` gives: the first i < n - 1 whose cumulative weight
+    reaches u times the total, n - 1 where none; on rows of zeros (a
+    padding read), of sparse weights, and at u = 0, 0.4999 and 1."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(n)
+    x = rng.random((6, 50, n)).astype(np.float32)
+    x *= rng.random((6, 50, n)) < 0.2
+    x[0] = 0.0
+    x[1, :, : n // 2] = 0.0
+    t = torch.from_numpy(x)
+    u = torch.from_numpy(rng.random((6, 50)).astype(np.float32))
+    u[2] = 0.0
+    u[3] = 0.4999
+    u[4] = 1.0
+    got, total = wide.wide_first(wide.quarters(t), n, u)
+    cums, want_total = wide.wide_cumsum(t)
+    assert torch.equal(total, want_total)
+    ge = cums[..., :-1] >= (u * total)[..., None]
+    want = torch.where(ge.any(-1), ge.to(torch.uint8).argmax(-1), n - 1)
+    assert torch.equal(got, want)
 
 
 # ------------------------------------------------------------- the bounds
