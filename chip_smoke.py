@@ -18,6 +18,9 @@
     python3 chip_smoke.py mesh       # likewise: the 2,000-gene REASSIGN,
                                      # MARGINAL and convergent runs, then
                                      # the mesh phase alone
+    python3 chip_smoke.py wide       # likewise: the wide kernels B1w and
+                                     # B2w alone (their checks, the wide
+                                     # buckets' runs and times)
     python3 chip_smoke.py multinomial [DIR]  # likewise: the deep route's
                                              # kernel B3 alone (its checks,
                                              # the deep catalog's runs, its
@@ -31,7 +34,8 @@ Builds the port's CUDA kernels from the sources in this checkout (one
 version -- at the main paths' shapes, at up to 64 isoforms (the narrow
 B1 and B2) and at 128, 512, 2,048 and 8,192 isoforms (the wide B1w and
 B2w, ``csrc/wide_kernel.cu``, which take every bucket from
-``wide.WIDE_FROM`` isoforms on; at 8,192 their lane arrays lie in
+``wide.WIDE_FROM`` and ``wide.WIDE_FROM_MARGINAL`` isoforms on, B1w
+reading the bucket's classes; at 8,192 their lane arrays lie in
 scratch) and on paired-end events; each kernel in every layout its
 launch plan can take (REASSIGN: lane width T and home of the weights;
 MARGINAL: lane width T; B1w and B2w: block width, shared memory or
@@ -133,14 +137,16 @@ from miso_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 from miso_tpu_torch.sampler import deep  # noqa: E402
 from miso_tpu_torch.sampler import marginal_kernel as mk  # noqa: E402
 from miso_tpu_torch.sampler import reassign_kernel as rk  # noqa: E402
+from miso_tpu_torch.sampler import wide as wd  # noqa: E402
 from miso_tpu_torch.sampler.mcmc import (  # noqa: E402
     EventBatch, SamplerConfig, batch_from_numpy)
 from miso_tpu_torch.testing import (  # noqa: E402
     BINOMIAL_REGIMES, PAIRED_GENE, binomial_batch, binomial_chi2,
     binomial_moments, class_batch, deepened, exact_marginal_mean_2iso,
-    indexed_catalog, lane_test_batch, marginal_lane_batch, multinomial_lane_batch,
-    packed_events, pad_events, padded_batch, paired_event,
-    simulate_catalog_bam, simulated_event, wide_event)
+    WIDE_CLASS_SLOTS, indexed_catalog, lane_test_batch, marginal_lane_batch,
+    multinomial_lane_batch, packed_events, pad_events, padded_batch,
+    paired_event, simulate_catalog_bam, simulated_event, wide_class_batch,
+    wide_event)
 
 # tests/exact_posterior.py is numpy/scipy only
 sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -204,9 +210,11 @@ WIDE_CHECK_ISO = ((128, 70), (512, 300), (2048, 1100), (8192, 4500))
 # on the short schedule
 WIDE_GENES = ((300, 512), (1100, 2048))
 WIDE_SHORT = dict(iters=60, burn_in=20, lag=2, chains=2)
-# the 4 x 300-isoform bucket at 5000 x 6 on the parent's 512-wide narrow
-# instances, B1 and B2 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)
-EARLIER_WIDE_MS = {"reassign": 10352.0, "marginal": 7288.0}
+# the wide buckets (4 genes of 300 and of 1,100 isoforms, I = 512 and
+# 2,048) at 5000 x 6 on the parent's B1w and B2w, B1w reading (R, I) read
+# tiles (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): not timed here
+EARLIER_WIDE_MS = {"reassign": {512: 232.5, 2048: 772.6},
+                   "marginal": {512: 34.1, 2048: 77.3}}
 # wider tiles (E, R, I) at which every layout is timed beside the plan's
 WIDE_SHAPES = ((2048, 320, 8), (512, 320, 8), (4, 320, 8), (2048, 1024, 8),
                (2048, 320, 16), (2048, 640, 4), (1024, 4096, 8),
@@ -1158,13 +1166,119 @@ def wide_case(kind, I, num_iso):
             mk._marginal_wide_cuda, mk._marginal_plain)
 
 
+def bit_equal(name, got, ref):
+    """Raise unless two results are equal to the bit; returns 0.0 (the
+    largest difference)."""
+    diff = bitwise(got.to_numpy(), ref.to_numpy())
+    print("  %-40s bit-equal %s" % (name, not any(diff.values())))
+    if any(diff.values()):
+        raise AssertionError("%s: not bit-equal to the plain version %s"
+                             % (name, diff))
+    return 0.0
+
+
+def expanded(batch, R):
+    """A class batch with its read tiles of R slots, as the plain
+    version reads it."""
+    rw, rls = rk.expand_read_tensors(batch.weights, batch.log_read,
+                                     batch.counts, R)
+    return batch._replace(read_w=rw, read_logscore=rls)
+
+
+# 12 classes in 20 read slots, some of 2 and 3 reads: more classes than
+# half the slots, so B1w walks every read (wide.walks)
+WALK_COUNTS = ((2, 1, 1, 0, 3, 1, 1, 1, 2, 1, 1, 1),
+               (1, 3, 1, 1, 1, 2, 0, 1, 1, 1, 1, 2))
+
+
+def b1w_class_check(cfg):
+    """B1w on class tensors (``wide_class_batch``: 7 classes in 20 read
+    slots, a class of no reads, one of zero weights whose reads straddle
+    two groups of four, padding reads), as run_sampler hands a wide
+    bucket over, against the plain version on the expanded tiles, to the
+    bit, at WIDE_CHECK_ISO: every block width, the lane arrays in
+    scratch, and tables of many tiles (2 rows a tile, and 1 in
+    scratch), from AUTO and GIVEN starts, also at 384 isoforms (rows of
+    three chunks, a warp's fourth slot idle); and at 512 isoforms a
+    launch of more classes than half its slots, whose reads walk."""
+    K, R = cfg.chains, WIDE_CLASS_SLOTS
+    print("reassign wide kernel on classes, fixed uniforms, every plan:")
+    for (I, num_iso), counts in [(w, None) for w in WIDE_CHECK_ISO] + [
+            ((384, 250), None), (WIDE_CHECK_ISO[1], WALK_COUNTS)]:
+        b = wide_class_batch(I, num_iso, I, DEV,
+                             *([] if counts is None else [counts]))
+        E, C, _ = b.weights.shape
+        tiles = expanded(b, R)
+        consts = rk._event_consts(b)
+        plans = rk.all_wide_plans(E, R, I, K, classes=C)
+        plans += [p._replace(shared_bytes=0) for p in plans if p.shared_bytes]
+        plans += [wd.tiled(plans[0], R, I, 2),
+                  wd.tiled(plans[2], R, I, 1)._replace(shared_bytes=0)]
+        for given in (False, True):
+            start = dirichlet_start(num_iso, E, K, I) if given else None
+            ref = rk._reassign_plain(0, tiles, cfg, consts, start,
+                                     rk.FIXED_U)
+            for plan in plans:
+                got = rk._reassign_wide_cuda(0, b, cfg, consts, start, True,
+                                             plan=plan, pad_reads=R)
+                torch.cuda.synchronize()
+                bit_equal("classes I=%d (%d real) C=%d %s threads=%d "
+                          "rows=%d %s" % (
+                              I, num_iso, C, "GIVEN" if given else "AUTO",
+                              plan.threads, plan.rows,
+                              "shared" if plan.shared_bytes else "scratch"),
+                          got, ref)
+        if I != 512 or counts is not None:
+            continue
+        # one Philox chain: every plan, and the expanded tiles alike
+        short = SamplerConfig(**WIDE_SHORT)
+        first = rk._reassign_wide_cuda(7, tiles, short, consts, None, False)
+        for plan in plans:
+            bit_equal("classes I=512 Philox threads=%d rows=%d %s" % (
+                plan.threads, plan.rows,
+                "shared" if plan.shared_bytes else "scratch"),
+                rk._reassign_wide_cuda(7, b, short, consts, None, False,
+                                       plan=plan, pad_reads=R), first)
+
+
+def b2w_at_64(cfg):
+    """C.4 on the card: MARGINAL and CLASSES buckets of 64 isoforms (60
+    and 64 real) go to B2w through the wrapper, equal the plain version
+    in B2w's order, and accept every fixed-uniform step, as the JAX
+    kernel and the f64 replica do (B2's order accepted 18 and 26 of
+    48)."""
+    for algorithm in ("marginal", "classes"):
+        c = SamplerConfig(algorithm=algorithm, **SMALL)
+        for real in (60, 64):
+            b = marginal_lane_batch(64, real, 64, DEV)
+            before = dict(mk.LAUNCHES)
+            got = mk.run_batch_marginal(0, b, c, fixed_uniform=mk.FIXED_U)
+            torch.cuda.synchronize()
+            went = {k: mk.LAUNCHES[k] - before[k] for k in before}
+            ref = mk._marginal_plain(0, b, c, mk._marginal_consts(b), None,
+                                     mk.FIXED_U, wide_order=True)
+            compare("%s I=64 (%d real) through the wrapper" % (
+                algorithm, real), got, ref)
+            accepted = got.accepted[:2].cpu().tolist()
+            print("    launches %s, accepted %s of %d each" % (
+                went, accepted, c.iters * c.chains))
+            if went != {"cuda": 0, "wide": 1, "plain": 0} or accepted != [
+                    c.iters * c.chains] * 2:
+                raise AssertionError("%s at I=64 (%d real): not B2w or not "
+                                     "the reference's chain" % (algorithm,
+                                                                real))
+
+
 def wide_plans_check():
     """B1w and B2w against their plain versions (the wide summing order)
     under fixed uniforms in every block width of their plans and with the
     lane arrays forced into scratch, from AUTO and GIVEN starts, at
     WIDE_CHECK_ISO (the widest past shared memory: every plan in
-    scratch); then one Philox chain in every plan at 512 isoforms.
-    Returns {kind: largest |d psi|}."""
+    scratch) -- B1w to the bit, on read tiles (a class a read: C = R)
+    and on class tensors, in tables of one and of many tiles; then one
+    Philox chain in every plan at 512 isoforms; then the MARGINAL and
+    CLASSES buckets of 64 isoforms on B2w.  Returns {kind: largest
+    |d psi|}."""
     small = SamplerConfig(**SMALL)
     K = small.chains
     errs = {}
@@ -1190,12 +1304,15 @@ def wide_plans_check():
                 for plan in plans:
                     got = launch(0, b, cfg, consts, start, True, plan=plan)
                     torch.cuda.synchronize()
-                    errs[kind] = max(errs[kind], compare(
-                        "I=%d (%d real) %s threads=%d %s" % (
-                            I, num_iso, "GIVEN" if given else "AUTO",
-                            plan.threads,
-                            "shared" if plan.shared_bytes else "scratch"),
-                        got, ref))
+                    name = "I=%d (%d real) %s threads=%d %s" % (
+                        I, num_iso, "GIVEN" if given else "AUTO",
+                        plan.threads,
+                        "shared" if plan.shared_bytes else "scratch")
+                    errs[kind] = max(errs[kind], compare(name, got, ref))
+                    if kind == "reassign":
+                        bit_equal(name, got, ref)
+        if kind == "reassign":
+            b1w_class_check(cfg)
         b, consts, plans, launch, _ = wide_case(kind, 512, 300)
         short = SamplerConfig(algorithm=kind, **WIDE_SHORT)
         first = None
@@ -1209,19 +1326,28 @@ def wide_plans_check():
                                      "depends on the plan %s" % (kind, plan))
         print("  Philox at I=512, %d x %d: bit-equal in every plan"
               % (short.iters, short.chains))
+    b2w_at_64(small)
     return errs
+
+
+def no_tiles(*args):
+    raise AssertionError("a wide REASSIGN bucket expanded its read tiles")
 
 
 def wide_buckets(gpu):
     """Buckets of 512 and 2,048 isoforms (four genes of 300 and of 1,100
     isoforms) through StreamRunner on the card at stock settings,
     REASSIGN then MARGINAL: each one launch of the wide kernel and of
-    nothing else, psi summing to one.  The wide kernel is then held
-    against its plain version on the bucket's own events under fixed
-    uniforms, timed beside it (short schedule; at 512 isoforms at stock
-    too, with its bound), and with Philox draws held against the exact
-    posterior of a two-isoform event padded to the bucket's width.
-    Returns {algorithm: the numbers kept}."""
+    nothing else, psi summing to one; REASSIGN's with the read-tile
+    expansion taken away (B1w reads the bucket's classes).  The wide
+    kernel is then held against its plain version on the bucket's own
+    events under fixed uniforms (B1w to the bit, on the bucket's class
+    tensors and on its read tiles: a class a read, C = R), timed beside
+    it (short schedule; at 512 isoforms at stock too, with its bounds:
+    B1w's for the class form it runs and for the reads' walks), and with
+    Philox draws held against the exact posterior of a two-isoform event
+    padded to the bucket's width.  Returns {algorithm: the numbers
+    kept}."""
     out = {}
     for algorithm in ("reassign", "marginal"):
         mod = rk if algorithm == "reassign" else mk
@@ -1231,84 +1357,129 @@ def wide_buckets(gpu):
         for gene_iso, width in WIDE_GENES:
             evs = [wide_event(algorithm, num_iso=gene_iso, seed=3 + j)
                    for j in range(4)]
+            key = tp._bucket_key(evs[0])
             cfg = tp.RunConfig(read_len=25, algorithm=algorithm)
-            with Launches() as lc:
-                t = time.time()
-                results = tp.run_events(evs, cfg, seed=0, device=DEV)
-                wall = time.time() - t
+            saved = rk.expand_read_tensors
+            rk.expand_read_tensors = no_tiles
+            try:
+                with Launches() as lc:
+                    t = time.time()
+                    results = tp.run_events(evs, cfg, seed=0, device=DEV)
+                    wall = time.time() - t
+            finally:
+                rk.expand_read_tensors = saved
             sums = np.array([r["samples"][:, :gene_iso].sum(axis=1)
                              for r in results])
             mine = {"cuda": 0, "wide": 1, "plain": 0}
             idle = {"cuda": 0, "wide": 0, "plain": 0}
             kernel = algorithm + "_wide"
+            launched = lc.largest[kernel][1]
             ok = (lc.counts["reassign"] == (mine if mod is rk else idle)
                   and lc.counts["marginal"] == (mine if mod is mk else idle)
                   and lc.counts["multinomial"] == {"cuda": 0, "plain": 0}
-                  and lc.largest[kernel][1].weights.shape[2] == width
+                  and launched.weights.shape[2] == width
+                  and launched.read_w.shape[1] == 1
                   and np.all(np.abs(sums - 1.0) < 0.03)
                   and all(np.isfinite(r["loglik"]).all() for r in results))
             stock_ms = lc.ms(kernel)    # the launch of the run above
             print("wide bucket, %s: %d events of %d isoforms in a bucket of "
-                  "%d, %d x %d: %.2fs, kernel %.1f ms; launches %s; psi sums "
-                  "%.4f..%.4f  [%s]"
-                  % (algorithm, len(evs), gene_iso, width, cfg.iters,
-                     cfg.chains, wall, stock_ms, lc.counts, sums.min(),
-                     sums.max(), gpu))
+                  "%d (C=%d, %d read slots), %d x %d: %.2fs, kernel %.1f ms; "
+                  "launches %s; the kernel's batch %s; psi sums %.4f..%.4f  "
+                  "[%s]" % (algorithm, len(evs), gene_iso, width, key[1],
+                            key[2], cfg.iters, cfg.chains, wall, stock_ms,
+                            lc.counts, tuple(launched.read_w.shape),
+                            sums.min(), sums.max(), gpu))
             if not ok:
-                raise AssertionError("wide %s bucket of %d: launches or psi"
-                                     % (algorithm, width))
+                raise AssertionError("wide %s bucket of %d: launches, tiles "
+                                     "or psi" % (algorithm, width))
             row["launches"] += lc.counts[algorithm]["wide"]
             # the wide kernel against the plain version at the bucket's
             # shape, and both timed
             b = padded_batch(evs, DEV)
-            if b.weights.shape[2] != width:
+            cb, _ = batch_from_numpy(pad_events(
+                evs, pad_iso=key[0], pad_classes=key[1], pad_reads=key[2],
+                read_dtype=np.float32, per_read=False), DEV)
+            R = key[2]
+            if b.weights.shape[2] != width or cb.weights.shape[2] != width:
                 raise AssertionError("wide bucket pads to %d isoforms"
                                      % b.weights.shape[2])
             short = SamplerConfig(algorithm=algorithm, **WIDE_SHORT)
             for given in (False, True):
                 start = (dirichlet_start(gene_iso, len(evs), short.chains,
                                          width) if given else None)
-                row["max_err"] = max(row["max_err"], compare(
-                    "%s wide bucket I=%d (%d real) %s" % (
-                        algorithm, width, gene_iso,
-                        "GIVEN" if given else "AUTO"),
-                    *both(0, b, short, start, mod.FIXED_U)))
+                label = "%s wide bucket I=%d (%d real) %s" % (
+                    algorithm, width, gene_iso, "GIVEN" if given else "AUTO")
+                got, ref = both(0, b, short, start, mod.FIXED_U)
+                row["max_err"] = max(row["max_err"], compare(label, got, ref))
+                if mod is rk:
+                    bit_equal(label + " C=R", got, ref)
+                    cref = rk._reassign_plain(
+                        0, expanded(cb, R), short, rk._event_consts(cb),
+                        start, rk.FIXED_U)
+                    cgot = rk.run_batch_reassign(
+                        0, cb, short, start_psi=start,
+                        fixed_uniform=rk.FIXED_U, pad_reads=R)
+                    torch.cuda.synchronize()
+                    row["max_err"] = max(row["max_err"], compare(
+                        label + " classes", cgot, cref))
+                    bit_equal(label + " classes C=%d" % key[1], cgot, cref)
             consts = (rk._event_consts(b) if mod is rk
                       else mk._marginal_consts(b))
             plain = rk._reassign_plain if mod is rk else mk._marginal_plain
-            short_ms = timed(lambda: run(3, b, short), reps=3)
+            if mod is rk:
+                # B1w as the pipeline launches it: the bucket's classes
+                def launch(c):
+                    return rk.run_batch_reassign(3, cb, c, pad_reads=R)
+            else:
+                def launch(c):
+                    return run(3, b, c)
+            short_ms = timed(lambda: launch(short), reps=3)
             plain_short_ms = timed(lambda: plain(3, b, short, consts),
                                    reps=1)
-            direct_ms = timed(lambda: run(3, b, stock), reps=2)
+            direct_ms = timed(lambda: launch(stock), reps=2)
+            entry = {"stock_ms": stock_ms, "direct_ms": direct_ms,
+                     "short_ms": short_ms, "plain_short_ms": plain_short_ms,
+                     "classes": key[1], "read_slots": key[2]}
             if mod is rk:
+                valid = int((b.read_w.sum(-1) > 0).sum())
+                live = int(rk.class_map(cb.counts, R)[3].sum())
                 bound = rk.reassign_bound(
+                    len(evs), R, width, stock.chains, stock.iters,
+                    stock.num_records, valid_reads=valid, classes=live)
+                reads_bound = rk.reassign_bound(
                     *b.read_w.shape, stock.chains, stock.iters,
-                    stock.num_records,
-                    valid_reads=int((b.read_w.sum(-1) > 0).sum()))
+                    stock.num_records, valid_reads=valid)
+                # the read tiles, a class a read: the worst case
+                entry["tiles_ms"] = timed(lambda: run(3, b, stock), reps=2)
+                entry["live_classes"] = live
+                entry["bound_reads_ms"] = reads_bound["bound_ms"]
             else:
                 bound = mk.marginal_bound(
                     *b.weights.shape, stock.chains, stock.iters,
                     stock.num_records,
                     live_classes=int((b.counts > 0).sum()))
-            entry = {"stock_ms": stock_ms, "direct_ms": direct_ms,
-                     "short_ms": short_ms, "plain_short_ms": plain_short_ms,
-                     "bound_ms": bound["bound_ms"],
-                     "bound_by": bound["bound_by"],
-                     "shape": list(b.read_w.shape if mod is rk
-                                   else b.weights.shape)}
+            entry.update(bound_ms=bound["bound_ms"],
+                         bound_by=bound["bound_by"],
+                         shape=list(b.read_w.shape if mod is rk
+                                    else b.weights.shape))
             if width == 512:
                 entry["plain_stock_ms"] = timed(
                     lambda: plain(3, b, stock, consts), reps=1)
             print("wide bucket, %s kernel at I=%d %s=%d E=%d: %d x %d %.2f ms "
                   "(plain version %.2f ms); %d x %d %.2f ms in the run, %.2f "
-                  "ms alone%s; bound %.4f ms (%s)  [%s]"
+                  "ms alone%s%s; bound %.4f ms (%s)%s  [%s]"
                   % (algorithm, width, "R" if mod is rk else "C",
                      entry["shape"][1], len(evs), short.iters, short.chains,
                      short_ms, plain_short_ms, stock.iters, stock.chains,
                      stock_ms, direct_ms,
+                     ", on read tiles (C = R) %.2f ms" % entry["tiles_ms"]
+                     if "tiles_ms" in entry else "",
                      ", plain version %.1f ms" % entry["plain_stock_ms"]
                      if "plain_stock_ms" in entry else "",
-                     bound["bound_ms"], bound["bound_by"], gpu))
+                     bound["bound_ms"], bound["bound_by"],
+                     "; %d live classes, the reads' walks' bound %.4f ms" % (
+                         entry["live_classes"], entry["bound_reads_ms"])
+                     if mod is rk else "", gpu))
             # Philox draws through the same kernel: the exact posterior
             tb, exact = wide_two_iso(algorithm, width)
             res = run(1, tb, SamplerConfig(algorithm=algorithm, **PHILOX))
@@ -1321,11 +1492,16 @@ def wide_buckets(gpu):
                                      "posterior at %d isoforms"
                                      % (algorithm, width))
             row["I=%d" % width] = entry
-        print("wide %s kernel at 4 genes of 300 isoforms, 5000 x 6: %.1f ms "
-              "in the run, %.1f ms alone; the parent's 512-wide narrow "
-              "instance %.0f ms (PERF.md, not timed here)  [%s]"
-              % (algorithm, row["I=512"]["stock_ms"],
-                 row["I=512"]["direct_ms"], EARLIER_WIDE_MS[algorithm], gpu))
+        (n1, w1), (n2, w2) = WIDE_GENES
+        print("wide %s kernel, 5000 x 6: 4 genes of %d isoforms %.1f ms in "
+              "the run, %.1f ms alone; of %d isoforms %.1f / %.1f ms; the "
+              "earlier %.1f / %.1f ms (B1w on read tiles, and B2w, "
+              "PERF.md, not timed here)  [%s]"
+              % (algorithm, n1, row["I=%d" % w1]["stock_ms"],
+                 row["I=%d" % w1]["direct_ms"], n2,
+                 row["I=%d" % w2]["stock_ms"], row["I=%d" % w2]["direct_ms"],
+                 EARLIER_WIDE_MS[algorithm][w1],
+                 EARLIER_WIDE_MS[algorithm][w2], gpu))
         out[algorithm] = row
     return out
 
@@ -2075,6 +2251,14 @@ def main(only=None, sass_dir=None) -> int:
               % (time.time() - T_START, gpu))
         return 0
 
+    if only == "wide":
+        # the wide kernels' checks and buckets alone
+        wide_plans_check()
+        wide_buckets(gpu)
+        print("chip_smoke wide: %.1fs in all  [%s]"
+              % (time.time() - T_START, gpu))
+        return 0
+
     if only == "hosts":
         # the multi-host run and the host tools alone
         with tempfile.TemporaryDirectory(prefix="miso_smoke_") as tmp:
@@ -2384,6 +2568,14 @@ def main(only=None, sass_dir=None) -> int:
     bound = rk.reassign_bound(
         E, R, I, STOCK.chains, STOCK.iters, STOCK.num_records,
         valid_reads=int((big.read_w.sum(-1) > 0).sum()))
+    # the same work in the class form B1w runs (a row a class, a search a
+    # read): B1's bound were it to read the classes
+    bound_classes = rk.reassign_bound(
+        E, R, I, STOCK.chains, STOCK.iters, STOCK.num_records,
+        valid_reads=int((big.read_w.sum(-1) > 0).sum()),
+        classes=int(rk.class_map(big.counts, R).nact.sum()))
+    print("reassign bound at its main shape in the class form: %.4f ms "
+          "(%s)" % (bound_classes["bound_ms"], bound_classes["bound_by"]))
     m_bound = mk.marginal_bound(
         Em, Cm, Im, STOCK_M.chains, STOCK_M.iters, STOCK_M.num_records,
         live_classes=int((big_m.counts > 0).sum()))
@@ -2415,6 +2607,7 @@ def main(only=None, sass_dir=None) -> int:
         + mesh_runs["convergent"].counts["reassign"]["cuda"],
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+        "bound_classes_ms": bound_classes["bound_ms"],
         "library_ms": None,
         "main_path_launches": lc_r.counts["reassign"]["cuda"],
         "main_path_ms": lc_r.ms("reassign"),
@@ -2472,6 +2665,7 @@ def main(only=None, sass_dir=None) -> int:
         "bound_ms": wide[kind]["I=512"]["bound_ms"],
         "bound_by": wide[kind]["I=512"]["bound_by"], "library_ms": None,
         "main_path_ms": wide[kind]["I=512"]["stock_ms"],
+        "bucket_512": wide[kind]["I=512"],
         "bucket_2048": wide[kind]["I=2048"]}
         for kind, replaces in (
             ("reassign", "miso_tpu/sampler/pallas_kernel.py:120"),
@@ -2484,10 +2678,10 @@ def main(only=None, sass_dir=None) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] not in ([], ["marginal"], ["hosts"], ["mesh"],
-                             ["multinomial"]) \
+                             ["multinomial"], ["wide"]) \
             or len(sys.argv) > (3 if sys.argv[1:2] in (["marginal"],
                                                        ["multinomial"])
                                 else 2):
         sys.exit("usage: python3 chip_smoke.py [marginal [SASS_DIR] | hosts "
-                 "| mesh | multinomial [SASS_DIR]]")
+                 "| mesh | multinomial [SASS_DIR] | wide]")
     sys.exit(main(*sys.argv[1:]))

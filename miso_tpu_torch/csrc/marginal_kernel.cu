@@ -62,7 +62,7 @@ namespace {
 
 // Instances for I = 2 ... 64 (KERNEL_ISO in reassign_kernel.py); their
 // loops over the isoforms (and the I/2 normal pairs) unroll fully.  From
-// wide.WIDE_FROM isoforms on, of any width, the wide kernel
+// wide.WIDE_FROM_MARGINAL isoforms on, of any width, the wide kernel
 // (wide_kernel.cu) takes a bucket: a lane a block, its arrays once in
 // shared memory.
 

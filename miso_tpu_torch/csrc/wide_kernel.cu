@@ -2,9 +2,10 @@
 // (sm_90a): one (event, chain) lane a block, its isoforms over the block's
 // threads, the isoform width I an argument of the launch.
 //
-// B1w replaces miso_tpu/sampler/pallas_kernel.py::_sampler_kernel and B2w
-// miso_tpu/sampler/pallas_marginal.py::_marginal_kernel for every bucket
-// of at least WIDE_FROM isoforms (sampler/wide.py), of any width.  They
+// B1w replaces miso_tpu/sampler/pallas_kernel.py::_sampler_kernel for
+// every bucket of at least WIDE_FROM isoforms and B2w
+// miso_tpu/sampler/pallas_marginal.py::_marginal_kernel from
+// WIDE_FROM_MARGINAL (sampler/wide.py), of any width.  They
 // compute what reassign_kernel.cu and marginal_kernel.cu compute: AUTO or
 // GIVEN start, the logistic-normal drift proposal, MH, burn-in/lag
 // records; B1w the per-read inverse-CDF Gibbs draw with the pad
@@ -21,10 +22,10 @@
 //
 // - A lane is a block of `threads` (32 ... 512, wide_plan) threads.  Its
 //   I-wide arrays (alpha, psi, the proposal's normals, efflen terms, hyper
-//   - 1, the counts, the terms summed each step) lie once in dynamic
-//   shared memory, or, past the block's limit (227 KB: from 5,761
-//   isoforms for B1w), in a global scratch buffer the wrapper allocates.
-//   No width is too wide.
+//   - 1, the counts, the terms summed each step; B1w's read scores and
+//   class table) lie once in dynamic shared memory, or, past the block's
+//   limit (227 KB: for B1w from ~5,700 isoforms), in a global scratch
+//   buffer the wrapper allocates.  No width is too wide.
 // - Chunks.  I is padded to P = 128 ceil(I / 128) isoforms, in chunks of
 //   128: warp lane l owns isoforms 128 c + 4 l + q (q = 0 ... 3) of
 //   every chunk c, so that a warp reading a chunk of a lane array, of
@@ -37,19 +38,23 @@
 //   block take the step's sums side by side.  So the chain does not
 //   depend on the plan, and the plain version reproduces it
 //   (wide.wide_sum).
-// - B1w's Gibbs draw is warp-cooperative: a warp takes a group of four
-//   reads (one Philox call keyed by the group, as in B1) and walks them
-//   side by side.  A chunk's cumulative weights are a lane's running sum
-//   of its four w * psi, a warp scan (shuffles up) of the lanes' sums,
-//   and the chunks before it carried in order; a first pass sums the
-//   read to its total (a lane's chunks, then a butterfly: no scan), a
-//   second walks the chunks again to the first isoform that reaches
-//   u * total, found by a ballot, and stops there: the inverse CDF in
-//   isoform order.  The reads' (R, I) tile stays in global memory, read
-//   in whole chunks through L1; the counts are integers added by shared
-//   atomics, so their order is free.  A lane is one SM, and its step is
-//   bound by the instructions that SM issues: ~50 shuffles and two
-//   passes a group (PERF.md).
+// - B1w reads its event as classes, never as (R, I) read tiles: the
+//   reads of a class share its weights, so each step builds, for every
+//   class with reads, the class's cumulative row (its running maximum)
+//   and total once, a warp a row, in a table in shared memory, and each
+//   read then finds its isoform by a binary search in its class's row
+//   (~log2 I loads of shared memory), its group's uniforms drawn by one
+//   Philox call keyed by the group, as in B1.  The rows are the floats a
+//   walk along each read's row computed, in the same order, so the chain
+//   is the per-read walk's.  Where the whole table would not fit a block
+//   beside the lane's arrays, or would leave an SM too few warps, it is
+//   taken a tile of rows at a time (wide.py, table_rows), each tile
+//   followed by the run of reads that falls in it.  Where a launch's
+//   classes are most of its read slots (wide.walks; read tiles, a class
+//   a read) a row costs more than its reads' walks: every read then
+//   walks its class's row (walk_reads), as B1w did before it read
+//   classes.  The counts are integers added by
+//   shared atomics, so their order is free.
 // - B2w's warps split the classes (two at a time), the lanes of a warp
 //   a class row's isoforms.
 // - Randoms: B1's and B2's Philox counters, (lane, step, pair j,
@@ -70,22 +75,23 @@ constexpr float kNegBig = -1e30f;
 constexpr float kTiny = 1e-38f;
 constexpr float kTwoM24 = 5.9604644775390625e-08f;  // 2^-24
 constexpr float kTwoM23 = 1.1920928955078125e-07f;  // 2^-23
+constexpr float kNegInf = -__builtin_huge_valf();
 constexpr unsigned kFull = 0xffffffffu;
 
 // Philox counter word 3: which draw of a step the bits feed.
 constexpr uint32_t kReads = 0, kNormals = 1, kAccept = 2;
 
 // The plan's constants (wide.py: WIDE_THREADS, HEAD_FLOATS,
-// REASSIGN_ARRAYS, MARGINAL_ARRAYS, MAX_SHARED).
+// REASSIGN_ARRAYS, MARGINAL_ARRAYS, ROW_SCALARS, MAX_SHARED).
 constexpr int kMaxThreads = 512;
 constexpr int kHeadFloats = 64;  // a lane's scalars, ahead of its arrays
 constexpr int kReassignArrays = 10;
 constexpr int kMarginalArrays = 11;
+constexpr int kRowScalars = 2;  // a table row's total and flag
 constexpr int kMaxShared = 232448;
 
-// The head: sums of a phase, and 32 partial sums (per warp, or the read
-// score's 32 slots).
-constexpr int kSums = 0, kParts = 32;
+// The head: the sums of a phase.
+constexpr int kSums = 0;
 
 // The 128-isoform chunks of n (wide.chunks): n padded to 128 chunks(n).
 __host__ __device__ inline int chunks(int n) { return (n + 127) / 128; }
@@ -168,8 +174,19 @@ __device__ __forceinline__ void load4(const float* row, int i0, int I,
 
 // ---------------------------------------------------------------- B1w
 struct ReassignParams {
-  const float* read_w;     // (E, R, I), R % 4 == 0
-  const float* read_ls;    // (E, R, I)
+  const float* weights;    // (E, C, I) class weights
+  const float* log_read;   // (E, C, I) a class's read score by isoform
+  const int* cls;          // (E, A) the classes of the table
+  const int* first;        // (E, A + 1) first read slot of each, then
+                           // the event's slots with reads
+  const int* slot;         // (E, R) read slot r's entry in cls, or -1
+  const int* nact;         // (E,) classes in cls
+  const int* walk;         // (E, R) the slots whose reads walk, then -1;
+                           // null: slot s (read tiles)
+  const int* wcls;         // (E, R) the class of each slot in walk; null:
+                           // class s
+  const int* nwalk;        // (E,) slots in walk
+  const float* nvalid;     // (E,) reads some isoform can take
   const float* log_iso_w;  // (E, I), clamped at kNegBig
   const float* hyper;      // (E, I), 1 on padded isoforms
   const int* num_iso;      // (E,)
@@ -181,14 +198,15 @@ struct ReassignParams {
   float* final_n;          // (E, K, I)
   float* final_psi;        // (E, K, I)
   float* scratch;          // lane arrays, or null: in shared memory
-  int E, R, I, K, iters, burn_in, lag, rrec;
+  int E, C, A, R, I, K, iters, burn_in, lag, rrec;
+  int rows;                // class rows of a table tile
   Keys keys;
   int fixed_u;
   // a Gibbs uniform is bits * u_scale + u_shift: (2^-24, 0), or
   // (0, 0.4999f) under fixed_u
   float u_scale, u_shift;
   int nc, lane_floats;  // chunks of I; a lane's floats
-  int vec;  // rows of 16-byte pieces: I % 4 == 0 and read_w aligned
+  int vec;  // rows of 16-byte pieces: I % 4 == 0 and weights aligned
 };
 
 __device__ __forceinline__ float gibbs_uniform(uint32_t b,
@@ -217,75 +235,77 @@ __device__ __forceinline__ void reassign_normals(const ReassignParams& p,
   }
 }
 
-// A chunk of a group's four reads: each lane's running sums loc of its
-// four w * psi, and the warp's inclusive scan incl of the lanes' sums.
-__device__ __forceinline__ void chunk_scan(const float* row, int I, int i0,
-                                           bool vec, const float* psi,
-                                           float loc[4][4], float incl[4]) {
-  const int l = (int)threadIdx.x & 31;
-  const float4 ps = four(psi, i0);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    float wv[4];
-    load4(row + (size_t)j * I, i0, I, vec, wv);
-    loc[j][0] = wv[0] * ps.x;
-    loc[j][1] = loc[j][0] + wv[1] * ps.y;
-    loc[j][2] = loc[j][1] + wv[2] * ps.z;
-    loc[j][3] = loc[j][2] + wv[3] * ps.w;
-    incl[j] = loc[j][3];
-  }
-  for (int o = 1; o < 32; o <<= 1) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float y = __shfl_up_sync(kFull, incl[j], o);
-      if (l >= o) incl[j] = incl[j] + y;
-    }
-  }
-}
-
-// One Gibbs sweep over the event's reads at psi: cnt gets the counts
-// (integers: a read that no isoform can take counts nowhere), and the
-// return value is the read score when RP (a record will read it), else 0.
-// A read's cumulative weight at isoform 128 c + 4 l + q is carry_c +
-// (excl_l + loc_q): the chunks' totals carried in order, the lane's
-// exclusive scan, its running sum; its total is each lane's sums over
-// the chunks, added by a butterfly (wide.wide_cumsum).  The read score,
-// too, is summed in one order whatever the block: group of four reads g
-// adds into slot g % 32 (warp w takes the groups, and so the slots, w,
-// w + warps, ...: lane m of warp w keeps slot w + warps m), in ascending
-// g, then a butterfly over the slots.  Ends with the block synchronised.
+// The reads of a launch whose classes are about as many as its reads
+// (wide.walks: read tiles, a class a read), walked as B1w walked every
+// read before it read classes, no table built: a warp takes four of them
+// side by side, each read's row (its class's) summed to its total (a
+// lane's sums of its four, chunk after chunk, then a butterfly), then
+// walked chunk by chunk to the first isoform i < I - 1 whose cumulative
+// weight reaches u * total, found by a ballot (carry_c + (excl_l +
+// loc_q), wide.wide_cumsum), else I - 1.  A read's uniform is its group's Philox
+// call, keyed by (lane, step, slot / 4, kReads), drawn once for reads of
+// one group.  Where classes hold several reads, a row shared in the
+// table costs less (class_rows).
 template <bool RP>
-__device__ float reassign_gibbs(const ReassignParams& p, int e,
-                                uint32_t lane, uint32_t step,
-                                const float* psi, int* cnt, float* head) {
-  const int I = p.I, nc = p.nc;
-  for (int x = (int)threadIdx.x; x < 128 * nc; x += (int)blockDim.x)
-    cnt[x] = 0;
-  __syncthreads();
+__device__ __forceinline__ void walk_reads(const ReassignParams& p, int e,
+                                             uint32_t lane, uint32_t step,
+                                             const float* psi, int* cnt,
+                                             float* rs) {
   const int warps = (int)blockDim.x >> 5, w = (int)threadIdx.x >> 5;
   const int l = (int)threadIdx.x & 31;
+  const int I = p.I, nc = p.nc, ns = p.nwalk[e];
   const bool vec = p.vec != 0;
-  const float* rw = p.read_w + (size_t)e * p.R * I;
-  const float* rl = p.read_ls + (size_t)e * p.R * I;
-  const int slots = 32 / warps;  // read-score slots of a warp
-  float rp = 0.f;
-  for (int g = w, turn = 0; g < (p.R >> 2); g += warps, ++turn) {
-    const uint4 b =
-        philox4x32_10(make_uint4(lane, step, (uint32_t)g, kReads), p.keys);
-    const float u[4] = {gibbs_uniform(b.x, p), gibbs_uniform(b.y, p),
-                        gibbs_uniform(b.z, p), gibbs_uniform(b.w, p)};
-    const float* row = rw + (size_t)(4 * g) * I;
+  const int* walk = p.walk != nullptr ? p.walk + (size_t)e * p.R : nullptr;
+  const int* wcls = p.wcls != nullptr ? p.wcls + (size_t)e * p.R : nullptr;
+  const float* W = p.weights + (size_t)e * p.C * I;
+  const float* LR = p.log_read + (size_t)e * p.C * I;
+  for (int s0 = 4 * w; s0 < ns; s0 += 4 * warps) {
+    int r[4], c[4];
+    float u[4];
+    if (walk == nullptr) {
+      // read tiles: the pass is group s0 / 4, its reads' rows in turn
+      const uint4 b = philox4x32_10(
+          make_uint4(lane, step, (uint32_t)s0 >> 2, kReads), p.keys);
+      const uint32_t bits[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        r[j] = s0 + j < ns ? s0 + j : -1;
+        c[j] = s0 + j < ns ? s0 + j : s0;
+        u[j] = gibbs_uniform(bits[j], p);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // a slot past the list repeats the pass's first, counted nowhere
+        const int s = s0 + j < ns ? s0 + j : s0;
+        r[j] = s0 + j < ns ? walk[s] : -1;
+        c[j] = wcls[s];
+      }
+      uint32_t g = 0xffffffffu;
+      uint4 b = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int rr = r[j] >= 0 ? r[j] : r[0];
+        if ((uint32_t)rr >> 2 != g) {
+          g = (uint32_t)rr >> 2;
+          b = philox4x32_10(make_uint4(lane, step, g, kReads), p.keys);
+        }
+        const int q = rr & 3;
+        u[j] = gibbs_uniform(q == 0 ? b.x : q == 1 ? b.y : q == 2 ? b.z : b.w,
+                             p);
+      }
+    }
     // the reads' totals: a lane's sums of its four, chunk after chunk,
     // then a butterfly over the lanes
     float total[4] = {0.f, 0.f, 0.f, 0.f};
     bool any[4] = {false, false, false, false};
-    for (int c = 0; c < nc; ++c) {
-      const int i0 = 128 * c + 4 * l;
+    for (int ch = 0; ch < nc; ++ch) {
+      const int i0 = 128 * ch + 4 * l;
       const float4 ps = four(psi, i0);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float wv[4];
-        load4(row + (size_t)j * I, i0, I, vec, wv);
+        load4(W + (size_t)c[j] * I, i0, I, vec, wv);
         float a = wv[0] * ps.x;
         a = a + wv[1] * ps.y;
         a = a + wv[2] * ps.z;
@@ -295,9 +315,9 @@ __device__ float reassign_gibbs(const ReassignParams& p, int e,
                  wv[3] > 0.f;
       }
     }
-    float loc[4][4], incl[4], target[4], carry[4] = {0.f, 0.f, 0.f, 0.f};
+    float target[4], carry[4] = {0.f, 0.f, 0.f, 0.f};
     bool valid[4];
-    int found[4] = {-1, -1, -1, -1};  // the same on every lane
+    int found[4];  // the same on every lane
     for (int o = 16; o > 0; o >>= 1) {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
@@ -305,16 +325,33 @@ __device__ float reassign_gibbs(const ReassignParams& p, int e,
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      valid[j] = __any_sync(kFull, any[j]);
+      valid[j] = __any_sync(kFull, any[j]) && r[j] >= 0;
       target[j] = u[j] * total[j];
+      found[j] = valid[j] ? -1 : 0;  // nothing to walk for the others
     }
-    // the first isoform i < I - 1 whose cumulative weight reaches the
-    // read's target, chunk by chunk until each read has one
-    for (int c = 0; c < nc; ++c) {
+    for (int ch = 0; ch < nc; ++ch) {
       if (found[0] >= 0 && found[1] >= 0 && found[2] >= 0 && found[3] >= 0)
         break;
-      const int i0 = 128 * c + 4 * l;
-      chunk_scan(row, I, i0, vec, psi, loc, incl);
+      const int i0 = 128 * ch + 4 * l;
+      const float4 ps = four(psi, i0);
+      float loc[4][4], incl[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float wv[4];
+        load4(W + (size_t)c[j] * I, i0, I, vec, wv);
+        loc[j][0] = wv[0] * ps.x;
+        loc[j][1] = loc[j][0] + wv[1] * ps.y;
+        loc[j][2] = loc[j][1] + wv[2] * ps.z;
+        loc[j][3] = loc[j][2] + wv[3] * ps.w;
+        incl[j] = loc[j][3];
+      }
+      for (int o = 1; o < 32; o <<= 1) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float y = __shfl_up_sync(kFull, incl[j], o);
+          if (l >= o) incl[j] = incl[j] + y;
+        }
+      }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float excl = __shfl_up_sync(kFull, incl[j], 1);
@@ -334,22 +371,293 @@ __device__ float reassign_gibbs(const ReassignParams& p, int e,
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
+      if (!valid[j] || l != 0) continue;
       const int ch = found[j] >= 0 ? found[j] : I - 1;
-      if (l == 0 && valid[j]) atomicAdd(&cnt[ch], 1);
-      if (RP && valid[j] && l == turn % slots)
-        rp = rp + rl[(size_t)(4 * g + j) * I + ch];
+      atomicAdd(&cnt[ch], 1);
+      if (RP) rs[r[j]] = LR[(size_t)c[j] * I + ch];
     }
   }
-  if (RP && l < slots) head[kParts + w + warps * l] = rp;
+}
+
+// A tile's class rows at psi, into the table: row t (class cls[t]) gets
+// its cumulative weights' running maximum at tab + t P, its total at
+// tot[t] and at flag[t] whether some weight is > 0.  A cumulative weight
+// at isoform 128 c + 4 l + q is carry_c + (excl_l + loc_q): lane l's
+// running sums loc of its four w * psi, the warp's exclusive scan
+// (shuffles up) of the lanes' sums, the chunks' totals carried in order;
+// the total is each lane's sums over the chunks, added by a butterfly
+// (wide.wide_cumsum): the floats a per-read walk computed, in its order.
+// The scan adds the lanes' sums as a tree, so a lane's first cumulative
+// weight can fall an ulp below the lane before it's last: the row keeps
+// the running maximum (exact, in any order), which never falls, and
+// whose first value that reaches a target is the first cumulative weight
+// that does.
+//
+// A warp takes RPP rows (t, t + warps, ...) and CPP chunks of each at
+// once, RPP * CPP = 4 slots whose loads and shuffle chains overlap: four
+// rows a chunk at a time below 384 isoforms, one row four chunks at a
+// time from there (wide_rows picks); the carries and maxima then
+// pass from chunk to chunk in order, a few adds.  The next chunks'
+// weights are loaded while these are scanned.  A warp with fewer rows
+// left repeats its first and writes it once.
+template <int RPP, int CPP>
+__device__ __forceinline__ void class_rows(const ReassignParams& p, int e,
+                                           const float* psi, const int* cls,
+                                           int n, float* tab, float* tot,
+                                           int* flag) {
+  constexpr int NR = RPP * CPP;  // slot j: row j / CPP, chunk j % CPP
+  const int warps = (int)blockDim.x >> 5, w = (int)threadIdx.x >> 5;
+  const int l = (int)threadIdx.x & 31;
+  const int I = p.I, P = 128 * p.nc, nc = p.nc;
+  const bool vec = p.vec != 0;
+  const float* W = p.weights + (size_t)e * p.C * I;
+  for (int t = w; t < n; t += RPP * warps) {
+    int tt[RPP];
+    bool own[RPP];  // the row is this slot's to write (not a repeat)
+    const float* row[RPP];
+    float total[RPP], carry[RPP], cmax[RPP];
+    bool any[RPP];
+#pragma unroll
+    for (int k = 0; k < RPP; ++k) {
+      own[k] = t + k * warps < n;
+      tt[k] = own[k] ? t + k * warps : t;
+      row[k] = W + (size_t)cls[tt[k]] * I;
+      total[k] = 0.f;
+      carry[k] = 0.f;
+      cmax[k] = kNegInf;
+      any[k] = false;
+    }
+    float wn[NR][4];  // the next chunks' weights (zeros past the last)
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      const int c = j % CPP;
+      if (c < nc) {
+        load4(row[j / CPP], 128 * c + 4 * l, I, vec, wn[j]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) wn[j][q] = 0.f;
+      }
+    }
+    for (int c0 = 0; c0 < nc; c0 += CPP) {
+      float loc[NR][4], incl[NR], mx[NR], v[NR][4], wc[NR][4];
+#pragma unroll
+      for (int j = 0; j < NR; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) wc[j][q] = wn[j][q];
+      if (c0 + CPP < nc) {
+#pragma unroll
+        for (int j = 0; j < NR; ++j) {
+          const int c = c0 + CPP + j % CPP;
+          if (c < nc) {
+            load4(row[j / CPP], 128 * c + 4 * l, I, vec, wn[j]);
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) wn[j][q] = 0.f;
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NR; ++j) {
+        const int c = c0 + j % CPP;
+        float4 ps = {0.f, 0.f, 0.f, 0.f};
+        if (c < nc) ps = four(psi, 128 * c + 4 * l);
+        const float* wv = wc[j];
+        loc[j][0] = wv[0] * ps.x;
+        loc[j][1] = loc[j][0] + wv[1] * ps.y;
+        loc[j][2] = loc[j][1] + wv[2] * ps.z;
+        loc[j][3] = loc[j][2] + wv[3] * ps.w;
+        if (c < nc) {
+          // chunk after chunk: j's chunks ascend within a row
+          total[j / CPP] = total[j / CPP] + loc[j][3];
+          any[j / CPP] = any[j / CPP] || wv[0] > 0.f || wv[1] > 0.f ||
+                         wv[2] > 0.f || wv[3] > 0.f;
+        }
+        incl[j] = loc[j][3];
+      }
+      for (int o = 1; o < 32; o <<= 1) {
+#pragma unroll
+        for (int j = 0; j < NR; ++j) {
+          const float y = __shfl_up_sync(kFull, incl[j], o);
+          if (l >= o) incl[j] = incl[j] + y;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NR; ++j) {
+        float excl = __shfl_up_sync(kFull, incl[j], 1);
+        if (l == 0) excl = 0.f;
+        const float chunk_total = __shfl_sync(kFull, incl[j], 31);
+        const int k = j / CPP;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[j][q] = carry[k] + (excl + loc[j][q]);
+        carry[k] = carry[k] + chunk_total;
+        mx[j] = fmaxf(fmaxf(v[j][0], v[j][1]), fmaxf(v[j][2], v[j][3]));
+      }
+      // the running maximum: the chunks before, the lanes before, then
+      // the lane's own four
+      for (int o = 1; o < 32; o <<= 1) {
+#pragma unroll
+        for (int j = 0; j < NR; ++j) {
+          const float y = __shfl_up_sync(kFull, mx[j], o);
+          if (l >= o) mx[j] = fmaxf(mx[j], y);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NR; ++j) {
+        const int k = j / CPP, c = c0 + j % CPP;
+        float before = __shfl_up_sync(kFull, mx[j], 1);
+        if (l == 0) before = kNegInf;
+        float m = fmaxf(cmax[k], before);
+        cmax[k] = fmaxf(cmax[k], __shfl_sync(kFull, mx[j], 31));
+        float4 out;
+        m = fmaxf(m, v[j][0]);
+        out.x = m;
+        m = fmaxf(m, v[j][1]);
+        out.y = m;
+        m = fmaxf(m, v[j][2]);
+        out.z = m;
+        m = fmaxf(m, v[j][3]);
+        out.w = m;
+        if (own[k] && c < nc)
+          *reinterpret_cast<float4*>(tab + (size_t)tt[k] * P + 128 * c +
+                                     4 * l) = out;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < RPP; ++k) {
+      for (int o = 16; o > 0; o >>= 1)
+        total[k] = total[k] + __shfl_xor_sync(kFull, total[k], o);
+      const bool some = __any_sync(kFull, any[k]);
+      if (l == 0 && own[k]) {
+        tot[tt[k]] = total[k];
+        flag[tt[k]] = some ? 1 : 0;
+      }
+    }
+  }
+}
+
+// The tile's rows, four slots a warp: one row four chunks at a time from
+// three chunks a row, else four rows a chunk at a time.
+__device__ __forceinline__ void wide_rows(const ReassignParams& p, int e,
+                                          const float* psi, const int* cls,
+                                          int n, float* tab, float* tot,
+                                          int* flag) {
+  if (p.nc >= 3)
+    class_rows<1, 4>(p, e, psi, cls, n, tab, tot, flag);
+  else
+    class_rows<4, 1>(p, e, psi, cls, n, tab, tot, flag);
+}
+
+// One Gibbs sweep over the event's reads at psi: cnt gets the counts
+// (integers: a read whose class has no weight > 0 counts nowhere), and
+// the return value is the read score when RP (a record will read it),
+// else 0.  Reads listed to walk are walked (walk_reads); the classes of
+// the table are taken a tile of p.rows at a time:
+// the warps build the tile's rows (class_rows), then each thread takes
+// a group of four reads of the run of reads that falls in the tile (the
+// reads are in class order), draws the group's four uniforms by one
+// Philox call keyed by (lane, step, g, kReads) -- a group that straddles
+// two tiles draws them in both, alike -- and finds each read's isoform:
+// the first i < I - 1 whose running maximum in its class's row reaches
+// u times the class's total, else I - 1, by a binary search (the four
+// reads' searches side by side).  The running maximum never falls, so
+// the search finds the index a walk along the row in isoform order
+// finds.  A recorded step keeps each read's score (R floats, 0 for a
+// read that counts nowhere) and sums them in one order whatever the
+// block: group g into slot g % 32 in ascending g, a group's reads in
+// turn, then a butterfly over the slots (wide.read_sum).  Ends with the
+// block synchronised.
+template <bool TABLE, bool RP>
+__device__ float reassign_gibbs(const ReassignParams& p, int e,
+                                uint32_t lane, uint32_t step,
+                                const float* psi, int* cnt, float* rs,
+                                float* tab, float* tot, int* flag) {
+  const int tid = (int)threadIdx.x, nt = (int)blockDim.x;
+  const int I = p.I, P = 128 * p.nc;
+  for (int x = tid; x < P; x += nt) cnt[x] = 0;
+  if (RP)
+    for (int r = tid; r < p.R; r += nt) rs[r] = 0.f;
   __syncthreads();
+  if (!TABLE) {
+    walk_reads<RP>(p, e, lane, step, psi, cnt, rs);
+    __syncthreads();
+  }
+  const int na = TABLE ? p.nact[e] : 0;
+  const int* cls = p.cls + (size_t)e * p.A;
+  const int* first = p.first + (size_t)e * (p.A + 1);
+  const int* slot = p.slot + (size_t)e * p.R;
+  const float* LR = p.log_read + (size_t)e * p.C * I;
+  for (int a0 = 0; a0 < na; a0 += p.rows) {
+    const int n = na - a0 < p.rows ? na - a0 : p.rows;
+    wide_rows(p, e, psi, cls + a0, n, tab, tot, flag);
+    __syncthreads();
+    const int lo = first[a0], hi = first[a0 + n];
+    for (int g = (lo >> 2) + tid; 4 * g < hi; g += nt) {
+      const uint4 b =
+          philox4x32_10(make_uint4(lane, step, (uint32_t)g, kReads), p.keys);
+      const float u[4] = {gibbs_uniform(b.x, p), gibbs_uniform(b.y, p),
+                          gibbs_uniform(b.z, p), gibbs_uniform(b.w, p)};
+      const float* row[4];
+      float target[4];
+      int at[4], len[4], t[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = 4 * g + j;
+        t[j] = r >= lo && r < hi ? slot[r] - a0 : -1;
+        len[j] = 0;
+        at[j] = 0;
+        row[j] = tab;
+        target[j] = 0.f;
+        if (t[j] >= 0 && flag[t[j]]) {
+          row[j] = tab + (size_t)t[j] * P;
+          target[j] = u[j] * tot[t[j]];
+          len[j] = I - 1;
+        } else {
+          t[j] = -1;
+        }
+      }
+      // lower bound over the first I - 1: "not yet reached" moves right
+      // (a NaN target reaches nothing, as in a walk)
+      for (;;) {
+        bool more = false;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (len[j] > 0) {
+            const int h = len[j] >> 1;
+            const bool right = !(row[j][at[j] + h] >= target[j]);
+            at[j] = right ? at[j] + h + 1 : at[j];
+            len[j] = right ? len[j] - h - 1 : h;
+            more = true;
+          }
+        }
+        if (!more) break;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (t[j] < 0) continue;
+        atomicAdd(&cnt[at[j]], 1);
+        if (RP) rs[4 * g + j] = LR[(size_t)cls[a0 + t[j]] * I + at[j]];
+      }
+    }
+    __syncthreads();
+  }
   if (!RP) return 0.f;
   // every warp adds the 32 slots alike
-  float total = head[kParts + l];
+  const int l = tid & 31;
+  float total = 0.f;
+  for (int g = l; 4 * g < p.R; g += 32) {
+    total = total + rs[4 * g];
+    total = total + rs[4 * g + 1];
+    total = total + rs[4 * g + 2];
+    total = total + rs[4 * g + 3];
+  }
   for (int o = 16; o > 0; o >>= 1)
     total = total + __shfl_xor_sync(kFull, total, o);
   return total;
 }
 
+// TABLE: the launch's reads go through the class table; else every read
+// walks (wide.walks), and the kernel holds no table code.
+template <bool TABLE>
 __global__ void __launch_bounds__(kMaxThreads)
     reassign_wide_kernel(const ReassignParams p) {
   extern __shared__ __align__(16) float smem[];
@@ -371,6 +679,10 @@ __global__ void __launch_bounds__(kMaxThreads)
   float* ex = d + P;      // exp(alpha') on the head isoforms
   float* q = ex + P;      // (ex + last) * efflen; the record's terms
   float* r1 = q + P;      // (n + h - 1) * drift
+  float* rs = r1 + P;     // R read scores of a recorded step
+  float* tab = rs + p.R;  // the class table: a tile's rows
+  float* tot = tab + (size_t)p.rows * P;
+  int* flag = reinterpret_cast<int*>(tot + p.rows);
   const int nc[4] = {p.nc, p.nc, p.nc, p.nc};
 
   const int k = p.num_iso[e];
@@ -401,22 +713,9 @@ __global__ void __launch_bounds__(kMaxThreads)
     h1[i] = v_h1;
     alpha[i] = v_alpha;
   }
-  // the reads that some isoform can take: a warp a read
-  {
-    const int warps = nt >> 5, w = tid >> 5, l = tid & 31;
-    const float* rw = p.read_w + (size_t)e * p.R * I;
-    int nv = 0;
-    for (int r = w; r < p.R; r += warps) {
-      bool any = false;
-      for (int i = l; i < I; i += 32) any = any || rw[(size_t)r * I + i] > 0.f;
-      nv += __any_sync(kFull, any) ? 1 : 0;
-    }
-    if (l == 0) head[kParts + w] = (float)nv;
-  }
   reassign_normals(p, lane, 0u, d);
   __syncthreads();
-  float n_valid = 0.f;
-  for (int v = 0; v < (nt >> 5); ++v) n_valid = n_valid + head[kParts + v];
+  const float n_valid = p.nvalid[e];  // reads some isoform can take
   // one proposal from the start, then the initial Gibbs draw
   // (miso.c:834-843)
   for (int i = tid; i < P; i += nt) {
@@ -450,9 +749,12 @@ __global__ void __launch_bounds__(kMaxThreads)
   // (m + 1 - burn_in) % lag == 0 (miso_tpu/sampler/mcmc.py schedule);
   // the Gibbs draw before it also sums the read score
   int next_rec = p.burn_in + p.lag - 1;
-  float rp = (next_rec == 0 && p.iters > 0)
-                 ? reassign_gibbs<true>(p, e, lane, 0u, psi, cnt, head)
-                 : reassign_gibbs<false>(p, e, lane, 0u, psi, cnt, head);
+  float rp =
+      (next_rec == 0 && p.iters > 0)
+          ? reassign_gibbs<TABLE, true>(p, e, lane, 0u, psi, cnt, rs, tab,
+                                        tot, flag)
+          : reassign_gibbs<TABLE, false>(p, e, lane, 0u, psi, cnt, rs, tab,
+                                         tot, flag);
 
   int accepted = 0, rec = 0;
   for (int m = 0; m < p.iters; ++m) {
@@ -522,8 +824,12 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
     __syncthreads();
     rp = (m + 1 == next_rec && m + 1 < p.iters)
-             ? reassign_gibbs<true>(p, e, lane, step, psi, cnt, head)
-             : reassign_gibbs<false>(p, e, lane, step, psi, cnt, head);
+             ? reassign_gibbs<TABLE, true>(p, e, lane, step, psi, cnt, rs,
+                                           tab, tot,
+                                    flag)
+             : reassign_gibbs<TABLE, false>(p, e, lane, step, psi, cnt, rs,
+                                            tab, tot,
+                                     flag);
   }
   if (tid == 0) p.acc_out[lane_i] = accepted;
   for (int i = tid; i < I; i += nt) {
@@ -811,11 +1117,15 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // A lane's floats: the head, the kernel's I-wide arrays (128 chunks(I)
-// each), and B2w's class terms (kind 0: B1w, 1: B2w; n the class count
-// for B2w).
-long long lane_floats(int kind, int n, int I) {
+// each), for B1w its n = R read scores and a class table of `rows` rows
+// (rounded up to whole 16 bytes, which the lanes' float4 loads in
+// scratch need), for B2w its class terms (kind 0: B1w, 1: B2w; n the
+// class count for B2w).
+long long lane_floats(int kind, int n, int I, int rows) {
   const long long P = 128LL * chunks(I);
-  if (kind == 0) return kHeadFloats + kReassignArrays * P;
+  if (kind == 0)  // whole 16 bytes: the next lane's arrays in scratch
+    return (kHeadFloats + kReassignArrays * P + n +
+            (long long)rows * (P + kRowScalars) + 3) / 4 * 4;
   return kHeadFloats + kMarginalArrays * P + 128LL * chunks(n);
 }
 
@@ -853,36 +1163,47 @@ void set_keys(Keys& k, unsigned int seed_lo, unsigned int seed_hi) {
 
 }  // namespace
 
-extern "C" long long miso_wide_lane_floats(int kind, int n, int I) {
-  return lane_floats(kind, n, I);
+extern "C" long long miso_wide_lane_floats(int kind, int n, int I,
+                                           int rows) {
+  return lane_floats(kind, n, I, rows);
 }
 
 extern "C" int miso_reassign_wide(
-    const float* read_w, const float* read_ls, const float* log_iso_w,
-    const float* hyper, const int* num_iso, const float* scal,
-    const float* start, float* psi_out, float* loglik_out, int* acc_out,
-    float* final_n, float* final_psi, float* scratch, int E, int R, int I,
-    int K, int iters, int burn_in, int lag, int rrec, unsigned int seed_lo,
-    unsigned int seed_hi, int fixed_u, int threads, long long shared_bytes,
-    void* stream) {
+    const float* weights, const float* log_read, const int* cls,
+    const int* first, const int* slot, const int* nact, const int* walk,
+    const int* wcls, const int* nwalk, const float* nvalid,
+    const float* log_iso_w, const float* hyper, const int* num_iso,
+    const float* scal, const float* start, float* psi_out,
+    float* loglik_out, int* acc_out, float* final_n, float* final_psi,
+    float* scratch, int E, int C, int A, int R, int I, int K, int iters,
+    int burn_in, int lag, int rrec, unsigned int seed_lo,
+    unsigned int seed_hi, int fixed_u, int threads, int rows,
+    long long shared_bytes, void* stream) {
   const long long lanes = (long long)E * K;
   if (lanes == 0) return 0;
-  const long long floats = lane_floats(0, R, I);
-  if (lanes > 0x7fffffffLL || I < 2 || R < 4 || R % 4 != 0 || lag < 1 ||
+  const long long floats = lane_floats(0, R, I, rows);
+  if (lanes > 0x7fffffffLL || I < 2 || C < 1 || A < 1 || R < 4 ||
+      R % 4 != 0 || rows < 1 || lag < 1 || floats > 0x7fffffffLL ||
       !plan_ok(threads, floats, shared_bytes, scratch))
     return (int)cudaErrorInvalidValue;
-  ReassignParams p{read_w, read_ls, log_iso_w, hyper, num_iso, scal, start,
+  ReassignParams p{weights, log_read, cls, first, slot, nact, walk, wcls,
+                   nwalk, nvalid, log_iso_w, hyper, num_iso, scal, start,
                    psi_out, loglik_out, acc_out, final_n, final_psi,
-                   scratch, E, R, I, K, iters, burn_in, lag, rrec};
+                   scratch, E, C, A, R, I, K, iters, burn_in, lag, rrec,
+                   rows};
   set_keys(p.keys, seed_lo, seed_hi);
   p.fixed_u = fixed_u;
   p.u_scale = fixed_u ? 0.f : kTwoM24;
   p.u_shift = fixed_u ? kFixedU : 0.f;
   p.nc = chunks(I);
   p.lane_floats = (int)floats;
-  p.vec = I % 4 == 0 && reinterpret_cast<uintptr_t>(read_w) % 16 == 0;
-  return launch(reassign_wide_kernel, p, (int)lanes, threads, shared_bytes,
-                stream);
+  p.vec = I % 4 == 0 && reinterpret_cast<uintptr_t>(weights) % 16 == 0;
+  // a table, or (no cls) every read walks
+  if (cls == nullptr)
+    return launch(reassign_wide_kernel<false>, p, (int)lanes, threads,
+                  shared_bytes, stream);
+  return launch(reassign_wide_kernel<true>, p, (int)lanes, threads,
+                shared_bytes, stream);
 }
 
 extern "C" int miso_marginal_wide(
@@ -894,7 +1215,7 @@ extern "C" int miso_marginal_wide(
     int fixed_u, int threads, long long shared_bytes, void* stream) {
   const long long lanes = (long long)E * K;
   if (lanes == 0) return 0;
-  const long long floats = lane_floats(1, C, I);
+  const long long floats = lane_floats(1, C, I, 0);
   if (lanes > 0x7fffffffLL || I < 2 || C < 1 || lag < 1 ||
       !plan_ok(threads, floats, shared_bytes, scratch))
     return (int)cudaErrorInvalidValue;

@@ -144,11 +144,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.miso_multinomial_lane_floats.argtypes = [ci] * 3
     lib.miso_reassign_wide.restype = ci
     lib.miso_reassign_wide.argtypes = (
-        [vp] * 13          # 7 inputs (start may be null), 5 outputs,
+        [vp] * 21          # 15 inputs (start may be null), 5 outputs,
                            # scratch (null: the lane arrays in shared)
-        + [ci] * 8         # E, R, I, K, iters, burn_in, lag, rrec
+        + [ci] * 10        # E, C, A, R, I, K, iters, burn_in, lag, rrec
         + [cu, cu]         # seed words
-        + [ci] * 2         # fixed_u, threads
+        + [ci] * 3         # fixed_u, threads, table rows
         + [ctypes.c_longlong, vp])   # shared bytes, stream
     lib.miso_marginal_wide.restype = ci
     lib.miso_marginal_wide.argtypes = (
@@ -159,7 +159,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [ci] * 2         # fixed_u, threads
         + [ctypes.c_longlong, vp])   # shared bytes, stream
     lib.miso_wide_lane_floats.restype = ctypes.c_longlong
-    lib.miso_wide_lane_floats.argtypes = [ci] * 3
+    lib.miso_wide_lane_floats.argtypes = [ci] * 4
     lib.miso_cuda_error_string.restype = ctypes.c_char_p
     lib.miso_cuda_error_string.argtypes = [ci]
     return lib

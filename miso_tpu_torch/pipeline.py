@@ -7,10 +7,13 @@ compile, ``.miso`` formatting) is the JAX package's code, copied into
 device half is torch:
 
 1. ``StreamRunner._dispatch`` pads a bucket's class tensors and runs the
-   sampler (``run_sampler``): REASSIGN expands the per-read tiles on the
-   device (``_expand_read_tensors``) for its kernel
-   (``sampler/reassign_kernel.py``); MARGINAL and CLASSES run their
-   kernel (``sampler/marginal_kernel.py``) on the class tensors alone.
+   sampler (``run_sampler``): REASSIGN hands them to its wrapper
+   (``sampler/reassign_kernel.py``) with the bucket's read slots, where
+   the wide kernel B1w reads the classes themselves and the narrow one
+   first expands the per-read tiles on the device
+   (``reassign_kernel.expand_read_tensors``); MARGINAL and CLASSES run
+   their kernel (``sampler/marginal_kernel.py``) on the class tensors
+   alone.
    It quantises psi to ticks and scores to centipoints, with the
    posterior summary computed on the device (``quantize.py``);
 2. a materializer thread copies each chunk to the host, draws the final
@@ -36,7 +39,8 @@ materializer joins the shards in event order.
 
 Every kernel takes a bucket of any width: the REASSIGN and MARGINAL
 wrappers run their narrow instances (B1, B2) below ``wide.WIDE_FROM``
-isoforms and the wide kernels (B1w, B2w: a lane a block, any width)
+(REASSIGN, 128) and ``wide.WIDE_FROM_MARGINAL`` isoforms (MARGINAL and
+CLASSES, 64) and the wide kernels (B1w, B2w: a lane a block, any width)
 from there on, and the deep route's B3 takes any width; nothing takes a
 kernel's place on the card.
 """
@@ -130,40 +134,19 @@ def chunk_seed(seed: int, offset: int, pad_iso: int, pad_classes: int,
     return int(words[0]) | (int(words[1]) << 32)
 
 
-def _expand_read_tensors(weights, log_read, counts, R: int):
-    """Per-read tiles from the (E, C, I) class tensors, on their device:
-    read slot r of event e carries the weights of the class whose
-    cumulative count interval holds r (pad_events' np.repeat layout,
-    class 0 first); slots past the event's reads are zero.  Returns f32
-    (E, R, I) read_w and read_logscore (pipeline.py:221-243, which rounds
-    them to bf16; the port keeps f32)."""
-    cum = torch.cumsum(counts, dim=1)                        # (E, C)
-    slots = torch.arange(R, device=counts.device, dtype=counts.dtype)
-    cid = (cum[:, :, None] <= slots[None, None, :]).sum(1)   # (E, R)
-    valid = (slots[None, :] < cum[:, -1:])[:, :, None]       # (E, R, 1)
-    gather = cid.clamp(0, weights.shape[1] - 1)[:, :, None].expand(
-        -1, -1, weights.shape[2])
-    zero = torch.zeros((), dtype=weights.dtype, device=weights.device)
-    read_w = torch.where(valid, torch.gather(weights, 1, gather), zero)
-    read_ls = torch.where(valid, torch.gather(log_read, 1, gather), zero)
-    return read_w.contiguous(), read_ls.contiguous()
-
-
 def run_sampler(seed: int, batch: EventBatch, cfg: SamplerConfig,
                 start_psi, pad_reads: int):
     """One sampler run over a padded torch batch on its device: MARGINAL
     and CLASSES read the class tensors only, and so does REASSIGN above
     ``DEEP_READS`` reads (the multinomial Gibbs step); shallower REASSIGN
-    buckets first expand ``pad_reads`` per-read slots on the device."""
+    buckets go to their wrapper as classes and ``pad_reads`` read slots,
+    which B1w reads as they are and the other routes expand."""
     if cfg.algorithm in ("marginal", "classes"):
         return run_batch_marginal(seed, batch, cfg, start_psi=start_psi)
     if pad_reads > DEEP_READS:
         return run_batch_multinomial(seed, batch, cfg, start_psi=start_psi)
-    rw, rls = _expand_read_tensors(batch.weights, batch.log_read,
-                                   batch.counts, pad_reads)
-    return run_batch_reassign(
-        seed, batch._replace(read_w=rw, read_logscore=rls), cfg,
-        start_psi=start_psi)
+    return run_batch_reassign(seed, batch, cfg, start_psi=start_psi,
+                              pad_reads=pad_reads)
 
 
 def linear_start(evs: List[CompiledEvent], cfg: RunConfig,

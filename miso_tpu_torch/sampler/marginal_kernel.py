@@ -9,8 +9,10 @@ result layout.  The collapsed algorithms have no Gibbs step, so
 (``CompiledEvent.final_assignment_counts``).
 
 - A batch on a CUDA device runs ``csrc/marginal_kernel.cu`` (B2) below
-  ``wide.WIDE_FROM`` isoforms and ``csrc/wide_kernel.cu`` (B2w, a lane a
-  block, any width) from there on.  If the kernel does not build or
+  ``wide.WIDE_FROM_MARGINAL`` (64) isoforms and ``csrc/wide_kernel.cu``
+  (B2w, a lane a block, any width) from there on: at 64 isoforms B2's
+  sums in sequence round the MH ratio away from the reference's, and
+  B2w is faster there too (``wide.py``).  If the kernel does not build or
   launch, the call raises; nothing falls back.
 - A batch on the CPU runs ``_marginal_plain``: batched torch over the
   (event, chain) lanes with a Python loop over iterations.  It computes
@@ -35,9 +37,9 @@ contraction that rounds through TF32 moves the MH ratio by whole units
 (docs/VALIDATION.md:106-114).  ``fixed_uniform=0.4999`` replaces every
 uniform, as the TPU kernel's ``_DEBUG_NO_PRNG`` does; the proposal
 normals are then cos-only Box-Muller (``pallas_kernel._normal``), so
-both routes reproduce the JAX kernel's chain.  From ``WIDE_FROM``
-isoforms on the plain version sums as B2w does (``wide.wide_sum``, over
-isoforms and over classes).
+both routes reproduce the JAX kernel's chain.  On B2w's route the plain
+version sums as B2w does (``wide.wide_sum``, over isoforms and over
+classes).
 """
 from __future__ import annotations
 
@@ -205,9 +207,9 @@ def run_batch_marginal(seed: int, batch: EventBatch, cfg: SamplerConfig,
         raise ValueError("fixed_uniform must be None or %r" % FIXED_U)
     dev = batch.weights.device
     consts = _marginal_consts(batch)
-    # from WIDE_FROM isoforms on the wide kernel, or on the CPU the plain
-    # version in its summing order
-    wide_route = batch.weights.shape[2] >= wide.WIDE_FROM
+    # from WIDE_FROM_MARGINAL isoforms on the wide kernel, or on the CPU
+    # the plain version in its summing order
+    wide_route = batch.weights.shape[2] >= wide.WIDE_FROM_MARGINAL
     if dev.type == "cuda":
         launch = _marginal_wide_cuda if wide_route else _marginal_cuda
         return launch(seed, batch, cfg, consts, start_psi,
@@ -223,15 +225,17 @@ def _marginal_plain(seed, batch, cfg, consts, start_psi=None,
     """Plain PyTorch version of the kernel, batched over (E, K) lanes on
     any device.  ``fixed_uniform`` replaces every uniform; otherwise a
     ``torch.Generator`` seeded with ``seed`` draws them.  ``wide_order``
-    (default: from ``wide.WIDE_FROM`` isoforms on) sums as B2w does, the
-    kernel that takes such widths on the card."""
+    sums as B2w does (``run_batch_marginal`` passes its route's order);
+    its default is B2's order wherever B2 has an instance (up to
+    ``max(KERNEL_ISO)`` isoforms: the checks hold B2 to it there), B2w's
+    past it."""
     LAUNCHES["plain"] += 1
     f32 = torch.float32
     E, C, I = batch.weights.shape
     K = cfg.chains
     dev = batch.weights.device
     if wide_order is None:
-        wide_order = I >= wide.WIDE_FROM
+        wide_order = I > max(KERNEL_ISO)
     total = wide.wide_sum if wide_order else _seq_sum
     gen = None
     if fixed_uniform is None:

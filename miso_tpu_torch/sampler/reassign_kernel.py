@@ -29,7 +29,10 @@ of the chain, one step per thread of the lane.
 
 From ``WIDE_FROM`` isoforms on the plain version sums in B1w's order
 (``wide.wide_sum``, ``wide.wide_cumsum``), so that the two follow one
-chain at any width.
+chain at any width.  B1w reads a bucket's class tensors as the pipeline
+hands them over (``pad_reads``; ``class_map`` lays the read slots onto
+the classes): it builds no (E, R, I) read tile, where the narrow kernel
+and the plain version expand one first (``expand_read_tensors``).
 
 ``fixed_uniform=0.4999`` replaces every uniform, as the TPU kernel's
 ``_DEBUG_NO_PRNG`` does, so both routes then reproduce the JAX kernel's
@@ -53,8 +56,11 @@ NEG_BIG = -1e30
 TWO_PI = 2.0 * math.pi
 _U24 = 2.0 ** -24
 # the isoform widths both narrow kernels (B1, B2) are instantiated for:
-# every bucketed I (core/events._round_up_iso) below wide.WIDE_FROM; the
-# wide kernels take the rest
+# every bucketed I (core/events._round_up_iso) up to 64; the wide kernels
+# take the buckets from wide.WIDE_FROM (REASSIGN, 128) and
+# wide.WIDE_FROM_MARGINAL (64) on: B1's 64-wide instance runs the
+# 64-isoform REASSIGN buckets, B2's runs only where called directly (the
+# checks hold it to its plain version)
 KERNEL_ISO = (2, 3, 4, 6, 8, 16, 32, 64)
 
 # The launch plan's constants; csrc/reassign_kernel.cu holds the same
@@ -157,16 +163,20 @@ def launch_plan(E: int, R: int, I: int, K: int) -> LaunchPlan:
     return shared or _layouts(E, R, I, K, widths[0])[1]["cache"]
 
 
-def wide_plan(E: int, R: int, I: int, K: int) -> wide.WidePlan:
-    """B1w's launch for E events of (R, I) tiles and K chains
-    (``wide.wide_plan``): a block a lane, its threads chosen from I and
-    the launch's lanes, the lane's arrays in shared memory or scratch."""
-    return wide.wide_plan("reassign", E, R, I, K)
+def wide_plan(E: int, R: int, I: int, K: int,
+              classes: Optional[int] = None) -> wide.WidePlan:
+    """B1w's launch for E events of R read slots in ``classes`` classes
+    (default R: read tiles, a read a class) of width I, and K chains
+    (``wide.wide_plan``): a block a lane, its threads chosen from the
+    launch's lanes, the lane's arrays in shared memory or scratch, the
+    class table's tile."""
+    return wide.wide_plan("reassign", E, R, I, K, classes)
 
 
-def all_wide_plans(E: int, R: int, I: int, K: int):
+def all_wide_plans(E: int, R: int, I: int, K: int,
+                   classes: Optional[int] = None):
     """Every block width B1w can be launched with at this shape."""
-    return wide.all_wide_plans("reassign", E, R, I, K)
+    return wide.all_wide_plans("reassign", E, R, I, K, classes)
 
 
 def all_plans(E: int, R: int, I: int, K: int):
@@ -208,7 +218,8 @@ def bound(nbytes: int, fp_ops: int, int_ops: int):
 
 
 def reassign_bound(E: int, R: int, I: int, K: int, iters: int,
-                   num_records: int, valid_reads: Optional[int] = None):
+                   num_records: int, valid_reads: Optional[int] = None,
+                   classes: Optional[int] = None):
     """The least time an H100 could take for one REASSIGN launch, as a
     dict: the bytes moved (each input read once, each output written
     once), the FP32 and integer operations of the function itself, the
@@ -224,17 +235,34 @@ def reassign_bound(E: int, R: int, I: int, K: int, iters: int,
     read costs its I - 1 adds and one compare.  The proposal and MH
     arithmetic (about 20 I operations and one Philox call per normal
     pair, once per lane and step) is counted too; it is small beside
-    the reads."""
+    the reads.
+
+    ``classes`` (the classes with reads, in all) counts the class form
+    instead, what B1w does: the reads of a class share one cumulative
+    row, built once a step (I multiplies and I - 1 adds: 2 I - 1 FP32
+    operations; the kernel's running maximum over the row is overhead of
+    its own summing order, not work the function needs), and each valid
+    read costs the
+    uniform's conversion, the scale of its uniform, the ceil(log2 I)
+    compares of its search and its count; the inputs are the rows of
+    the classes with reads (weights and read scores) and a class index
+    per read slot."""
     if valid_reads is None:
         valid_reads = E * R
     steps = iters + 1
     lanes = E * K
-    in_bytes = 4 * (2 * E * R * I + 5 * E * I + 2 * E)
-    out_bytes = 4 * (E * num_records * K * (I + 1) + E * K * (2 * I + 1))
     groups = E * (-(-R // 4))
-    int_ops = steps * K * (groups * PHILOX_INT_OPS + 3 * valid_reads)
-    fp_ops = steps * K * (valid_reads * (3 * I - 1)
-                          + (E * R - valid_reads) * I)
+    if classes is None:
+        in_bytes = 4 * (2 * E * R * I + 5 * E * I + 2 * E)
+        int_ops = steps * K * (groups * PHILOX_INT_OPS + 3 * valid_reads)
+        fp_ops = steps * K * (valid_reads * (3 * I - 1)
+                              + (E * R - valid_reads) * I)
+    else:
+        in_bytes = 4 * (2 * classes * I + E * R + 5 * E * I + 2 * E)
+        int_ops = steps * K * (groups * PHILOX_INT_OPS + 3 * valid_reads)
+        fp_ops = steps * K * (classes * (2 * I - 1)
+                              + valid_reads * (2 + (I - 1).bit_length()))
+    out_bytes = 4 * (E * num_records * K * (I + 1) + E * K * (2 * I + 1))
     half = (I + 1) // 2
     int_ops += steps * lanes * (half + 1) * PHILOX_INT_OPS
     fp_ops += steps * lanes * 20 * I
@@ -323,12 +351,96 @@ def _is_record(m: int, cfg: SamplerConfig) -> bool:
             and (m + 1 - cfg.burn_in) % cfg.lag == 0)
 
 
+def expand_read_tensors(weights, log_read, counts, R: int):
+    """Per-read tiles from the (E, C, I) class tensors, on their device:
+    read slot r of event e carries the weights of the class whose
+    cumulative count interval holds r (pad_events' np.repeat layout,
+    class 0 first); slots past the event's reads are zero.  Returns f32
+    (E, R, I) read_w and read_logscore (pipeline.py:221-243, which rounds
+    them to bf16; the port keeps f32)."""
+    cum = torch.cumsum(counts, dim=1)                        # (E, C)
+    slots = torch.arange(R, device=counts.device, dtype=counts.dtype)
+    cid = (cum[:, :, None] <= slots[None, None, :]).sum(1)   # (E, R)
+    valid = (slots[None, :] < cum[:, -1:])[:, :, None]       # (E, R, 1)
+    gather = cid.clamp(0, weights.shape[1] - 1)[:, :, None].expand(
+        -1, -1, weights.shape[2])
+    zero = torch.zeros((), dtype=weights.dtype, device=weights.device)
+    read_w = torch.where(valid, torch.gather(weights, 1, gather), zero)
+    read_ls = torch.where(valid, torch.gather(log_read, 1, gather), zero)
+    return read_w.contiguous(), read_ls.contiguous()
+
+
+class ClassMap(NamedTuple):
+    """B1w's map of R read slots onto an event's classes (int32, on the
+    counts' device; see ``class_map``)."""
+    cls: torch.Tensor      # (E, A) the classes of the table
+    first: torch.Tensor    # (E, A + 1) their first read slots, then the end
+    slot: torch.Tensor     # (E, R) a slot's index into cls, or -1
+    nact: torch.Tensor     # (E,) classes in cls
+    walk: torch.Tensor     # (E, R) the slots whose reads walk, then -1
+    wcls: torch.Tensor     # (E, R) the class of each of those, then -1
+    nwalk: torch.Tensor    # (E,) slots in walk
+    cid: torch.Tensor      # (E, R) a slot's class, -1 past the reads
+
+
+def class_map(counts, R: int, walk: bool = False) -> ClassMap:
+    """B1w's map of R read slots onto the (E, C) classes, as
+    ``expand_read_tensors`` lays the reads out (read slot r of an event
+    holds a read of the class whose cumulative count interval holds r;
+    slots past the event's reads hold none).  Every class with reads
+    goes into the kernel's class table: cls lists them in order (A =
+    min(C, R) entries), first is the slot where each one's reads begin
+    and, past the last, the event's slots with reads, slot maps each
+    read to its entry.  With ``walk`` (``wide.walks``) the table is
+    empty and every read walks its class's row: walk lists the slots
+    with reads in order, wcls their classes.  cid is each slot's class
+    (the kernel takes every field but it)."""
+    E, C = counts.shape
+    dev = counts.device
+    A = min(C, R)
+    cum = torch.cumsum(counts, dim=1)
+    slots = torch.arange(R, device=dev, dtype=counts.dtype)
+    # the class whose cumulative count interval holds r: the count of
+    # cumulative counts <= r (cum never falls)
+    cid = torch.searchsorted(cum.contiguous(),
+                             slots.expand(E, R).contiguous(), right=True)
+    valid = slots[None, :] < cum[:, -1:]
+    cid = torch.where(valid, cid, C)
+    n = torch.zeros((E, C + 1), dtype=torch.int64, device=dev).scatter_add_(
+        1, cid, torch.ones_like(cid))[:, :C]                  # slots a class
+    listed = (n > 0) & (not walk)        # the table's classes
+    idx = torch.cumsum(listed.to(torch.int64), 1) - 1         # into cls
+    classes = torch.arange(C, device=dev).expand(E, C)
+    cls = torch.zeros((E, A + 1), dtype=torch.int64, device=dev).scatter_(
+        1, torch.where(listed, idx, A), classes)[:, :A]
+    begin = torch.cumsum(n, 1) - n
+    first = n.sum(1, keepdim=True).expand(E, A + 2).clone().scatter_(
+        1, torch.where(listed, idx, A + 1), begin)[:, :A + 1]
+    own = cid.clamp(max=C - 1)
+    walking = valid if walk else torch.zeros_like(valid)
+    ar = torch.arange(R, device=dev)
+    order = torch.where(walking, ar, R + ar).sort(1).values
+    listed_walk = order < R
+    maps = ClassMap(
+        cls=cls, first=first,
+        slot=torch.where(valid & ~walking, idx.gather(1, own), -1),
+        nact=listed.sum(1), walk=torch.where(listed_walk, order, -1),
+        wcls=torch.where(listed_walk, own.gather(1, order % R), -1),
+        nwalk=walking.sum(1), cid=torch.where(valid, cid, -1))
+    return ClassMap(*(t.to(torch.int32).contiguous() for t in maps))
+
+
 def run_batch_reassign(seed: int, batch: EventBatch, cfg: SamplerConfig,
-                       start_psi=None, fixed_uniform=None) -> SamplerResult:
+                       start_psi=None, fixed_uniform=None,
+                       pad_reads: Optional[int] = None) -> SamplerResult:
     """REASSIGN + per-read Gibbs over a padded batch, on the batch's
     device.  ``seed`` is an int: the kernel's Philox key or the plain
     version's ``torch.Generator`` seed.  ``start_psi`` (E, K, I) selects
-    the GIVEN start (miso.c:405-409)."""
+    the GIVEN start (miso.c:405-409).  With ``pad_reads`` the batch
+    carries its reads as classes (``weights``, ``log_read``, ``counts``;
+    ``read_w`` and ``read_logscore`` may be placeholders) to be read as
+    ``pad_reads`` read slots: B1w reads the classes themselves, the
+    other routes first expand them (``expand_read_tensors``)."""
     if cfg.algorithm != "reassign" or cfg.gibbs != "perread":
         raise ValueError("run_batch_reassign runs REASSIGN with the "
                          "per-read Gibbs step only (got %s/%s)"
@@ -342,10 +454,17 @@ def run_batch_reassign(seed: int, batch: EventBatch, cfg: SamplerConfig,
     # from WIDE_FROM isoforms on the wide kernel, or on the CPU the plain
     # version in its summing order
     wide_route = batch.read_w.shape[2] >= wide.WIDE_FROM
+    if dev.type == "cuda" and wide_route:
+        return _reassign_wide_cuda(seed, batch, cfg, consts, start_psi,
+                                   fixed_uniform is not None,
+                                   pad_reads=pad_reads)
+    if pad_reads is not None:
+        rw, rls = expand_read_tensors(batch.weights, batch.log_read,
+                                      batch.counts, pad_reads)
+        batch = batch._replace(read_w=rw, read_logscore=rls)
     if dev.type == "cuda":
-        launch = _reassign_wide_cuda if wide_route else _reassign_cuda
-        return launch(seed, batch, cfg, consts, start_psi,
-                      fixed_uniform is not None)
+        return _reassign_cuda(seed, batch, cfg, consts, start_psi,
+                              fixed_uniform is not None)
     if dev.type == "cpu":
         return _reassign_plain(seed, batch, cfg, consts, start_psi,
                                fixed_uniform, wide_order=wide_route)
@@ -602,23 +721,67 @@ def _reassign_cuda(seed, batch, cfg, consts, start_psi, fixed, plan=None):
     return _result(psi_out, ll_out, acc, final_n, final_psi, cfg)
 
 
+def _wide_classes(batch, pad_reads):
+    """B1w's inputs of a batch: (weights, log_read) (E, C, I) f32, the
+    ``class_map`` of its read slots, the reads some isoform can take
+    (E,) f32, and R.  With ``pad_reads`` the batch's class tensors, read
+    as that many slots (padded to a multiple of 4: the kernel draws reads
+    four at a time); without, its read tiles (``read_w``,
+    ``read_logscore``, padded alike) as R classes of a read each, a
+    zero-weight read a class that counts nowhere."""
+    f32 = torch.float32
+    E, _, I = batch.read_w.shape
+    dev = batch.read_w.device
+    if pad_reads is None:
+        weights, log_read = _read_tiles(batch)
+        R = weights.shape[1]
+        counts = torch.ones((E, R), dtype=f32, device=dev)
+    else:
+        R = pad_reads + (-pad_reads) % 4
+        C = batch.weights.shape[1]
+        weights = _checked(batch.weights, "weights", (E, C, I), f32, dev)
+        log_read = _checked(batch.log_read, "log_read", (E, C, I), f32, dev)
+        counts = _checked(batch.counts, "counts", (E, C), f32, dev)
+        if R != pad_reads:
+            # the slots past pad_reads hold no read
+            counts = torch.minimum(counts, (pad_reads - (
+                torch.cumsum(counts, 1) - counts)).clamp_min(0))
+    maps = class_map(counts, R, wide.walks(
+        R, None if pad_reads is None else weights.shape[1], I))
+    # a read counts where its class has some weight > 0
+    some = (weights > 0).any(-1)
+    taken = torch.where(maps.cid >= 0, torch.gather(
+        some, 1, maps.cid.clamp_min(0).to(torch.int64)), False)
+    return weights, log_read, maps, taken.sum(1).to(f32).contiguous(), R
+
+
 def _reassign_wide_cuda(seed, batch, cfg, consts, start_psi, fixed,
-                        plan=None):
+                        plan=None, pad_reads=None):
     """Launch B1w (csrc/wide_kernel.cu) on the batch's CUDA device, laid
-    out by ``wide_plan`` (``plan`` forces another block width, or
-    ``shared_bytes=0`` the lane arrays into scratch)."""
+    out by ``wide_plan`` (``plan`` forces another block width,
+    ``shared_bytes=0`` the lane arrays into scratch, or ``wide.tiled``
+    another table tile).  The kernel reads the batch's classes as
+    ``pad_reads`` read slots, or its read tiles as classes of one read
+    each where ``pad_reads`` is None (``_wide_classes``); it never sees
+    an (E, R, I) tile of a class batch."""
     from miso_tpu_torch import kernels
 
     f32 = torch.float32
-    E, R, I = batch.read_w.shape
+    E, _, I = batch.read_w.shape
     K = cfg.chains
     RREC = max(cfg.num_records, 0)
     dev = batch.read_w.device
-    read_w, read_ls = _read_tiles(batch)
-    R = read_w.shape[1]
+    weights, log_read, maps, nvalid, R = _wide_classes(batch, pad_reads)
+    C, A = weights.shape[1], maps.cls.shape[1]
     if plan is None:
-        plan = wide_plan(E, R, I, K)
-    inputs = [read_w, read_ls,
+        plan = wide_plan(E, R, I, K,
+                         classes=None if pad_reads is None else C)
+    if pad_reads is None:
+        # read tiles: read s walks row s, no lists to look up
+        maps = maps._replace(walk=None, wcls=None)
+    if wide.walks(R, None if pad_reads is None else C, I):
+        maps = maps._replace(cls=None)    # no table: the walking kernel
+    inputs = [weights, log_read, *maps[:-1], nvalid,
               _checked(consts[0], "log_iso_w", (E, I), f32, dev),
               _checked(consts[1], "hyper", (E, I), f32, dev),
               _checked(batch.num_iso, "num_iso", (E,), torch.int32, dev),
@@ -630,21 +793,22 @@ def _reassign_wide_cuda(seed, batch, cfg, consts, start_psi, fixed,
                                                               dev)
     scratch = None
     if plan.shared_bytes == 0:
-        scratch = torch.empty(E * K * wide.lane_floats("reassign", R, I),
-                              dtype=f32, device=dev)
+        scratch = torch.empty(
+            E * K * wide.lane_floats("reassign", R, I, plan.rows),
+            dtype=f32, device=dev)
     lib = kernels.load()
     seed = int(seed) & ((1 << 64) - 1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.miso_reassign_wide(
-            *[t.data_ptr() for t in inputs],
+            *[None if t is None else t.data_ptr() for t in inputs],
             None if start is None else start.data_ptr(),
             psi_out.data_ptr(), ll_out.data_ptr(), acc.data_ptr(),
             final_n.data_ptr(), final_psi.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
-            E, R, I, K, cfg.iters, cfg.burn_in, cfg.lag, RREC,
+            E, C, A, R, I, K, cfg.iters, cfg.burn_in, cfg.lag, RREC,
             seed & 0xFFFFFFFF, seed >> 32, int(bool(fixed)),
-            plan.threads, plan.shared_bytes, stream)
+            plan.threads, plan.rows, plan.shared_bytes, stream)
     kernels.check(lib, rc, "wide reassign kernel launch (%s)" % (plan,))
     LAUNCHES["wide"] += 1
     return _result(psi_out, ll_out, acc, final_n, final_psi, cfg)

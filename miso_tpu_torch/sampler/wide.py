@@ -1,6 +1,6 @@
 """The wide-lane kernels' shared plan: ``csrc/wide_kernel.cu`` (B1w,
-REASSIGN, and B2w, MARGINAL/CLASSES) for every bucket of ``WIDE_FROM``
-isoforms or more, of any width.
+REASSIGN, for every bucket of ``WIDE_FROM`` isoforms or more, and B2w,
+MARGINAL/CLASSES, from ``WIDE_FROM_MARGINAL``), of any width.
 
 A lane ((event, chain) chain) is a block; its threads own the isoforms
 and its I-wide arrays lie once in dynamic shared memory, or in a scratch
@@ -13,20 +13,49 @@ over the 32 slots adds the slots.  ``wide_sum``, ``wide_cumsum`` and
 with them a plain version follows a wide kernel's chain to the bit but
 for the exp/log calls' last bits.  Nothing on the card's path runs them.
 
+B1w reads its event as classes (``weights``, ``log_read`` (E, C, I)),
+never as (E, R, I) read tiles: each step it builds, for every class with
+reads, the class's cumulative row (its running maximum) and total once
+in a table in shared memory, and each read finds its isoform by a binary
+search in its class's row.  Where the classes are more than half the
+read slots (three quarters of them at one chunk a row: ``walks``; read
+tiles, a class a read) every read walks its
+class's row instead, as B1w did on read tiles.  The tile rule
+(``table_rows``): a row holds 128 chunks(I) floats and two scalars; the
+table holds a row for every class with reads where the lane's floats
+then still let an SM hold the blocks the launch gives it, up to
+``SM_BUSY_WARPS`` warps (``sm_blocks``), else
+as many rows as do (but four, the rows a warp builds at once), taken a
+tile at a time (the classes in order, each tile followed by the run of
+reads that falls in it); where not even one row fits a block beside the
+lane's arrays, the arrays and a table of ``SCRATCH_ROWS`` rows go to
+scratch.
+
 Constants: csrc/wide_kernel.cu holds the same values (kMaxThreads,
-kHeadFloats, kReassignArrays, kMarginalArrays, kMaxShared).
+kHeadFloats, kReassignArrays, kMarginalArrays, kRowScalars, kMaxShared).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-# From this many isoforms a bucket runs the wide kernel (B1w, B2w) in
-# place of the narrow instances (B1, B2): the smallest width at which
-# the wide form is no slower, timed on an H100 at 64, 128 and 256
-# isoforms (PERF.md).
+# From this many isoforms a REASSIGN bucket runs the wide kernel B1w in
+# place of the narrow instances B1: the smallest width at which B1w, in
+# the form its launch takes (``walks``), is no slower than B1 at every E
+# and class share (PERF.md; wide_times.py --mix on an H100, 416 read
+# slots).  At 64 isoforms B1w beat B1 at E = 4 and 64 at every share,
+# but at E = 2,048 only to C = R/2 classes (113.95 against 111.87 ms):
+# at C = 5R/8 its table took 142.38 ms and at C = R its walk 240.26,
+# against B1's 112.55 and 113.12.
 WIDE_FROM = 128
+# From this many isoforms a MARGINAL/CLASSES bucket runs B2w in place of
+# B2, for two reasons (PERF.md): B2's isoform sums in sequence make its
+# f32 MH ratio round away from the reference's at 60 and 64 real
+# isoforms (18 and 26 of 48 fixed-uniform steps accepted where the JAX
+# kernel and an f64 replica accept 48), where B2w's order agrees; and
+# B2w is 1.7-12x faster than B2 at 64 isoforms at every E timed.
+WIDE_FROM_MARGINAL = 64
 # Threads of a lane (a block), and what a lane keeps ahead of its arrays
 # (sums, 32 partial sums).
 WIDE_THREADS = (32, 64, 128, 256, 512)
@@ -37,16 +66,47 @@ HEAD_FLOATS = 64
 # terms.
 REASSIGN_ARRAYS = 10
 MARGINAL_ARRAYS = 11
+# B1w walks every read, building no class table, where a launch's
+# classes are more than this share of its read slots (``walks``): for
+# rows of one chunk (I <= 128), and of more.  Timed on an H100 at 64,
+# 128 and 512 isoforms, 416 read slots, E = 4, 64 and 2,048 (PERF.md,
+# wide_times.py --mix): a row of one chunk costs less than two reads'
+# walks, so the table wins to C = 3R/4 (at 128 isoforms 18.2 / 54.0 /
+# 171.0 ms against the walk's 18.9 / 55.7 / 206.9) and the walk from C =
+# R at E = 4 and 64; at 512 isoforms a row builds every chunk where a
+# walk stops at its isoform's, and the two meet at C = R/2 (38.0 against
+# 38.1 ms at E = 4).
+WALK_ABOVE = (0.75, 0.5)
+# B1w's class table: a row's scalars beside its 128 chunks(I) cumulative
+# weights (the class's total and its flag: some weight > 0), and the rows
+# of a table in scratch
+ROW_SCALARS = 2
+SCRATCH_ROWS = 8
 # dynamic shared memory a block can ask an H100 for; past it the lane's
 # arrays go to scratch
 MAX_SHARED = 232448
-# Threads a launch keeps at most where it has the lanes for them: an H100
-# holds 2,048 on each of its 132 SMs.  A lane's step is a chain of
-# latencies (a read's two passes and its scan, a class row's loads and
-# sum, a barrier a phase), which more warps share out: a launch of few
-# lanes gives each the widest block; one of more lanes keeps its blocks
-# narrower, since every block pays for its barriers alike.
-CARD_THREADS = 132 * 2048
+# An H100's SMs, and what one SM holds at once: threads, blocks, shared
+# memory (of which the runtime keeps BLOCK_RESERVED a block).  A table
+# that fits a block but leaves an SM a few warps where the launch has
+# dozens an SM for it serialises the lanes: at 2,048 events x 6 chains
+# (blocks of a warp) and 64 isoforms, 416 rows a block took 1,972 ms,
+# tiles of 4 rows 339, the walk 240; with blocks of 16 warps (64
+# events) the whole table beat tiles that keep three blocks an SM, 71
+# against 99 ms (PERF.md, wide_times.py --mix).  So B1w's table keeps
+# an SM SM_BUSY_WARPS warps, where the launch has them.
+SMS = 132
+SM_THREADS = 2048
+SM_BLOCKS = 32
+SM_SHARED = 233472
+BLOCK_RESERVED = 1024
+SM_BUSY_WARPS = 16
+# Threads a launch keeps at most where it has the lanes for them.  A
+# lane's step is a chain of latencies (a read's two passes and its scan,
+# a class row's loads and sum, a barrier a phase), which more warps
+# share out: a launch of few lanes gives each the widest block; one of
+# more lanes keeps its blocks narrower, since every block pays for its
+# barriers alike.
+CARD_THREADS = SMS * SM_THREADS
 KINDS = ("reassign", "marginal")
 
 
@@ -54,6 +114,7 @@ class WidePlan(NamedTuple):
     """How one launch of a wide kernel is laid out."""
     threads: int       # a lane's block, a multiple of 32
     shared_bytes: int  # the lane's arrays in shared memory; 0: in scratch
+    rows: int = 0      # B1w: class rows a table tile holds; B2w: 0
 
 
 def chunks(n: int) -> int:
@@ -61,51 +122,127 @@ def chunks(n: int) -> int:
     return -(-n // 128)
 
 
-def lane_floats(kind: str, n: int, I: int) -> int:
+def lane_floats(kind: str, n: int, I: int, rows: int = 0) -> int:
     """A lane's floats: the head, the kernel's I-wide arrays (128
-    chunks(I) each), and for B2w its class terms (n = C, padded alike)."""
+    chunks(I) each), for B1w the read scores of its n = R read slots and
+    a class table of ``rows`` rows (rounded up to whole 16 bytes), for
+    B2w its class terms (n = C, padded alike)."""
     P = 128 * chunks(I)
     if kind == "reassign":
-        return HEAD_FLOATS + REASSIGN_ARRAYS * P
+        # whole 16 bytes: the next lane's arrays in scratch follow
+        return 4 * -(-(HEAD_FLOATS + REASSIGN_ARRAYS * P + n
+                       + rows * (P + ROW_SCALARS)) // 4)
     return HEAD_FLOATS + MARGINAL_ARRAYS * P + 128 * chunks(n)
 
 
-def check_shape(kind: str, E: int, n: int, I: int, K: int) -> None:
+def walks(R: int, C: Optional[int], I: int) -> bool:
+    """Whether B1w walks every read of a launch of R read slots, C
+    classes (None: read tiles, a class a read) and width I instead of
+    building its class table: where the classes are more than
+    ``WALK_ABOVE`` of the slots (its first share for rows of one chunk),
+    so many hold a single read that their rows (every chunk, and its
+    running maximum) cost more than the reads' walks, which stop at
+    their isoforms' chunks."""
+    share = WALK_ABOVE[0] if chunks(I) == 1 else WALK_ABOVE[1]
+    return C is None or C > share * R
+
+
+def _rows_in(budget: int, R: int, I: int) -> int:
+    """The class rows that fit ``budget`` bytes beside a B1w lane's
+    arrays (< 1 where none does)."""
+    room = (budget // 4 - lane_floats("reassign", R, I)) // (
+        128 * chunks(I) + ROW_SCALARS)
+    if room >= 1 and 4 * lane_floats("reassign", R, I, room) > budget:
+        room -= 1                       # the rounding to 16 bytes
+    return room
+
+
+def sm_blocks(threads: int, lanes: int) -> int:
+    """The blocks of ``threads`` B1w's table leaves room for on an SM in
+    a launch of ``lanes`` lanes: the lanes spread over the SMs, up to
+    ``SM_BUSY_WARPS`` warps (a block at least), as far as an SM's blocks
+    and threads allow."""
+    return min(-(-lanes // SMS), SM_BLOCKS, SM_THREADS // threads,
+               max(1, SM_BUSY_WARPS // (threads // 32)))
+
+
+def table_rows(R: int, I: int, C: Optional[int], threads: int = 512,
+               lanes: int = 1) -> int:
+    """The class rows of B1w's table tile for R read slots, width I, C
+    classes (None: read tiles) and a launch of ``lanes`` blocks of
+    ``threads``: one where the launch walks its reads (``walks``: the
+    table stays empty), else up to min(C, R): as many as fit beside the
+    lane's arrays in an SM's shared memory shared by ``sm_blocks``
+    blocks, but no fewer than four (the rows a warp builds at once), and
+    no more than fit a block;
+    where no row fits a block (the lane goes to scratch),
+    ``SCRATCH_ROWS``."""
+    rows = 1 if walks(R, C, I) else min(C, R)
+    room = _rows_in(MAX_SHARED, R, I)
+    if room < 1:
+        return min(rows, SCRATCH_ROWS)
+    share = _rows_in(SM_SHARED // sm_blocks(threads, lanes)
+                     - BLOCK_RESERVED, R, I)
+    return min(rows, room, max(share, 4))
+
+
+def check_shape(kind: str, E: int, n: int, I: int, K: int,
+                classes: Optional[int] = None) -> None:
     if kind not in KINDS:
         raise ValueError("no wide kernel for %r" % (kind,))
     reads = kind == "reassign"
-    if E < 1 or K < 1 or I < 2 or n < 1 or (reads and (n < 4 or n % 4)):
+    if (E < 1 or K < 1 or I < 2 or n < 1 or (reads and (n < 4 or n % 4))
+            or (classes is not None and classes < 1)):
         raise ValueError(
             "the wide %s kernel takes E and K positive, I >= 2 and %s "
-            "(got E=%d, %s=%d, I=%d, K=%d)" % (
-                kind, "R a positive multiple of 4" if reads
-                else "C positive", E, "R" if reads else "C", n, I, K))
+            "(got E=%d, %s=%d, I=%d, K=%d, classes %s)" % (
+                kind, "R a positive multiple of 4 and C positive" if reads
+                else "C positive", E, "R" if reads else "C", n, I, K,
+                classes))
 
 
-def _layout(kind: str, n: int, I: int, threads: int) -> WidePlan:
-    need = 4 * lane_floats(kind, n, I)
+def _layout(kind: str, n: int, I: int, threads: int,
+            classes: Optional[int] = None, lanes: int = 1) -> WidePlan:
+    rows = 0
+    if kind == "reassign":
+        rows = table_rows(n, I, classes, threads, lanes)
+    need = 4 * lane_floats(kind, n, I, rows)
     return WidePlan(threads=threads,
-                    shared_bytes=need if need <= MAX_SHARED else 0)
+                    shared_bytes=need if need <= MAX_SHARED else 0,
+                    rows=rows)
 
 
-def wide_plan(kind: str, E: int, n: int, I: int, K: int) -> WidePlan:
-    """The launch of a wide kernel for E events of width I (n: reads R
-    for B1w, classes C for B2w) and K chains: the widest block whose
-    E * K lanes stay within ``CARD_THREADS``, 32 threads where none
-    does; the lane's arrays in shared memory where they fit a block,
-    else in scratch."""
-    check_shape(kind, E, n, I, K)
+def wide_plan(kind: str, E: int, n: int, I: int, K: int,
+              classes: Optional[int] = None) -> WidePlan:
+    """The launch of a wide kernel for E events of width I (n: read
+    slots R for B1w, classes C for B2w; ``classes``: B1w's class count
+    C, None for read tiles, a read a class) and K chains: the widest
+    block whose E * K lanes stay within ``CARD_THREADS``, 32 threads
+    where none does; the lane's arrays in shared memory where they fit a
+    block, else in scratch; B1w's table rows by ``table_rows``."""
+    check_shape(kind, E, n, I, K, classes)
     threads = max([t for t in WIDE_THREADS if E * K * t <= CARD_THREADS]
                   or [WIDE_THREADS[0]])
-    return _layout(kind, n, I, threads)
+    return _layout(kind, n, I, threads, classes, E * K)
 
 
-def all_wide_plans(kind: str, E: int, n: int, I: int, K: int):
+def all_wide_plans(kind: str, E: int, n: int, I: int, K: int,
+                   classes: Optional[int] = None):
     """Every plan a wide kernel can be launched with at this shape, one
     per block width: the checks run them all.  ``plan._replace(
-    shared_bytes=0)`` puts a plan's lane arrays in scratch."""
-    check_shape(kind, E, n, I, K)
-    return [_layout(kind, n, I, t) for t in WIDE_THREADS]
+    shared_bytes=0)`` puts a plan's lane arrays in scratch, and
+    ``tiled(plan, R, I, rows)`` B1w's table in tiles of ``rows``."""
+    check_shape(kind, E, n, I, K, classes)
+    return [_layout(kind, n, I, t, classes, E * K) for t in WIDE_THREADS]
+
+
+def tiled(plan: WidePlan, R: int, I: int, rows: int) -> WidePlan:
+    """B1w's ``plan`` with a table tile of ``rows`` class rows, in shared
+    memory where the plan's arrays are (the checks force tables of many
+    tiles at small widths so)."""
+    need = 4 * lane_floats("reassign", R, I, rows)
+    return plan._replace(rows=rows,
+                         shared_bytes=need if plan.shared_bytes else 0)
 
 
 def _chunked(x):

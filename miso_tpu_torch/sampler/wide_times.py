@@ -3,6 +3,7 @@ one CUDA card: what ``wide.WIDE_FROM`` is chosen from.
 
     python3 miso_tpu_torch/sampler/wide_times.py [--tree DIR] [--reps N]
     python3 miso_tpu_torch/sampler/wide_times.py --plans [--reps N]
+    python3 miso_tpu_torch/sampler/wide_times.py --mix [--reps N]
 
 ``--tree DIR`` imports ``miso_tpu_torch`` from DIR, another checkout of
 the repo (a tree whose narrow kernels B1 and B2 still have instances of
@@ -13,22 +14,41 @@ each, four genes tiled to E = 4, 64 and, up to 128 isoforms, 2,048
 events) it times, by CUDA events: the wrapper (``run_batch_reassign``,
 ``run_batch_marginal``: the route the tree takes at that width, where it
 has one) and, where the tree has them, the wide kernels B1w and B2w
-launched directly; at 1000 iterations x 6 chains, 100 x 6 at E = 2,048.
-Before timing a wide kernel it holds it against its plain version under
-fixed uniforms (24 iterations x 2 chains, E = 4) and raises where they
-differ.  The last line is a JSON object of the best of ``--reps`` times
-in milliseconds per case.
+launched directly -- B1w on the genes' (R, I) read tiles (a class a
+read) and, where the tree's B1w reads class tensors, on the genes'
+classes as the pipeline hands them over ("wide classes"); at 1000
+iterations x 6 chains, 100 x 6 at E = 2,048.  Before timing a wide
+kernel it holds it against its plain version under fixed uniforms (24
+iterations x 2 chains, E = 4) and raises where they differ.  The last
+line is a JSON object of the best of ``--reps`` times in milliseconds
+per case.
 
 ``--plans`` times instead B1w and B2w in every block width of their
 plans (32 ... 512 threads a lane) at I = 16, 128, 512 and 2,048 (E = 4
 events, 1000 iterations x 6 chains): B1w at R = 16 and 416 reads
-(``lane_test_batch``), B2w at C = 4 and 64 classes
+(``lane_test_batch``, a class a read), B2w at C = 4 and 64 classes
 (``marginal_lane_batch``, E = 3): how a lane's step time splits between
-the Gibbs sweep over the reads and the rest.
+the Gibbs sweep over the reads and the rest; and, where the tree's B1w
+reads class tensors, B1w on the classes of four genes of 300 and of
+1,100 isoforms (I = 512 and 2,048).
+
+``--mix`` times B1w's two forms on class tensors of every class share:
+four events (``testing.wide_class_batch``) of R = 416 read slots spread
+evenly over C = R/8 ... R classes, at I = 64, 128, 256 and 512 (genes
+of 40, 70, 150 and 300 isoforms), tiled to E = 4, 64 and, up to 128
+isoforms, 2,048
+events, with the class table in the plan's tiles ("table") and, where
+they differ and it fits a block, whole ("whole") and in tiles of four
+rows ("four"), and with every read walking ("walk"), each forced by
+``wide.WALK_ABOVE``; and, at 64 isoforms, the
+wrapper's narrow route B1 on the same classes (the expansion to read
+tiles included): what ``wide.walks`` and ``wide.WIDE_FROM`` are chosen
+from.  The two forms are held bit-equal under fixed uniforms first.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -94,6 +114,23 @@ def check(name, got, ref):
                              "at %s" % name)
 
 
+def reads_classes(rk):
+    """Whether the tree's B1w reads class tensors (``pad_reads``)."""
+    launch = getattr(rk, "_reassign_wide_cuda", None)
+    return (launch is not None
+            and "pad_reads" in inspect.signature(launch).parameters)
+
+
+def class_case(evs):
+    """(class batch, read slots R) of genes as the pipeline hands their
+    bucket to B1w: the class tensors, and the read slots of their read
+    tiles."""
+    from miso_tpu_torch.testing import class_batch, padded_batch
+
+    return (class_batch(evs, "cuda"),
+            padded_batch(evs, "cuda").read_w.shape[1])
+
+
 def plan_times(reps):
     """{case: ms} of B1w and B2w in every block width (``--plans``)."""
     from miso_tpu_torch.sampler import marginal_kernel as mk
@@ -102,6 +139,25 @@ def plan_times(reps):
     from miso_tpu_torch.testing import lane_test_batch, marginal_lane_batch
 
     out = {}
+    if reads_classes(rk):
+        cfg = SamplerConfig(**QUICK)
+        for I, num_iso in ((512, 300), (2048, 1100)):
+            b, R = class_case([wide_gene_event("reassign", num_iso, 3 + j)
+                               for j in range(4)])
+            consts = rk._event_consts(b)
+            C = b.weights.shape[1]
+            row = []
+            for plan in rk.all_wide_plans(4, R + (-R) % 4, I, cfg.chains,
+                                          classes=C):
+                label = "reassign classes I=%d C=%d threads=%d" % (
+                    I, C, plan.threads)
+                out[label] = timed(lambda: rk._reassign_wide_cuda(
+                    1, b, cfg, consts, None, False, plan=plan, pad_reads=R),
+                    reps)
+                row.append("%d: %.2f" % (plan.threads, out[label]))
+            print("  reassign classes I=%d C=%d R=%d, %d x %d, ms by threads "
+                  "a lane: %s" % (I, C, R, cfg.iters, cfg.chains,
+                                  "  ".join(row)), flush=True)
     for kind in ("reassign", "marginal"):
         cfg = SamplerConfig(algorithm=kind, **QUICK)
         for I in (16, 128, 512, 2048):
@@ -131,6 +187,85 @@ def plan_times(reps):
     return out
 
 
+MIX_WIDTHS = ((64, 40), (128, 70), (256, 150), (512, 300))
+MIX_READS = 416
+MIX_CLASSES = (52, 104, 156, 208, 260, 312, 416)
+
+
+def mix_times(reps):
+    """{case: ms} of B1w's table and walk forms, and B1 at 64 isoforms,
+    over the class shares of ``MIX_CLASSES`` (``--mix``)."""
+    import torch
+
+    from miso_tpu_torch.sampler import reassign_kernel as rk
+    from miso_tpu_torch.sampler import wide
+    from miso_tpu_torch.sampler.mcmc import EventBatch, SamplerConfig
+    from miso_tpu_torch.testing import wide_class_batch
+
+    def forced(walk, fn):
+        # every launch of fn walks (share 0) or builds its table
+        saved = wide.WALK_ABOVE
+        wide.WALK_ABOVE = (0.0, 0.0) if walk else (float("inf"),) * 2
+        try:
+            return fn()
+        finally:
+            wide.WALK_ABOVE = saved
+
+    R, out = MIX_READS, {}
+    short = SamplerConfig(**CHECK)
+    for I, num_iso in MIX_WIDTHS:
+        for C in MIX_CLASSES:
+            counts = [[R // C + (c < R % C) for c in range(C)]] * 4
+            base = wide_class_batch(I, num_iso, 3, "cuda", counts=counts)
+            consts = rk._event_consts(base)
+            # the table whole, in tiles of four rows, and the walk
+            plan = forced(False, lambda: rk.wide_plan(4, R, I, short.chains,
+                                                      classes=C))
+            forms = [forced(walk, lambda: rk._reassign_wide_cuda(
+                0, base, short, consts, None, True, plan=p, pad_reads=R))
+                for walk, p in ((False, plan), (False, wide.tiled(
+                    plan, R, I, 4)), (True, None))]
+            for other in forms[1:]:
+                for name, a, b in zip(forms[0]._fields, forms[0], other):
+                    if not torch.equal(a, b):
+                        raise AssertionError("B1w's forms differ in %s at "
+                                             "I=%d C=%d" % (name, I, C))
+            for tiles, schedule, widest in TILES:
+                if I > widest:
+                    continue
+                cfg = SamplerConfig(**schedule)
+                b = EventBatch(*[t.repeat(tiles, *[1] * (t.dim() - 1))
+                                 .contiguous() for t in base])
+                bc = rk._event_consts(b)
+                label = "I=%d C=%d E=%d" % (I, C, b.weights.shape[0])
+                line = "  %-22s R=%d %d x %d" % (label, R, cfg.iters,
+                                                 cfg.chains)
+                if I in rk.KERNEL_ISO and I < wide.WIDE_FROM:
+                    out[label + " B1"] = timed(lambda: rk.run_batch_reassign(
+                        5, b, cfg, pad_reads=R), reps)
+                    line += "  B1 %9.2f ms" % out[label + " B1"]
+                E = b.weights.shape[0]
+                plan = forced(False, lambda: rk.wide_plan(
+                    E, R, I, cfg.chains, classes=C))
+                whole = wide.tiled(plan, R, I, C)
+                forms = [("table", False, plan), ("walk", True, None)]
+                if plan.rows < C and 0 < whole.shared_bytes <= wide.MAX_SHARED:
+                    forms.insert(1, ("whole", False, whole))
+                if 4 < plan.rows < C or (C > 4 and whole.shared_bytes
+                                         > wide.MAX_SHARED):
+                    forms.insert(1, ("four", False,
+                                     wide.tiled(plan, R, I, 4)))
+                for form, walk, p in forms:
+                    out[label + " " + form] = forced(walk, lambda: timed(
+                        lambda: rk._reassign_wide_cuda(
+                            5, b, cfg, bc, None, False, plan=p,
+                            pad_reads=R), reps))
+                    line += "  %s %9.2f ms" % (form, out[label + " " + form])
+                line += "  (table: %d rows a tile)" % plan.rows
+                print(line, flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=None,
@@ -138,6 +273,9 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--plans", action="store_true",
                     help="time B1w and B2w in every block width instead")
+    ap.add_argument("--mix", action="store_true",
+                    help="time B1w's table and walk (and B1 at 64 "
+                    "isoforms) over class shares instead")
     args = ap.parse_args(argv)
     # this file's own directory is no place to import the package from
     sys.path[0] = os.path.abspath(args.tree or os.path.join(
@@ -165,8 +303,12 @@ def main(argv=None) -> int:
     if args.plans:
         print(json.dumps({"card": card, "plans_ms": plan_times(args.reps)}))
         return 0
+    if args.mix:
+        print(json.dumps({"card": card, "mix_ms": mix_times(args.reps)}))
+        return 0
     wide_b1 = getattr(rk, "_reassign_wide_cuda", None)
     wide_b2 = getattr(mk, "_marginal_wide_cuda", None)
+    classes = reads_classes(rk)
     out = {}
     for algorithm in ("reassign", "marginal"):
         mod = rk if algorithm == "reassign" else mk
@@ -189,10 +331,16 @@ def main(argv=None) -> int:
                 consts = consts_of(base)
                 plain = (rk._reassign_plain if mod is rk
                          else mk._marginal_plain)
+                ref = plain(0, base, short, consts, None, mod.FIXED_U,
+                            wide_order=True)
                 check("%s I=%d" % (algorithm, I),
-                      launch_wide(0, base, short, consts, None, True),
-                      plain(0, base, short, consts, None, mod.FIXED_U,
-                            wide_order=True))
+                      launch_wide(0, base, short, consts, None, True), ref)
+            cbase = None
+            if launch_wide is not None and mod is rk and classes:
+                cbase, R = class_case(evs)
+                check("%s classes I=%d" % (algorithm, I),
+                      launch_wide(0, cbase, short, rk._event_consts(cbase),
+                                  None, True, pad_reads=R), ref)
             for tiles, schedule, widest in TILES:
                 if I > widest:
                     continue
@@ -215,6 +363,15 @@ def main(argv=None) -> int:
                         lambda: launch_wide(5, b, cfg, consts, None,
                                             False), args.reps)
                     line += "  wide %10.2f ms" % out[label + " wide"]
+                if cbase is not None:
+                    cb = EventBatch(*[t.repeat(tiles, *[1] * (t.dim() - 1))
+                                      .contiguous() for t in cbase])
+                    cconsts = rk._event_consts(cb)
+                    out[label + " wide classes"] = timed(
+                        lambda: launch_wide(5, cb, cfg, cconsts, None, False,
+                                            pad_reads=R), args.reps)
+                    line += "  wide classes (C=%d) %10.2f ms" % (
+                        cb.weights.shape[1], out[label + " wide classes"])
                 print(line, flush=True)
     print(json.dumps({"card": card, "tree": os.path.dirname(
         miso_tpu_torch.__file__), "ms": out}))

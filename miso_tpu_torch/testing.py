@@ -302,6 +302,41 @@ def lane_test_batch(I, num_iso, seed, device, E=2, R=16):
     return batch
 
 
+# read counts of ``wide_class_batch``'s classes: in event 0 a class of
+# no reads and one (class 2) of zero weights whose five reads straddle
+# two groups of four; 15 and 14 reads in 20 read slots, the rest padding
+WIDE_CLASS_COUNTS = ((3, 0, 5, 2, 1, 4, 0), (1, 1, 1, 6, 0, 2, 3))
+WIDE_CLASS_SLOTS = 20
+
+
+def wide_class_batch(I, num_iso, seed, device, counts=WIDE_CLASS_COUNTS):
+    """A REASSIGN batch of class tensors alone (``read_w`` and
+    ``read_logscore`` (E, 1, I) placeholders), for B1w's class form: E
+    = len(counts) events of ``num_iso`` real isoforms padded to I, C =
+    len(counts[0]) classes of random weights (class 0 compatible with
+    every real isoform, class 2 with none) and non-zero read scores,
+    ``counts`` reads a class; run it as ``WIDE_CLASS_SLOTS`` read slots
+    (or more)."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray(counts, np.float32)
+    E, C = counts.shape
+    real = np.arange(I) < num_iso
+    weights = ((rng.random((E, C, I)) < 0.7) & real).astype(np.float32)
+    weights[:, 0, :] = real
+    weights[:, 2, :] = 0.0
+    log_read = np.where(weights > 0, np.log(0.01 + rng.random((E, C, I))),
+                        0.0).astype(np.float32)
+    with np.errstate(divide="ignore"):
+        log_iso_w = np.where(real, np.log(np.linspace(200.0, 80.0, I)),
+                             -np.inf)
+    batch, _ = batch_from_numpy(EventBatch(
+        weights=weights, log_read=log_read, counts=counts,
+        log_iso_w=np.tile(log_iso_w, (E, 1)), hyper=np.ones((E, I)),
+        num_iso=np.full((E,), num_iso), read_w=np.zeros((E, 1, I)),
+        read_logscore=np.zeros((E, 1, I))), device)
+    return batch
+
+
 def marginal_lane_batch(I, num_iso, seed, device, C=4):
     """The MARGINAL inputs of tests/test_pallas_interpret.py, widened to
     any I (and any class count C): E=2 events of ``num_iso`` real

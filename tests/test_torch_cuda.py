@@ -16,10 +16,11 @@ from miso_tpu_torch.sampler import marginal_kernel as mk
 from miso_tpu_torch.sampler import reassign_kernel as rk
 from miso_tpu_torch.sampler import wide
 from miso_tpu_torch.sampler.mcmc import SamplerConfig
-from miso_tpu_torch.testing import (PAIRED_GENE, cap_test_threads,
-                                    lane_test_batch, marginal_lane_batch,
+from miso_tpu_torch.testing import (PAIRED_GENE, WIDE_CLASS_SLOTS,
+                                    cap_test_threads, lane_test_batch,
+                                    marginal_lane_batch,
                                     multinomial_lane_batch, padded_batch,
-                                    paired_event)
+                                    paired_event, wide_class_batch)
 
 cap_test_threads()
 
@@ -56,9 +57,10 @@ WIDTHS = [(2, 2), (3, 3), (4, 3), (6, 5), (8, 8), (16, 9), (32, 17),
           (2048, 1100)]
 
 
-def _route(I):
-    """The LAUNCHES key of the kernel a bucket of I isoforms runs."""
-    return "wide" if I >= wide.WIDE_FROM else "cuda"
+def _route(I, wide_from=wide.WIDE_FROM):
+    """The LAUNCHES key of the kernel a bucket of I isoforms runs
+    (MARGINAL: ``wide_from=wide.WIDE_FROM_MARGINAL``)."""
+    return "wide" if I >= wide_from else "cuda"
 
 
 @pytest.mark.parametrize("given", [False, True])
@@ -183,11 +185,12 @@ def test_kernel_rejects_bad_input(cuda):
 
 
 @pytest.mark.parametrize("given", [False, True])
-@pytest.mark.parametrize("I,num_iso", WIDTHS)
+@pytest.mark.parametrize("I,num_iso", WIDTHS + [(64, 60), (64, 64)])
 def test_marginal_kernel_matches_plain_fixed_uniform(cuda, I, num_iso,
                                                      given):
-    """B2 at every width, with padded isoforms, an empty class and a
-    padding event."""
+    """B2, and B2w from wide.WIDE_FROM_MARGINAL isoforms on, at every
+    width, with padded isoforms, an empty class and a padding event."""
+    route = _route(I, wide.WIDE_FROM_MARGINAL)
     cfg = SamplerConfig(iters=24, burn_in=6, lag=3, chains=2,
                         algorithm="marginal")
     batch = marginal_lane_batch(I, num_iso, I, cuda)
@@ -198,12 +201,12 @@ def test_marginal_kernel_matches_plain_fixed_uniform(cuda, I, num_iso,
             np.ones(num_iso), size=(2, 2))
         start = torch.from_numpy(sp).to(cuda)
     ref = mk._marginal_plain(0, batch, cfg, mk._marginal_consts(batch),
-                             start, mk.FIXED_U)
+                             start, mk.FIXED_U, wide_order=route == "wide")
     launches = dict(mk.LAUNCHES)
     got = mk.run_batch_marginal(0, batch, cfg, start_psi=start,
                                 fixed_uniform=mk.FIXED_U)
     torch.cuda.synchronize()
-    launches[_route(I)] += 1
+    launches[route] += 1
     assert mk.LAUNCHES == launches
     _assert_same_chain(got, ref)
 
@@ -389,6 +392,37 @@ def test_wide_kernel_matches_plain_in_every_plan(cuda, kind, I, num_iso,
         got = launch(0, batch, cfg, consts, start, True, plan=plan)
         torch.cuda.synchronize()
         _assert_same_chain(got, ref)
+
+
+@pytest.mark.parametrize("I,num_iso", [(64, 40), (128, 70), (384, 250),
+                                       (512, 300), (2048, 1100)])
+def test_wide_kernel_reads_classes(cuda, I, num_iso):
+    """B1w on class tensors (``testing.wide_class_batch``, as run_sampler
+    hands a wide bucket over) is the wide-order plain version on their
+    expanded read tiles, to the bit, in every block width, in scratch
+    and in tiles of its class table, from AUTO and GIVEN starts."""
+    cfg = SamplerConfig(iters=24, burn_in=6, lag=3, chains=2)
+    batch = wide_class_batch(I, num_iso, I, cuda)
+    E, C, _ = batch.weights.shape
+    R = WIDE_CLASS_SLOTS
+    rw, rls = rk.expand_read_tensors(batch.weights, batch.log_read,
+                                     batch.counts, R)
+    tiles = batch._replace(read_w=rw, read_logscore=rls)
+    consts = rk._event_consts(batch)
+    plans = rk.all_wide_plans(E, R, I, 2, classes=C)
+    plans += [p._replace(shared_bytes=0) for p in plans if p.shared_bytes]
+    plans += [wide.tiled(plans[0], R, I, 2), wide.tiled(plans[2], R, I, 1)]
+    sp = np.zeros((E, 2, I), np.float32)
+    sp[..., :num_iso] = np.random.default_rng(9).dirichlet(
+        np.ones(num_iso), size=(E, 2))
+    for start in (None, torch.from_numpy(sp).to(cuda)):
+        ref = rk._reassign_plain(0, tiles, cfg, consts, start, rk.FIXED_U,
+                                 wide_order=True).to_numpy()
+        for plan in plans:
+            got = rk._reassign_wide_cuda(0, batch, cfg, consts, start, True,
+                                         plan=plan, pad_reads=R).to_numpy()
+            for name, a, b in zip(got._fields, got, ref):
+                np.testing.assert_array_equal(a, b, err_msg=name)
 
 
 @pytest.mark.parametrize("kind", wide.KINDS)

@@ -60,7 +60,7 @@ def test_gibbs_reassign_sums_exactly_and_matches_its_mean():
 
 def test_deep_event_skips_per_read_tensors(monkeypatch):
     """The pipeline pads a million-read bucket without per-read tiles and
-    runs the deep route: _expand_read_tensors is never called and no
+    runs the deep route: expand_read_tensors is never called and no
     REASSIGN kernel or plain version launches."""
     _, ev = _deep_event()
     assert int(ev.counts.sum()) == 1_000_000
@@ -75,7 +75,7 @@ def test_deep_event_skips_per_read_tensors(monkeypatch):
         seen.update(kw)
         return orig(events, **kw)
 
-    monkeypatch.setattr(tp, "_expand_read_tensors", refuse)
+    monkeypatch.setattr(rk, "expand_read_tensors", refuse)
     monkeypatch.setattr(tp, "pad_events", spy)
     before = (dict(deep.LAUNCHES), dict(rk.LAUNCHES))
     cfg = RunConfig(read_len=25, iters=40, burn_in=10, lag=5, chains=2)
@@ -209,11 +209,13 @@ def test_card_refuses_only_shallow_buckets_above_its_widest_kernel(
     there to its wide route (B1w or B2w on a card; here, the tensors
     being the CPU's, its plain version in the wide kernel's summing
     order), and to nothing else: no narrow instance, no deep route.  The
-    narrow instances stop below wide.WIDE_FROM."""
+    widest narrow instance is no wider than the wide kernels' first
+    width."""
     from miso_tpu_torch.sampler import marginal_kernel as mk
     from miso_tpu_torch.sampler import wide
 
-    assert max(rk.KERNEL_ISO) < wide.WIDE_FROM <= 512
+    assert max(rk.KERNEL_ISO) <= wide.WIDE_FROM <= 512
+    assert max(rk.KERNEL_ISO) <= wide.WIDE_FROM_MARGINAL <= 512
     ev = wide_event(algorithm)
     key = tp._bucket_key(ev)
     assert key[0] == 512 and key[2] <= tp.DEEP_READS

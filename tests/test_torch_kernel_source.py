@@ -10,7 +10,9 @@ REASSIGN and MARGINAL kernels in every layout of their launch plans,
 against their plain versions under fixed uniforms with the card's
 tolerances, and one Philox chain whatever the layout; their wide forms
 B1w and B2w (``wide_kernel.cu``) likewise in every block width and with
-their lane arrays in scratch, at 128 and 2,048 isoforms (``-k wide``);
+their lane arrays in scratch, at 128 and 2,048 isoforms, B1w also on
+class tensors (fewer classes than reads, empty and zero-weight classes,
+padding reads, a table of many tiles) to the bit (``-k wide``);
 the multinomial kernel B3 of the deep route likewise in every plan, its
 binomial draws' moments and chi2, and its step-breakdown build.
 What ``nvcc`` makes of the source, and every time, stay the card's to
@@ -249,8 +251,9 @@ def test_launcher_refuses_a_plan_it_cannot_lay_out(on_cpu):
             rk._reassign_cuda(0, batch, cfg, consts, None, True, plan=bad)
 
 
-# (from wide.WIDE_FROM isoforms on the wide kernel B2w, as the wrapper
-# chooses; 512 isoforms from the AUTO start alone: a GIVEN Dirichlet
+# (from wide.WIDE_FROM_MARGINAL isoforms on the wide kernel B2w, as the
+# wrapper chooses, beside the plain version in B2w's order; 512 isoforms
+# from the AUTO start alone: a GIVEN Dirichlet
 # start puts the scores near 1,370, where the host's logf and torch's
 # differ by more than the tolerance; on the card the two agree to the
 # bit)
@@ -260,8 +263,9 @@ def test_launcher_refuses_a_plan_it_cannot_lay_out(on_cpu):
                        (512, 300))
     for given in (False, True) if I < 512 or not given])
 def test_marginal_source_matches_plain(on_cpu, I, num_iso, given):
-    """B2 (B2w from wide.WIDE_FROM isoforms on) with padded isoforms, an
-    empty class and a padding event, in the plan the wrapper chooses."""
+    """B2 (B2w from wide.WIDE_FROM_MARGINAL isoforms on) with padded
+    isoforms, an empty class and a padding event, in the plan the wrapper
+    chooses."""
     cfg = SamplerConfig(algorithm="marginal", **SMALL)
     batch = marginal_lane_batch(I, num_iso, I, "cpu")
     consts = mk._marginal_consts(batch)
@@ -269,9 +273,10 @@ def test_marginal_source_matches_plain(on_cpu, I, num_iso, given):
     if given:
         start = torch.cat([_start(num_iso, 2, 2, I),
                            torch.zeros((1, 2, I))])
-    ref = mk._marginal_plain(0, batch, cfg, consts, start, mk.FIXED_U)
+    route = "wide" if I >= wide.WIDE_FROM_MARGINAL else "cuda"
+    ref = mk._marginal_plain(0, batch, cfg, consts, start, mk.FIXED_U,
+                             wide_order=route == "wide")
     launches = dict(mk.LAUNCHES)
-    route = "wide" if I >= wide.WIDE_FROM else "cuda"
     launch = mk._marginal_wide_cuda if route == "wide" else mk._marginal_cuda
     got = launch(0, batch, cfg, consts, start, True)
     launches[route] += 1
@@ -391,7 +396,7 @@ def test_wide_source_matches_plain_in_every_plan(on_cpu, kind, I, num_iso,
     batch, consts, plans, launch, plain = _wide_case(kind, I, num_iso)
     plan = next(p for p in plans if p.threads == threads)
     assert plan.shared_bytes == 4 * wide.lane_floats(
-        kind, batch.weights.shape[1], I)
+        kind, 16 if kind == "reassign" else 5, I, plan.rows)
     if arrays == "scratch":
         plan = plan._replace(shared_bytes=0)
     E = batch.weights.shape[0]
@@ -404,10 +409,118 @@ def test_wide_source_matches_plain_in_every_plan(on_cpu, kind, I, num_iso,
         got = launch(0, batch, cfg, consts, start, True, plan=plan)
         _assert_same_chain(got, ref)
         if kind == "reassign":
+            if start is None:
+                # a read a class: the class table's chain is the walk's
+                # (from a GIVEN start the host's logf and torch's log
+                # differ in the last bit; on the card they agree)
+                _assert_bit_equal(got, ref)
             # every compatible read counted once, in every chain
             valid = (batch.read_w.sum(-1) > 0).sum(-1, keepdim=True)
             np.testing.assert_array_equal(
                 got.final_n.sum(-1).numpy(), valid.expand(E, 2).numpy())
+
+
+def _assert_bit_equal(got, ref):
+    for name, a, b in zip(got._fields, got.to_numpy(), ref.to_numpy()):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def _expanded(batch, R):
+    """A class batch with its read tiles, as the plain version reads it."""
+    rw, rls = rk.expand_read_tensors(batch.weights, batch.log_read,
+                                     batch.counts, R)
+    return batch._replace(read_w=rw, read_logscore=rls)
+
+
+# B1w on class tensors (testing.wide_class_batch: 7 classes, 20 read
+# slots, a class of no reads, one of zero weights whose reads straddle
+# two groups of four, padding reads), as run_sampler hands a wide bucket
+# over: every block width, the lane arrays in scratch, and tables of
+# many tiles (two rows a tile in shared memory, one in scratch), also at
+# 384 and 512 isoforms (rows of 3 and 4 chunks, which a warp takes four
+# chunks at a time: at 384 one slot idles); at 64 isoforms (half a
+# chunk), every block width; and
+# launches whose reads walk (wide.walks): C = R, 16
+# classes of a read each, and 16 classes in 20 slots, some of 2 and 3
+# reads
+B1W_CLASS_PLANS = [(128, 70, layout) for layout in (
+    "widths", "scratch", "tiles", "C=R", "walks")] + [
+    (64, 40, "widths"), (384, 250, "tiles"), (512, 300, "tiles")]
+WALK_COUNTS = {"C=R": np.ones((2, 16)),
+               "walks": [(2, 1, 1, 0, 3, 1, 1, 1, 2, 1, 1, 1, 1, 1, 1, 1),
+                         (1, 3, 1, 1, 1, 2, 0, 1, 1, 1, 1, 2, 1, 1, 1, 1)]}
+
+
+@pytest.mark.parametrize("I,num_iso,layout", B1W_CLASS_PLANS)
+def test_wide_source_reads_classes(on_cpu, monkeypatch, I, num_iso,
+                                   layout):
+    """B1w on class tensors is the wide-order plain version on their
+    expanded read tiles, to the bit from the AUTO start (from a GIVEN
+    one within the card's tolerances: the host's logf is not torch's)
+    and to the bit B1w on those tiles; every read with a compatible
+    isoform counts once; the kernel's route expands no tile."""
+    from miso_tpu_torch.testing import WIDE_CLASS_SLOTS, wide_class_batch
+
+    cfg = SamplerConfig(**WIDE)
+    counts = [WALK_COUNTS[layout]] if layout in WALK_COUNTS else []
+    batch = wide_class_batch(I, num_iso, I, "cpu", *counts)
+    E, C, _ = batch.weights.shape
+    R = 16 if layout == "C=R" else WIDE_CLASS_SLOTS
+    plans = rk.all_wide_plans(E, R, I, 2, classes=C)
+    assert wide.walks(R, C, I) == (layout in WALK_COUNTS)
+    assert all(p.rows == (1 if wide.walks(R, C, I) else min(C, R))
+               for p in plans)
+    plans = {"widths": plans, "C=R": plans[:1], "walks": plans[1:3],
+             "scratch": [p._replace(shared_bytes=0) for p in plans[:2]],
+             "tiles": [wide.tiled(plans[2], R, I, 2),
+                       wide.tiled(plans[0], R, I, 1)._replace(
+                           shared_bytes=0)]}[layout]
+    consts = rk._event_consts(batch)
+    tiles = _expanded(batch, R)
+    valid = (tiles.read_w.sum(-1) > 0).sum(-1, keepdim=True)
+    for start in (None, _start(num_iso, 2, 2, I)):
+        ref = rk._reassign_plain(0, tiles, cfg, consts, start, rk.FIXED_U,
+                                 wide_order=True)
+        walk = rk._reassign_wide_cuda(0, tiles, cfg, consts, start, True,
+                                      plan=plans[0])
+        with monkeypatch.context() as m:
+            m.setattr(rk, "expand_read_tensors", None)
+            m.setattr(rk, "_read_tiles", None)
+            got = [rk._reassign_wide_cuda(0, batch, cfg, consts, start,
+                                          True, plan=plan, pad_reads=R)
+                   for plan in plans]
+        for res in got:
+            _assert_bit_equal(res, walk)
+            if start is None:
+                _assert_bit_equal(res, ref)
+            _assert_same_chain(res, ref)
+            np.testing.assert_array_equal(res.final_n.sum(-1).numpy(),
+                                          valid.expand(E, 2).numpy())
+
+
+def test_wide_source_draws_one_philox_chain_from_classes_and_tiles(
+        on_cpu):
+    """One seed, one chain: B1w on a class batch and on its expanded
+    read tiles (each a class of one read), in every block width, in
+    scratch and in tiles of the class table, bit-equal; the reads past
+    pad_reads count nowhere."""
+    from miso_tpu_torch.testing import wide_class_batch
+
+    cfg = SamplerConfig(iters=20, burn_in=5, lag=5, chains=2)
+    batch = wide_class_batch(128, 70, 5, "cpu")
+    consts = rk._event_consts(batch)
+    R = 14                      # of event 0's 15 reads, 14 have a slot
+    first = rk._reassign_wide_cuda(17, _expanded(batch, R), cfg, consts,
+                                   None, False)
+    plans = rk.all_wide_plans(2, 16, 128, 2, classes=7)
+    for plan in plans + [plans[0]._replace(shared_bytes=0),
+                         wide.tiled(plans[1], 16, 128, 3)]:
+        got = rk._reassign_wide_cuda(17, batch, cfg, consts, None, False,
+                                     plan=plan, pad_reads=R)
+        _assert_bit_equal(got, first)
+    np.testing.assert_array_equal(first.final_n.sum(-1).numpy(),
+                                  [[9, 9], [13, 13]])
+    assert first.accepted.sum() > 0
 
 
 @pytest.mark.parametrize("kind", wide.KINDS)
@@ -480,30 +593,38 @@ def test_wide_launcher_refuses_a_launch_without_its_arrays(on_cpu, kind):
     """The lane arrays lie in shared memory or in scratch, never both and
     never neither: a launch with scratch and shared memory, or with
     neither, or asking for more shared memory than a block has, is
-    refused; the source's size of a lane's arrays is
-    wide.lane_floats's."""
+    refused, and so is a B1w table of no rows; the source's size of a
+    lane's arrays is wide.lane_floats's."""
     n = 16 if kind == "reassign" else 5
-    for I in (2, 128, 2048, 8192):
-        assert on_cpu.miso_wide_lane_floats(wide.KINDS.index(kind), n, I) \
-            == wide.lane_floats(kind, n, I)
-    assert wide.all_wide_plans(kind, 2, n, 8192, 2)[0].shared_bytes == 0
     batch, _, plans, _, _ = _wide_case(kind, 128, 70)
+    rows = plans[0].rows
+    for I in (2, 128, 2048, 8192):
+        for r in ((0, 1, rows) if kind == "reassign" else (0,)):
+            assert on_cpu.miso_wide_lane_floats(
+                wide.KINDS.index(kind), n, I, r) == wide.lane_floats(
+                    kind, n, I, r)
+    assert wide.all_wide_plans(kind, 2, n, 8192, 2)[0].shared_bytes == 0
     E, I = batch.weights.shape[0], 128
     need = plans[0].shared_bytes
-    scratch = torch.empty(E * 2 * wide.lane_floats(kind, n, I))
+    scratch = torch.empty(E * 2 * wide.lane_floats(kind, n, I, rows))
     out = [torch.empty(m) for m in (E * I, E, E * 2, E * 2 * I, E * 2 * I)]
     consts = (rk._event_consts(batch) if kind == "reassign"
               else mk._marginal_consts(batch))
-    for arrays, shared in ((scratch, need), (None, 0), (None, need - 4),
-                           (None, 4 * wide.lane_floats(kind, n, 8192))):
+    cases = [(scratch, need, rows), (None, 0, rows), (None, need - 4, rows),
+             (None, 4 * wide.lane_floats(kind, n, 8192, rows), rows)]
+    if kind == "reassign":
+        cases.append((None, 4 * wide.lane_floats(kind, n, I, 0), 0))
+    for arrays, shared, r in cases:
         ptr = None if arrays is None else arrays.data_ptr()
         if kind == "reassign":
+            cmap = rk.class_map(torch.ones((E, 16)), 16)
             rc = on_cpu.miso_reassign_wide(
                 batch.read_w.data_ptr(), batch.read_logscore.data_ptr(),
+                *[t.data_ptr() for t in cmap[:-1]], torch.ones(E).data_ptr(),
                 consts[0].data_ptr(), consts[1].data_ptr(),
                 batch.num_iso.data_ptr(), consts[5].data_ptr(), None,
-                *[t.data_ptr() for t in out], ptr, E, 16, I, 2, 4, 0, 1,
-                1, 0, 0, 1, 32, shared, None)
+                *[t.data_ptr() for t in out], ptr, E, 16, 16, 16, I, 2, 4,
+                0, 1, 1, 0, 0, 1, 32, r, shared, None)
         else:
             rc = on_cpu.miso_marginal_wide(
                 batch.weights.data_ptr(), batch.counts.data_ptr(),
@@ -511,7 +632,7 @@ def test_wide_launcher_refuses_a_launch_without_its_arrays(on_cpu, kind):
                 consts[1].data_ptr(), None, *[t.data_ptr() for t in out[:3]],
                 out[4].data_ptr(), ptr, E, 5, I, 2, 4, 0, 1, 1, 0, 0, 1, 32,
                 shared, None)
-        assert rc != 0, (arrays is not None, shared)
+        assert rc != 0, (arrays is not None, shared, r)
 
 
 # ------------------------------------------------ the multinomial kernel B3
@@ -643,41 +764,69 @@ def test_multinomial_source_on_the_million_read_event(on_cpu):
     np.testing.assert_array_equal(res.final_n.sum(-1), 1_000_000.0)
 
 
+# the million-read event of tests/test_deep_events.py (2 isoforms), and
+# a deep event of 60 real isoforms in a bucket of 64 (20,000 reads), where
+# B2's isoform sums in sequence left the reference's MARGINAL chain: B3
+# sums the same way (``_seq_sum``), but REASSIGN's ratio has no sum of
+# squares over sigma = 0.2 / k^2 for the rounding to grow through (at 60
+# isoforms the plain version alone: B3's source follows it to the bit in
+# every plan, held above at 16 and 128 isoforms, and takes two minutes
+# here)
+DEEP_JAX_CASES = {"2 isoforms": (2, 2000, 500), "60 isoforms": (60, 2000, 10)}
+
+
+@pytest.mark.parametrize("case", sorted(DEEP_JAX_CASES))
 def test_multinomial_source_and_plain_agree_with_the_jax_deep_route(
-        on_cpu):
-    """The million-read event of tests/test_deep_events.py through the
-    JAX package's deep route (``mcmc.run_batch(..., gibbs=
-    "multinomial")``), B3's source and its plain version, each seeded,
-    at that test's schedule: each posterior mean within 0.01 of the JAX
-    route's (the posterior's sd is about 0.001 at 10^6 reads) and within
-    0.02 of the grid-exact mean, and every chain's final_n sums to the
-    reads."""
+        on_cpu, case):
+    """A deep event through the JAX package's deep route
+    (``mcmc.run_batch(..., gibbs="multinomial")``), B3's plain version
+    and (two isoforms) its source, each seeded, at
+    tests/test_deep_events.py's schedule:
+    each posterior mean within 0.01 of the JAX route's (the posterior's
+    sd is about 0.001 at 10^6 reads, under 0.005 an isoform at 60), the
+    two-isoform event's within 0.02 of the grid-exact mean, the share of
+    accepted steps within 0.03 of the JAX route's, and every chain's
+    final_n sums to the reads."""
     import jax
     from exact_posterior import exact_posterior_mean_2iso
     from miso_tpu.core.events import pad_events
     from miso_tpu.sampler import mcmc
+    from miso_tpu_torch.testing import wide_event
 
-    ev = deepened(simulated_event([100, 50, 100], [[1, 2, 3], [1, 3]],
-                                  [0.3, 0.7], 2000, 25, seed=4), 500)
-    exact = exact_posterior_mean_2iso(ev)
+    num_iso, n_reads, scale = DEEP_JAX_CASES[case]
+    if num_iso == 2:
+        ev = simulated_event([100, 50, 100], [[1, 2, 3], [1, 3]],
+                             [0.3, 0.7], n_reads, 25, seed=4)
+    else:
+        ev = wide_event("reassign", num_iso=num_iso, n_reads=n_reads, seed=5)
+    ev = deepened(ev, scale)
+    reads = float(ev.counts.sum())
     pad = pad_events([ev], per_read=False)
     ref = mcmc.run_batch(
         jax.random.PRNGKey(0),
         mcmc.EventBatch(**{k: np.asarray(v) for k, v in pad.items()}),
         mcmc.SamplerConfig(iters=800, burn_in=200, lag=4, chains=4,
                            gibbs="multinomial"))
-    ref_mean = float(np.asarray(ref.flat_samples())[0, :, 0].mean())
-    assert abs(ref_mean - exact) < 0.02
+    ref_mean = np.asarray(ref.flat_samples())[0, :, :num_iso].mean(0)
+    ref_acc = float(np.asarray(ref.accepted)[0]) / (800 * 4)
+    exact = exact_posterior_mean_2iso(ev) if num_iso == 2 else None
+    if exact is not None:
+        assert abs(ref_mean[0] - exact) < 0.02
     batch = class_batch([ev], "cpu")
     cfg = SamplerConfig(iters=800, burn_in=200, lag=4, chains=4)
     consts = deep._event_consts(batch)
-    for res in (deep._multinomial_cuda(3, batch, cfg, consts, None, False),
-                deep._multinomial_plain(3, batch, cfg, consts)):
+    runs = [deep._multinomial_plain(3, batch, cfg, consts)]
+    if num_iso == 2:
+        runs.append(deep._multinomial_cuda(3, batch, cfg, consts, None,
+                                           False))
+    for res in runs:
         res = res.to_numpy()
-        mean = float(res.flat_samples()[0, :, 0].mean())
-        assert abs(mean - ref_mean) < 0.01, (mean, ref_mean)
-        assert abs(mean - exact) < 0.02, (mean, exact)
-        np.testing.assert_array_equal(res.final_n.sum(-1), 1_000_000.0)
+        mean = res.flat_samples()[0, :, :num_iso].mean(0)
+        np.testing.assert_allclose(mean, ref_mean, rtol=0, atol=0.01)
+        if exact is not None:
+            assert abs(mean[0] - exact) < 0.02, (mean[0], exact)
+        assert abs(res.accepted[0] / (800 * 4) - ref_acc) < 0.03
+        np.testing.assert_array_equal(res.final_n.sum(-1), reads)
 
 
 @pytest.mark.parametrize("change", [

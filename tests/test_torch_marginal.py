@@ -24,6 +24,7 @@ from miso_tpu.sampler import mcmc as jmcmc
 from miso_tpu_torch._host import RunConfig
 from miso_tpu_torch.sampler import deep
 from miso_tpu_torch.sampler import marginal_kernel as mk
+from miso_tpu_torch.sampler import reassign_kernel as rk
 from miso_tpu_torch.sampler.mcmc import SamplerConfig, batch_from_numpy
 from miso_tpu_torch.testing import (cap_test_threads, exact_marginal_mean_2iso,
                                     marginal_lane_batch, simulated_event)
@@ -44,33 +45,41 @@ def _start(num_iso, K, E=2):
         np.ones(num_iso), size=(E, K)).astype(np.float32)
 
 
-@pytest.mark.parametrize("num_iso,given", [(2, False), (3, False),
-                                           (2, True), (3, True),
-                                           (64, False)])
+@pytest.mark.parametrize("num_iso,real,given,algorithm", [
+    (2, 2, False, "marginal"), (3, 3, False, "marginal"),
+    (2, 2, True, "marginal"), (3, 3, True, "marginal"),
+    (64, 33, False, "marginal"),
+    (64, 60, False, "marginal"), (64, 64, False, "marginal"),
+    (64, 60, False, "classes"), (64, 64, False, "classes")])
 def test_plain_fixed_uniform_matches_pallas_interpret(monkeypatch, num_iso,
-                                                      given):
+                                                      real, given,
+                                                      algorithm):
     """The JAX kernel runs the two real events; the port runs them beside
-    a padding event, whose lanes must not touch theirs.  The last case
-    is a wide bucket, 33 real isoforms padded to 64.  (From about 70
-    isoforms on, the f32 rounding of the psi-space proposal densities is
-    of the size of the MH ratio itself, and two implementations that
-    round differently take different accept decisions.)"""
+    a padding event, whose lanes must not touch theirs.  The last cases
+    are a bucket of 64 isoforms with 33, 60 and 64 real ones, which the
+    wrapper runs in B2w's summing order (``wide.WIDE_FROM_MARGINAL``):
+    in B2's order, isoform sums in sequence, the f32 MH ratio at 60 and
+    64 real isoforms rounded away from the JAX kernel's (18 and 26 of 48
+    steps accepted against 48), in B2w's it does not.  (Past ~200 real
+    isoforms the f32 rounding of the psi-space proposal densities is of
+    the size of the MH ratio itself in both packages, and two
+    implementations that round differently take different accept
+    decisions.)"""
     monkeypatch.setattr(pk, "_DEBUG_NO_PRNG", True)
-    real = 33 if num_iso == 64 else num_iso
     tb = marginal_lane_batch(num_iso, real, seed=num_iso, device="cpu")
     nb = jmcmc.EventBatch(*(t.numpy()[:2] for t in tb))
     K = SMALL["chains"]
     start = _start(num_iso, K) if given else None
     ref = pm.run_batch_pallas_marginal(
         jax.random.PRNGKey(0), nb,
-        jmcmc.SamplerConfig(algorithm="marginal", **SMALL),
+        jmcmc.SamplerConfig(algorithm=algorithm, **SMALL),
         interpret=True, start_psi=start)
     tstart = None
     if given:
         tstart = torch.zeros((3, K, num_iso))
         tstart[:2] = torch.from_numpy(start)
     got = mk.run_batch_marginal(
-        0, tb, SamplerConfig(algorithm="marginal", **SMALL),
+        0, tb, SamplerConfig(algorithm=algorithm, **SMALL),
         start_psi=tstart, fixed_uniform=mk.FIXED_U).to_numpy()
     assert got.psi_samples.shape == (3, 6, K, num_iso)
     np.testing.assert_allclose(got.psi_samples[:2], ref.psi_samples,
@@ -201,7 +210,7 @@ def test_deep_marginal_event_runs_without_read_tiles(monkeypatch):
     def no_tiles(*a, **kw):
         raise AssertionError("per-read tiles built for MARGINAL")
 
-    monkeypatch.setattr(tp, "_expand_read_tensors", no_tiles)
+    monkeypatch.setattr(rk, "expand_read_tensors", no_tiles)
     cfg = RunConfig(read_len=25, iters=200, burn_in=50, lag=5, chains=2,
                     algorithm="marginal")
     res = tp.run_events([ev], cfg, seed=0, device="cpu")[0]

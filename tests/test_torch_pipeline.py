@@ -23,6 +23,7 @@ import miso_tpu.pipeline as jp
 import miso_tpu_torch._host as host
 import miso_tpu_torch.pipeline as tp
 import miso_tpu_torch.quantize as tz
+import miso_tpu_torch.sampler.reassign_kernel as rk
 from miso_tpu.core.events import compile_single_end
 from miso_tpu.core.gene import make_gene
 from miso_tpu.core.simulate import simulate_reads
@@ -58,9 +59,9 @@ def test_expand_read_tensors_matches_jax():
     jw, jls = jp._expand_read_tensors(jnp.asarray(weights),
                                       jnp.asarray(log_read),
                                       jnp.asarray(counts), R)
-    tw, tls = tp._expand_read_tensors(torch.from_numpy(weights),
-                                      torch.from_numpy(log_read),
-                                      torch.from_numpy(counts), R)
+    tw, tls = rk.expand_read_tensors(torch.from_numpy(weights),
+                                     torch.from_numpy(log_read),
+                                     torch.from_numpy(counts), R)
     assert tw.dtype == torch.float32 and tw.shape == (E, R, I)
     np.testing.assert_array_equal(tw.numpy(),
                                   np.asarray(jw).astype(np.float32))
@@ -68,6 +69,52 @@ def test_expand_read_tensors_matches_jax():
     np.testing.assert_array_equal(
         np.asarray(jnp.asarray(tls.numpy()).astype(jnp.bfloat16)),
         np.asarray(jls))
+
+
+def test_wide_reassign_bucket_reaches_its_wrapper_as_classes(monkeypatch):
+    """``run_sampler`` hands a wide REASSIGN bucket (a gene of 300
+    isoforms, a bucket of 512) to ``run_batch_reassign`` as its class
+    tensors and read slots: no (E, R, I) tile is built on the way (B1w
+    reads the classes; tests/test_torch_kernel_source.py holds it to the
+    plain version with the expansion taken away, and the card's run,
+    ``chip_smoke.py``, alike).  On the CPU the wrapper's plain version
+    expands them itself: the result is the expanded batch's, bit for
+    bit."""
+    from miso_tpu_torch.sampler import wide
+    from miso_tpu_torch.sampler.mcmc import SamplerConfig
+    from miso_tpu_torch.testing import class_batch, wide_event
+
+    ev = wide_event("reassign")
+    pad_iso, _, R = tp._bucket_key(ev)
+    assert pad_iso == 512 >= wide.WIDE_FROM and R <= tp.DEEP_READS
+    batch = class_batch([ev], "cpu")
+    assert batch.read_w.shape == (1, 1, 512)
+    cfg = SamplerConfig(iters=12, burn_in=4, lag=2, chains=2)
+    tiles = batch._replace(**dict(zip(("read_w", "read_logscore"),
+                                      rk.expand_read_tensors(
+                                          batch.weights, batch.log_read,
+                                          batch.counts, R))))
+    ref = rk.run_batch_reassign(7, tiles, cfg)
+    calls, expanded = [], []
+
+    def wrapper(seed, b, c, **kw):
+        # what run_sampler expanded before it handed the bucket over
+        calls.append((tuple(b.read_w.shape), kw.get("pad_reads"),
+                      len(expanded)))
+        return rk.run_batch_reassign(seed, b, c, **kw)
+
+    def expand(*args):
+        expanded.append(args[-1])
+        return rk_expand(*args)
+
+    rk_expand = rk.expand_read_tensors
+    monkeypatch.setattr(tp, "run_batch_reassign", wrapper)
+    monkeypatch.setattr(rk, "expand_read_tensors", expand)
+    got = tp.run_sampler(7, batch, cfg, None, R)
+    # only the CPU's plain version, inside the wrapper, expands
+    assert calls == [((1, 1, 512), R, 0)] and expanded == [R]
+    for name, a, b in zip(got._fields, got, ref):
+        assert torch.equal(a, b), name
 
 
 def _jax_quantize(flat_psi, flat_ll, two_iso):

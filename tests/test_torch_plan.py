@@ -266,10 +266,15 @@ def test_wide_plan_constants_equal_the_kernel_source():
     assert const("kHeadFloats") == wide.HEAD_FLOATS
     assert const("kReassignArrays") == wide.REASSIGN_ARRAYS
     assert const("kMarginalArrays") == wide.MARGINAL_ARRAYS
+    assert const("kRowScalars") == wide.ROW_SCALARS
     assert const("kMaxShared") == wide.MAX_SHARED
     assert "return (n + 127) / 128;" in src      # wide.chunks
-    # the narrow instances stop below the wide kernels' first width
-    assert max(rk.KERNEL_ISO) < wide.WIDE_FROM
+    # every bucketed width below a wide kernel's first has a narrow
+    # instance
+    from miso_tpu_torch.core.events import _round_up_iso
+    widths = {_round_up_iso(k) for k in range(1, 1025)}
+    for first in (wide.WIDE_FROM, wide.WIDE_FROM_MARGINAL):
+        assert {w for w in widths if w < first} <= set(rk.KERNEL_ISO)
     from miso_tpu_torch import kernels
     assert kernels.SOURCE_FLAGS["wide_kernel.cu"] == ["-fmad=false"]
 
@@ -280,7 +285,10 @@ def test_wide_plan_constants_equal_the_kernel_source():
 def test_a_wide_plan_exists_for_every_width(kind, I):
     """A block of 32 ... 512 threads, as wide as ``CARD_THREADS`` allows
     over the launch's lanes; the lane's arrays in shared memory where
-    they fit, else in scratch."""
+    they fit, else in scratch; B1w's class table of a row per class with
+    reads where it fits beside them and leaves an SM the blocks the
+    launch gives it, else as many rows as do (four at least, as many as
+    fit a block at most), else (scratch) ``SCRATCH_ROWS``."""
     plan_of = rk.wide_plan if kind == "reassign" else mk.wide_plan
     for E in (1, 4, 64, 2048):
         for K in (1, 6):
@@ -291,25 +299,77 @@ def test_a_wide_plan_exists_for_every_width(kind, I):
                 fits = [t for t in wide.WIDE_THREADS
                         if E * K * t <= wide.CARD_THREADS]
                 assert plan.threads == max(fits or [32])
-                need = 4 * wide.lane_floats(kind, n, I)
+                need = 4 * wide.lane_floats(kind, n, I, plan.rows)
                 assert plan.shared_bytes == (need if need <= wide.MAX_SHARED
                                              else 0)
+                if kind == "marginal":
+                    assert plan.rows == 0
+                    continue
+                assert plan.rows == 1          # read tiles walk
+                for C in (1, 7, 64, n):
+                    plan = plan_of(E, n, I, K, classes=C)
+                    most = 1 if wide.walks(n, C, I) else min(C, n)
+                    # a lane in scratch starts on 16 bytes, as its float4
+                    # loads need
+                    assert wide.lane_floats(kind, n, I, plan.rows) % 4 == 0
+                    bare = 4 * wide.lane_floats(kind, n, I)
+                    row = 4 * (128 * wide.chunks(I) + wide.ROW_SCALARS)
+                    if bare + row <= wide.MAX_SHARED:
+                        assert 1 <= plan.rows <= most
+                        assert plan.shared_bytes == 4 * wide.lane_floats(
+                            kind, n, I, plan.rows) <= wide.MAX_SHARED
+                        assert bare + row * plan.rows <= plan.shared_bytes
+                        # one row more would not fit a block, or would
+                        # cost an SM one of the blocks the launch gives it
+                        blocks = wide.sm_blocks(plan.threads, E * K)
+                        share = (wide.SM_SHARED // blocks
+                                 - wide.BLOCK_RESERVED)
+                        more = bare + row * (plan.rows + 1)
+                        assert (plan.rows == most or more > wide.MAX_SHARED
+                                or (plan.rows >= 4 and more > share))
+                        assert plan.rows >= 4 or plan.rows == most or (
+                            bare + 4 * row > wide.MAX_SHARED)
+                    else:
+                        assert plan.rows == min(most, wide.SCRATCH_ROWS)
+                        assert plan.shared_bytes == 0
 
 
 def test_wide_plan_examples():
     """The buckets chip_smoke.py runs: 4 genes of 300 and of 1,100
     isoforms (24 lanes) in the widest blocks, a launch of 2,048 events
-    in warps; the lane arrays in scratch from ~5,800 isoforms (B1w)."""
+    in warps; B1w's table whole at 512 isoforms and 64 classes, in tiles
+    of 18 rows at 2,048 isoforms, of one row where the reads walk (read
+    tiles, or more classes than ``wide.walks`` allows); the lane arrays
+    in scratch from 5,249 isoforms (B1w)."""
+    assert not wide.walks(416, 64, 512) and not wide.walks(416, 208, 512)
+    assert wide.walks(416, 209, 512) and wide.walks(416, None, 512)
+    # rows of one chunk: the table to three quarters of the slots
+    assert not wide.walks(416, 312, 128) and wide.walks(416, 313, 128)
+    assert wide.walks(416, 209, 256) and wide.walks(416, None, 64)
+    # 2,048 events x 6 chains in blocks of a warp: tiles that leave an
+    # SM 16 blocks, four rows at least; blocks of 16 warps (64 events)
+    # keep their whole table
+    assert wide.sm_blocks(32, 2048 * 6) == 16
+    assert rk.wide_plan(2048, 416, 128, 6, classes=208).rows == 12
+    assert rk.wide_plan(2048, 416, 512, 6, classes=208).rows == 4
+    assert wide.sm_blocks(512, 64 * 6) == 1
+    assert rk.wide_plan(64, 416, 64, 6, classes=312).rows == 312
+    assert rk.wide_plan(4, 416, 512, 6, classes=64) == wide.WidePlan(
+        512, 4 * (64 + 10 * 512 + 416 + 64 * (512 + 2)), 64)
+    assert rk.wide_plan(4, 416, 2048, 6, classes=200).rows == 18
     assert rk.wide_plan(4, 512, 512, 6) == wide.WidePlan(512, 4 * (
-        64 + 10 * 512))
+        64 + 10 * 512 + 512 + (512 + 2) + 2), 1)   # whole 16 bytes
+    assert rk.wide_plan(4, 512, 512, 6, classes=256).rows == 101
+    assert rk.wide_plan(4, 512, 512, 6, classes=512).rows == 1
     assert [rk.wide_plan(E, 512, 128, 6).threads
             for E in (64, 128, 1024, 2048)] == [512, 256, 32, 32]
     assert rk.wide_plan(4, 512, 2048, 6).threads == 512
     assert mk.wide_plan(4, 64, 2048, 6).shared_bytes == 4 * (
         64 + 11 * 2048 + 128)
     assert rk.wide_plan(2048, 512, 128, 6).threads == 32
-    assert rk.wide_plan(4, 64, 5760, 2).shared_bytes > 0
-    assert rk.wide_plan(4, 64, 5761, 2).shared_bytes == 0
+    assert rk.wide_plan(4, 64, 5248, 2).shared_bytes > 0
+    assert rk.wide_plan(4, 64, 5249, 2) == wide.WidePlan(512, 0, 1)
+    assert rk.wide_plan(4, 64, 5249, 2, classes=32).rows == 8
     assert mk.wide_plan(2, 8, 8192, 2).shared_bytes == 0
 
 
@@ -350,7 +410,7 @@ def _kernel_slot_sum(x):
 
 
 def _kernel_cums(x):
-    """B1w's Gibbs sums, transcribed (chunk_scan and reassign_gibbs): in
+    """B1w's Gibbs sums, transcribed (class_rows): in
     chunk c a lane's running sums of its four products, the warp's
     shfl_up scan of the lanes' sums, the exclusive offset, the chunks'
     last-lane sums carried; the total a lane's sums of its four over the
@@ -390,37 +450,32 @@ def _kernel_cums(x):
     return [cums[i] for i in range(n)], lane_tot[0]
 
 
-def _kernel_read_sum(x, warps):
-    """B1w's read score, transcribed for a block of ``warps`` warps: warp
-    w takes groups g = w, w + warps, ...; its lane turn % (32 / warps)
-    adds the group's four reads; the slots in the head at w + warps m;
-    a butterfly over the 32 slots."""
+def _kernel_read_sum(x):
+    """B1w's read score, transcribed (reassign_gibbs): each read's score
+    in its slot of rs (0 past the reads), then lane l of every warp adds
+    groups g = l, l + 32, ... a group's four in turn, from 0, and a
+    butterfly over the lanes."""
     import numpy as np
-    slots = 32 // warps
-    head = [np.float32(0)] * 32
     G = -(-len(x) // 4)
-    for w in range(warps):
-        acc = [np.float32(0)] * slots
-        for turn, g in enumerate(range(w, G, warps)):
+    rs = list(x) + [np.float32(0)] * (4 * G - len(x))
+    v = [np.float32(0)] * 32
+    for l in range(32):
+        for g in range(l, G, 32):
             for j in range(4):
-                r = 4 * g + j
-                if r < len(x):
-                    acc[turn % slots] = _f32(acc[turn % slots] + x[r])
-        for m in range(slots):
-            head[w + warps * m] = acc[m]
+                v[l] = _f32(v[l] + rs[4 * g + j])
     o = 16
     while o:
-        head = [_f32(head[l] + head[l ^ o]) for l in range(32)]
+        v = [_f32(v[l] + v[l ^ o]) for l in range(32)]
         o //= 2
-    return head[0]
+    return v[0]
 
 
 @pytest.mark.parametrize("n", [1, 2, 31, 33, 128, 130, 300, 1100])
 def test_wide_orders_are_the_kernels(n):
     """``wide_sum``, ``wide_cumsum`` and ``read_sum`` (torch, for the
     plain versions) add in the order of the CUDA loops they mirror, to
-    the bit, on float32 values whose sums round; ``read_sum`` in every
-    block width alike."""
+    the bit, on float32 values whose sums round (the read score alike in
+    every block width: every warp adds the 32 slots)."""
     import numpy as np
     import torch
 
@@ -432,9 +487,7 @@ def test_wide_orders_are_the_kernels(n):
     want, want_total = _kernel_cums(x)
     assert cums.tolist() == [float(v) for v in want]
     assert total.item() == want_total
-    got = wide.read_sum(t).item()
-    for warps in (1, 2, 4, 8, 16):
-        assert _kernel_read_sum(x, warps) == got
+    assert wide.read_sum(t).item() == _kernel_read_sum(x)
     # batched alike: a leading axis changes nothing
     two = torch.stack([t, t.flip(0)])
     assert wide.wide_sum(two)[0].item() == _kernel_slot_sum(x)
@@ -466,6 +519,104 @@ def test_wide_first_is_the_first_cumulative_weight_that_reaches(n):
     ge = cums[..., :-1] >= (u * total)[..., None]
     want = torch.where(ge.any(-1), ge.to(torch.uint8).argmax(-1), n - 1)
     assert torch.equal(got, want)
+
+
+def _kernel_search(x, u):
+    """B1w's draw of a read of class row x at uniform u, transcribed:
+    class_rows' running maximum of the row's cumulative weights
+    (``_kernel_cums``' floats), then reassign_gibbs's lower bound over
+    the first n - 1: while the probed value does not reach u * total
+    the search moves right."""
+    import numpy as np
+    n = len(x)
+    cums, total = _kernel_cums(x)
+    run = np.maximum.accumulate(np.asarray(cums, np.float32))
+    target = _f32(np.float32(u) * total)
+    at, length = 0, n - 1
+    while length > 0:
+        h = length >> 1
+        if not run[at + h] >= target:
+            at, length = at + h + 1, length - h - 1
+        else:
+            length = h
+    return at
+
+
+@pytest.mark.parametrize("walk", [False, True])
+def test_class_map_lays_the_reads_out_as_the_expansion_does(walk):
+    """``class_map``: every read slot that ``expand_read_tensors`` fills
+    from class c is c's (``cid``), and lies in c's run of slots in the
+    class table (``cls``, ``first``, ``slot``), or with ``walk`` in the
+    list of reads that walk (``walk``, the table empty); the other
+    slots (past an event's reads, or past R) in neither; classes of no
+    reads nowhere."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    for _ in range(100):
+        E, C, I = 3, int(rng.integers(1, 9)), 5
+        counts = torch.from_numpy(rng.integers(0, 4, (E, C)).astype(
+            np.float32))
+        R = int(rng.integers(4, 20))
+        w = torch.from_numpy(rng.random((E, C, I)).astype(np.float32))
+        rw, _ = rk.expand_read_tensors(w, w, counts, R)
+        m = rk.class_map(counts, R, walk)
+        assert m.cls.shape == (E, min(C, R))
+        for e in range(E):
+            na, nw = int(m.nact[e]), int(m.nwalk[e])
+            walking = m.walk[e, :nw].tolist()
+            assert walking == sorted(walking)
+            assert (m.walk[e, nw:] == -1).all()
+            assert (na == 0) == (walk or not (m.cid[e] >= 0).any())
+            for r in range(R):
+                c = int(m.cid[e, r])
+                if c < 0:
+                    assert (rw[e, r] == 0).all() and int(m.slot[e, r]) == -1
+                    assert r not in walking
+                    continue
+                assert torch.equal(rw[e, r], w[e, c])
+                a = int(m.slot[e, r])
+                if walk:
+                    assert a == -1 and r in walking
+                else:
+                    assert a < na and int(m.cls[e, a]) == c
+                    assert int(m.first[e, a]) <= r < int(m.first[e, a + 1])
+            assert int(m.first[e, na]) == int((m.cid[e] >= 0).sum())
+
+
+@pytest.mark.parametrize("n", [2, 3, 128, 130, 300])
+def test_class_table_search_is_wide_first(n):
+    """The binary search in B1w's class table finds what ``wide_first``
+    (the plain version's chunk walk) finds: the first i < n - 1 whose
+    cumulative weight reaches u times the total, n - 1 where none; on
+    rows of zeros, of ties (equal weights, and runs of zeros: flat
+    stretches of the row) and of weights over six decades, whose
+    cumulative weights fall by an ulp where the warp scan's tree adds
+    (a search in the row itself would miss there), at u = 0, 0.4999, 1,
+    random, and at the very values where the row falls."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(n)
+    rows = [np.zeros(n, np.float32), np.ones(n, np.float32),
+            np.where(np.arange(n) % 3 == 0, 0.25, 0.0).astype(np.float32)]
+    rows += [(rng.random(n) * 10 ** rng.uniform(-3, 3, n)
+              * (rng.random(n) < 0.5)).astype(np.float32) for _ in range(6)]
+    dips = 0
+    for x in rows:
+        cums, total = wide.wide_cumsum(torch.from_numpy(x))
+        us = [0.0, 0.4999, 1.0] + list(rng.random(3))
+        for i in np.flatnonzero(cums[1:n - 1].numpy() < cums[:n - 2].numpy()):
+            dips += 1
+            u = np.float32(cums[i].item() / total.item())
+            us += [u, np.nextafter(u, np.float32(0)),
+                   np.nextafter(u, np.float32(1))]
+        u = torch.tensor(np.float32(us))
+        want, _ = wide.wide_first(wide.quarters(
+            torch.from_numpy(x).expand(len(us), n)), n, u)
+        assert [_kernel_search(x, v) for v in us] == want.tolist()
+    assert dips > 0 or n < 128
 
 
 # ------------------------------------------------------------- the bounds
@@ -513,6 +664,33 @@ def test_reassign_bound_counts_what_the_data_needs():
     twice = rk.reassign_bound(64, 320, 2, 12, 5000, 450)
     assert twice["int_ops"] == 2 * full["int_ops"]
     assert twice["fp32_ops"] == 2 * full["fp32_ops"]
+
+
+def test_reassign_bound_counts_the_class_form():
+    """``classes``: B1w's work, a cumulative row per class with reads
+    (2 I - 1 FP32 operations a step: its products and sums, not the
+    kernel's running maximum) and per valid read its uniform, a
+    search of ceil(log2 I) compares and its count; the reads' Philox
+    calls as before; the class rows and a class index per read slot in
+    place of the read tiles."""
+    E, R, I, K, iters, rec = 4, 416, 512, 6, 5000, 450
+    C, valid = 4 * 64, 4 * 400
+    b = rk.reassign_bound(E, R, I, K, iters, rec, valid_reads=valid,
+                          classes=C)
+    reads = rk.reassign_bound(E, R, I, K, iters, rec, valid_reads=valid)
+    steps, lanes = iters + 1, E * K
+    assert b["int_ops"] == reads["int_ops"]
+    assert b["fp32_ops"] == steps * (K * (C * (2 * I - 1) + valid * (2 + 9))
+                                     + lanes * 20 * I)
+    assert b["bytes"] == reads["bytes"] - 4 * 2 * E * R * I + 4 * (
+        2 * C * I + E * R)
+    assert b["bound_by"] == "operations"
+    # a class a read: a row and a search a read, less than a walk's
+    # 3 I - 1 (its compares and count updates) but more than half of it
+    walk = rk.reassign_bound(E, R, I, K, iters, rec)["fp32_ops"]
+    one = rk.reassign_bound(E, R, I, K, iters, rec, classes=E * R)
+    assert walk / 2 < one["fp32_ops"] < walk
+    assert b["bound_ms"] < reads["bound_ms"] / 5
 
 
 def test_a_launch_with_no_steps_is_bound_by_bytes():

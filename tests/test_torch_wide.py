@@ -46,7 +46,7 @@ def test_read_tensors_of_a_wide_bucket_match_jax():
     host = jpad_events([ev], read_dtype=np.float32)
     R = host["read_w"].shape[1]
     cls = jpad_events([ev], per_read=False)
-    rw, rls = tp._expand_read_tensors(*(torch.from_numpy(cls[k]) for k in (
+    rw, rls = rk.expand_read_tensors(*(torch.from_numpy(cls[k]) for k in (
         "weights", "log_read", "counts")), R)
     assert rw.shape == (1, R, WIDTH) and rw.dtype == torch.float32
     np.testing.assert_allclose(rw.numpy(), host["read_w"], rtol=1e-5,
