@@ -204,6 +204,9 @@ NARROW_ISO = ((64, 33),)
 # isoforms): held against their plain versions in every plan; at the
 # widest a lane's arrays are past a block's shared memory, in scratch
 WIDE_CHECK_ISO = ((128, 70), (512, 300), (2048, 1100), (8192, 4500))
+# B2w's narrowest bucket, 64 isoforms, 60 and 64 real (MARGINAL/CLASSES
+# from wide.WIDE_FROM_MARGINAL)
+MARGINAL_64 = ((64, 60), (64, 64))
 # the wide buckets of the main path: four genes of each many isoforms,
 # padded to a bucket of each width, through StreamRunner at stock
 # settings; the kernel and its plain version are also timed side by side
@@ -211,10 +214,11 @@ WIDE_CHECK_ISO = ((128, 70), (512, 300), (2048, 1100), (8192, 4500))
 WIDE_GENES = ((300, 512), (1100, 2048))
 WIDE_SHORT = dict(iters=60, burn_in=20, lag=2, chains=2)
 # the wide buckets (4 genes of 300 and of 1,100 isoforms, I = 512 and
-# 2,048) at 5000 x 6 on the parent's B1w and B2w, B1w reading (R, I) read
-# tiles (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): not timed here
+# 2,048) at 5000 x 6 before each kernel's redesign: B1w reading (R, I)
+# read tiles, and B2w with its rows in device memory (NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md): not timed here
 EARLIER_WIDE_MS = {"reassign": {512: 232.5, 2048: 772.6},
-                   "marginal": {512: 34.1, 2048: 77.3}}
+                   "marginal": {512: 33.57, 2048: 77.51}}
 # wider tiles (E, R, I) at which every layout is timed beside the plan's
 WIDE_SHAPES = ((2048, 320, 8), (512, 320, 8), (4, 320, 8), (2048, 1024, 8),
                (2048, 320, 16), (2048, 640, 4), (1024, 4096, 8),
@@ -1271,14 +1275,17 @@ def b2w_at_64(cfg):
 
 def wide_plans_check():
     """B1w and B2w against their plain versions (the wide summing order)
-    under fixed uniforms in every block width of their plans and with the
-    lane arrays forced into scratch, from AUTO and GIVEN starts, at
-    WIDE_CHECK_ISO (the widest past shared memory: every plan in
-    scratch) -- B1w to the bit, on read tiles (a class a read: C = R)
-    and on class tensors, in tables of one and of many tiles; then one
-    Philox chain in every plan at 512 isoforms; then the MARGINAL and
-    CLASSES buckets of 64 isoforms on B2w.  Returns {kind: largest
-    |d psi|}."""
+    under fixed uniforms in every plan (every block width; B2w also every
+    cluster size and home of its class rows) and with the lane arrays
+    forced into scratch, from AUTO and GIVEN starts, at WIDE_CHECK_ISO
+    (the widest past shared memory: every plan in scratch; B2w also at
+    64 isoforms, 60 and 64 real) -- B1w to the bit, on read tiles (a
+    class a read: C = R) and on class tensors, in tables of one and of
+    many tiles; B2w's too -- then one Philox
+    chain in every plan at 512 isoforms; then the MARGINAL and CLASSES
+    buckets of 64 isoforms on B2w.  B2w's plans are its plain version to
+    the bit too (its every plan to the first, the first to the plain
+    version).  Returns {kind: largest |d psi|}."""
     small = SamplerConfig(**SMALL)
     K = small.chains
     errs = {}
@@ -1286,7 +1293,10 @@ def wide_plans_check():
         cfg = SamplerConfig(algorithm=kind, **SMALL)
         errs[kind] = 0.0
         print("%s wide kernel, fixed uniforms, every plan:" % kind)
-        for I, num_iso in WIDE_CHECK_ISO:
+        widths = WIDE_CHECK_ISO if kind == "reassign" else (
+            MARGINAL_64 + WIDE_CHECK_ISO)
+        equal_to_plain = 0
+        for I, num_iso in widths:
             b, consts, plans, launch, plain = wide_case(kind, I, num_iso)
             if I == WIDE_CHECK_ISO[-1][0] and any(p.shared_bytes
                                                   for p in plans):
@@ -1300,17 +1310,34 @@ def wide_plans_check():
                     start = dirichlet_start(num_iso, 2, K, I)
                     start = torch.cat([start, torch.zeros_like(
                         start[:E - 2])])
-                ref = plain(0, b, cfg, consts, start, rk.FIXED_U)
+                # (at 64 isoforms the plain version's default order is
+                # B2's: B2w's is asked for)
+                ref = plain(0, b, cfg, consts, start, rk.FIXED_U,
+                            wide_order=True)
+                first = None
                 for plan in plans:
                     got = launch(0, b, cfg, consts, start, True, plan=plan)
                     torch.cuda.synchronize()
-                    name = "I=%d (%d real) %s threads=%d %s" % (
+                    name = "I=%d (%d real) %s %s %s" % (
                         I, num_iso, "GIVEN" if given else "AUTO",
-                        plan.threads,
+                        wide_tag(plan),
                         "shared" if plan.shared_bytes else "scratch")
                     errs[kind] = max(errs[kind], compare(name, got, ref))
                     if kind == "reassign":
                         bit_equal(name, got, ref)
+                    elif first is None:
+                        first = got
+                        equal_to_plain += not any(bitwise(
+                            got.to_numpy(), ref.to_numpy()).values())
+                    else:
+                        bit_equal(name + " (to the first plan)", got, first)
+        if kind == "marginal":
+            print("  B2w bit-equal to its plain version in %d of %d "
+                  "(width, start) cases; every plan bit-equal to the "
+                  "first" % (equal_to_plain, 2 * len(widths)))
+            if equal_to_plain != 2 * len(widths):
+                raise AssertionError("B2w is not its plain version to the "
+                                     "bit")
         if kind == "reassign":
             b1w_class_check(cfg)
         b, consts, plans, launch, _ = wide_case(kind, 512, 300)
@@ -1324,14 +1351,114 @@ def wide_plans_check():
             elif bitwise(got, first) != {f: 0.0 for f in got._fields}:
                 raise AssertionError("%s wide kernel: the Philox chain "
                                      "depends on the plan %s" % (kind, plan))
-        print("  Philox at I=512, %d x %d: bit-equal in every plan"
-              % (short.iters, short.chains))
+        print("  Philox at I=512, %d x %d: bit-equal in every plan (%d)"
+              % (short.iters, short.chains, len(plans) + 1))
     b2w_at_64(small)
     return errs
 
 
+def wide_tag(plan):
+    """A wide plan's block width and, for B2w, its cluster and the home
+    of its class rows."""
+    if plan.rows:
+        return "threads=%d rows=%d" % (plan.threads, plan.rows)
+    return "threads=%d cluster=%d rows in %s" % (plan.threads, plan.cluster,
+                                                 plan.weights)
+
+
 def no_tiles(*args):
     raise AssertionError("a wide REASSIGN bucket expanded its read tiles")
+
+
+# B2w's step breakdown and its barrier probe (the enums of
+# csrc/wide_kernel.cu's -DMISO_B2W_CLOCKS build)
+B2W_CLOCK_SLOTS = kernels.source_enum("B2wClock", "wide_kernel.cu")
+B2W_LATENCY_SLOTS = kernels.source_enum("B2wLatency", "wide_kernel.cu")
+
+
+def wide_bucket_batch(algorithm, gene_iso):
+    """The wide bucket of four genes of ``gene_iso`` isoforms
+    (``wide_event``, seeds 3 ... 6), padded as ``wide_buckets`` pads it
+    for the plain version."""
+    return padded_batch([wide_event(algorithm, num_iso=gene_iso, seed=3 + j)
+                         for j in range(4)], DEV)
+
+
+def b2w_breakdown(label, batch, gpu, plan=None, seed=3):
+    """One stock launch of B2w's step-breakdown build (kernels.
+    load_b2w_clocks, in the production build's place for that launch
+    only), in ``plan`` (default: the wrapper's): clocks per step in each
+    phase on each lane's first thread (``Wait``: its waits at the
+    barriers of the phases other than the class terms'), and ``Rows``,
+    the class rows on the first thread of the lane's last warp, beside
+    it.  The stamps slow the launch; its time is printed beside the
+    phases."""
+    lib = kernels.load_b2w_clocks()
+    sums = np.zeros(len(B2W_CLOCK_SLOTS), np.uint64)
+    kernels.check(lib, lib.miso_marginal_wide_clocks(sums.ctypes.data),
+                  "clearing B2w's step breakdown")
+    consts = mk._marginal_consts(batch)
+    E, C, I = batch.weights.shape
+    if plan is None:
+        plan = mk.wide_plan(E, C, I, STOCK_M.chains)
+    saved = kernels.load
+    kernels.load = lambda: lib
+    try:
+        ms = timed(lambda: mk._marginal_wide_cuda(
+            seed, batch, STOCK_M, consts, None, False, plan=plan), reps=1)
+    finally:
+        kernels.load = saved
+    kernels.check(lib, lib.miso_marginal_wide_clocks(sums.ctypes.data),
+                  "reading B2w's step breakdown")
+    v = dict(zip(B2W_CLOCK_SLOTS, sums.astype(np.float64)))
+    steps = v["kB2Steps"]
+    phases = {k[3:]: float(v[k] / steps) for k in B2W_CLOCK_SLOTS
+              if k != "kB2Steps"}
+    # the first thread's chain (the class rows' warp runs beside it)
+    step = sum(x for k, x in phases.items() if k != "Rows")
+    out = {"instrumented_ms": ms, "clocks_per_step": phases,
+           "step_clocks": step, "plan": list(plan),
+           "implied_mhz": step * STOCK_M.iters / (ms * 1e-3) / 1e6}
+    print("B2w step breakdown, %s (E=%d C=%d I=%d, plan %s; the "
+          "instrumented build, %.2f ms, implies %.0f MHz): clocks a step "
+          "%s = %.0f  [%s]" % (label, E, C, I, tuple(plan), ms,
+                               out["implied_mhz"],
+                               {k: round(x, 1) for k, x in phases.items()},
+                               step, gpu))
+    return out
+
+
+def b2w_latencies(gpu, reps=4096):
+    """The probe of B2w's step-breakdown build: clocks a barrier (a block
+    of 32 and of 512 threads, clusters of 2, 4 and 8 blocks, and a
+    cluster of 4 whose blocks each store into the next one's shared
+    memory before it)."""
+    lib = kernels.load_b2w_clocks()
+    out = torch.zeros(len(B2W_LATENCY_SLOTS), dtype=torch.float64,
+                      device=DEV)
+    kernels.check(lib, lib.miso_wide_latencies(out.data_ptr(), reps),
+                  "B2w's barrier probe")
+    torch.cuda.synchronize()
+    lat = {k[4:]: round(x, 2) for k, x in zip(B2W_LATENCY_SLOTS,
+                                              out.cpu().tolist())}
+    print("barrier latencies, clocks a barrier (%d in a row): %s  [%s]"
+          % (reps, lat, gpu))
+    return lat
+
+
+def b2w_phase(gpu):
+    """B2w's step breakdown at both wide buckets (MARGINAL, 4 genes of
+    300 and of 1,100 isoforms) and the barrier probe."""
+    t0 = time.time()
+    out = {}
+    for gene_iso, width in WIDE_GENES:
+        b = wide_bucket_batch("marginal", gene_iso)
+        out["I=%d" % width] = b2w_breakdown("bucket of %d" % width, b, gpu)
+    out["latencies"] = b2w_latencies(gpu)
+    print("B2w's breakdown and probe: %.1fs (the step-breakdown build: "
+          "nvcc %s s)" % (time.time() - t0,
+                          kernels.B2W_CLOCKS_BUILD_INFO["seconds"]))
+    return out
 
 
 def wide_buckets(gpu):
@@ -1495,7 +1622,7 @@ def wide_buckets(gpu):
         (n1, w1), (n2, w2) = WIDE_GENES
         print("wide %s kernel, 5000 x 6: 4 genes of %d isoforms %.1f ms in "
               "the run, %.1f ms alone; of %d isoforms %.1f / %.1f ms; the "
-              "earlier %.1f / %.1f ms (B1w on read tiles, and B2w, "
+              "earlier %.2f / %.2f ms (before the kernel's redesign; "
               "PERF.md, not timed here)  [%s]"
               % (algorithm, n1, row["I=%d" % w1]["stock_ms"],
                  row["I=%d" % w1]["direct_ms"], n2,
@@ -2255,6 +2382,7 @@ def main(only=None, sass_dir=None) -> int:
         # the wide kernels' checks and buckets alone
         wide_plans_check()
         wide_buckets(gpu)
+        b2w_phase(gpu)
         print("chip_smoke wide: %.1fs in all  [%s]"
               % (time.time() - T_START, gpu))
         return 0
@@ -2544,6 +2672,27 @@ def main(only=None, sass_dir=None) -> int:
         wide_err[kind] = max(wide_err[kind], wide[kind]["max_err"])
     probes()
 
+    # B2w's step breakdown at both buckets and the barrier probe; its
+    # dependent-chain floor from this run's probes (B3's latencies, the
+    # barriers): an estimate, printed apart from the kernels line
+    b2w = b2w_phase(gpu)
+    b2w_floor_ms = {}
+    for gene_iso, width in WIDE_GENES:
+        shape = wide["marginal"]["I=%d" % width]["shape"]
+        plan = mk.wide_plan(*shape, STOCK_M.chains)
+        floor = deep.marginal_wide_floor(
+            shape[1], width, plan.threads, plan.cluster, STOCK_M.iters,
+            clocks={**b3_k["latencies"], **b2w["latencies"]})
+        b2w_floor_ms["I=%d" % width] = floor
+        wide["marginal"]["I=%d" % width]["step_clocks"] = (
+            b2w["I=%d" % width]["step_clocks"])
+        print("B2w's dependent-chain floor at the bucket of %d (plan %s; "
+              "marginal_wide_floor from this run's probes, an estimate, "
+              "not timed): %.2f ms; B2w %.2f ms = %.1fx it  [%s]"
+              % (width, wide_tag(plan), floor,
+                 wide["marginal"]["I=%d" % width]["direct_ms"],
+                 wide["marginal"]["I=%d" % width]["direct_ms"] / floor, gpu))
+
     # -- 5 and (d). kernel and plain version at the main paths' buckets
     ms = timed(lambda: rk.run_batch_reassign(3, big, STOCK), reps=3)
     plain_ms = timed(lambda: rk._reassign_plain(
@@ -2594,6 +2743,10 @@ def main(only=None, sass_dir=None) -> int:
     print("B3's dependent-chain floor at the deep catalog's bucket "
           "(multinomial_floor: an estimate from measured latencies, not "
           "timed): %.2f ms" % b3_k["floor_ms"])
+    print("B2w's dependent-chain floor at the wide buckets "
+          "(marginal_wide_floor: an estimate from this run's probes, not "
+          "timed): %s ms" % ", ".join("%s %.2f" % kv
+                                      for kv in b2w_floor_ms.items()))
     print("chip_smoke: %.1fs in all" % (time.time() - T_START))
     print(json.dumps({"kernels": [{
         "name": "reassign", "route": "cuda",

@@ -20,12 +20,13 @@
 // 60 KB a thread at 1,024, and every thread repeated the lane's I-wide
 // arithmetic.  Here:
 //
-// - A lane is a block of `threads` (32 ... 512, wide_plan) threads.  Its
-//   I-wide arrays (alpha, psi, the proposal's normals, efflen terms, hyper
-//   - 1, the counts, the terms summed each step; B1w's read scores and
-//   class table) lie once in dynamic shared memory, or, past the block's
-//   limit (227 KB: for B1w from ~5,700 isoforms), in a global scratch
-//   buffer the wrapper allocates.  No width is too wide.
+// - A lane is a block of `threads` (32 ... 512, wide_plan) threads (B2w:
+//   or a cluster of such blocks).  Its I-wide arrays (alpha, psi, the
+//   proposal's normals, efflen terms, hyper - 1, the counts, the terms
+//   summed each step; B1w's read scores and class table) lie once in
+//   dynamic shared memory, or, past the block's limit (227 KB: for B1w
+//   from ~5,700 isoforms), in a global scratch buffer the wrapper
+//   allocates.  No width is too wide.
 // - Chunks.  I is padded to P = 128 ceil(I / 128) isoforms, in chunks of
 //   128: warp lane l owns isoforms 128 c + 4 l + q (q = 0 ... 3) of
 //   every chunk c, so that a warp reading a chunk of a lane array, of
@@ -55,15 +56,18 @@
 //   walks its class's row (walk_reads), as B1w did before it read
 //   classes.  The counts are integers added by
 //   shared atomics, so their order is free.
-// - B2w's warps split the classes (two at a time), the lanes of a warp
-//   a class row's isoforms.
+// - B2w keeps a lane's class weights in shared memory for the launch
+//   where they fit, a lane over a thread-block cluster where one block
+//   cannot hold them, and draws its randoms a step ahead (see its
+//   section below).
 // - Randoms: B1's and B2's Philox counters, (lane, step, pair j,
 //   kNormals), (lane, step, 0, kAccept) and (lane, step, group,
-//   kReads): the wide form draws the stream of the instance it replaced;
-//   a thread draws the normal pairs it owns.
+//   kReads): the wide form draws the stream of the instance it replaced,
+//   whichever thread, block or step draws a number.
 //
 // Build: -fmad=false (kernels.py), as marginal_kernel.cu: every product
 // and sum rounds on its own, as in the plain versions.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -86,12 +90,52 @@ constexpr uint32_t kReads = 0, kNormals = 1, kAccept = 2;
 constexpr int kMaxThreads = 512;
 constexpr int kHeadFloats = 64;  // a lane's scalars, ahead of its arrays
 constexpr int kReassignArrays = 10;
-constexpr int kMarginalArrays = 11;
+constexpr int kMarginalArrays = 9;
 constexpr int kRowScalars = 2;  // a table row's total and flag
 constexpr int kMaxShared = 232448;
 
 // The head: the sums of a phase.
 constexpr int kSums = 0;
+
+// B2w's step breakdown (a build with -DMISO_B2W_CLOCKS, which only
+// chip_smoke.py asks for; the production build has none of it):
+// clock64() stamps between the phases of a step on each lane's first
+// thread, summed over the lanes into one device array that
+// miso_marginal_wide_clocks reads and clears.  A phase's clocks include
+// its wait at the barrier that ends it.
+enum B2wClock {
+  kB2Normals,  // the proposal's normals, where they are on the chain
+  kB2Exp,      // alpha' and exp
+  kB2PsiSums,  // the two psi sums
+  kB2DivLog,   // the division and log
+  kB2Terms,    // the class terms: the first thread's rows (if any) and
+               // its wait for every block's
+  kB2Quad,     // the quadratics
+  kB2Sums,     // the five sums
+  kB2MH,       // log u_accept (where drawn on the chain), the MH
+               // decision and the record
+  kB2Wait,     // the first thread's waits at the step's other barriers
+  kB2Rows,     // a class-row warp's rows (its first thread's clocks)
+  kB2Steps,    // steps stamped (lanes x iterations)
+  kB2Slots
+};
+#ifdef MISO_B2W_CLOCKS
+__device__ unsigned long long b2w_clocks[kB2Slots];
+struct B2wClocks {
+  long long t;
+  unsigned long long v[kB2Slots];
+  __device__ void add(int slot) {
+    const long long now = clock64();
+    v[slot] += (unsigned long long)(now - t);
+    t = now;
+  }
+};
+#define B2_MARK() (clk.t = clock64())
+#define B2_ADD(slot) clk.add(slot)
+#else
+#define B2_MARK() ((void)0)
+#define B2_ADD(slot) ((void)0)
+#endif
 
 // The 128-isoform chunks of n (wide.chunks): n padded to 128 chunks(n).
 __host__ __device__ inline int chunks(int n) { return (n + 127) / 128; }
@@ -133,26 +177,38 @@ __device__ __forceinline__ float4 four(const float* x, int i0) {
   return *reinterpret_cast<const float4*>(x + i0);
 }
 
-// sums[r] = the sum of xs[r] (128 nc[r] floats) for r < n: slot (warp lane)
-// l adds isoforms 128 c + 4 l + q in (c, q) order, then a butterfly over
-// the 32 slots.  Warp w takes r = w, w + warps, ...  The caller syncs
-// before (inputs written) and after (sums read).
+// The sum of f over 128 nc isoforms in the wide order, on every lane of
+// the calling warp: slot l adds f(128 c + 4 l) (four values) in (c, q)
+// order, then the butterfly (every lane ends with the same bits).
+template <class F>
+__device__ __forceinline__ float warp_sum(int nc, F f) {
+  const int l = (int)threadIdx.x & 31;
+  float v = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < nc; ++c) {
+    const float4 x = f(128 * c + 4 * l);
+    v = v + x.x;
+    v = v + x.y;
+    v = v + x.z;
+    v = v + x.w;
+  }
+  for (int o = 16; o > 0; o >>= 1) v = v + __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(const float* x, int nc) {
+  return warp_sum(nc, [x](int i0) { return four(x, i0); });
+}
+
+// sums[r] = the sum of xs[r] (128 nc[r] floats) for r < n, by warp_sum.
+// Warp w takes r = w, w + warps, ...  The caller syncs before (inputs
+// written) and after (sums read).
 __device__ __forceinline__ void slot_sums(const float* const* xs, int n,
                                           const int* nc, float* sums) {
   const int warps = (int)blockDim.x >> 5, w = (int)threadIdx.x >> 5;
-  const int l = (int)threadIdx.x & 31;
   for (int r = w; r < n; r += warps) {
-    const float* x = xs[r];
-    float v = 0.f;
-    for (int c = 0; c < nc[r]; ++c) {
-      const float4 f = four(x, 128 * c + 4 * l);
-      v = v + f.x;
-      v = v + f.y;
-      v = v + f.z;
-      v = v + f.w;
-    }
-    for (int o = 16; o > 0; o >>= 1) v = v + __shfl_xor_sync(kFull, v, o);
-    if (l == 0) sums[r] = v;
+    const float v = warp_sum(xs[r], nc[r]);
+    if ((threadIdx.x & 31) == 0) sums[r] = v;
   }
 }
 
@@ -839,6 +895,46 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // ---------------------------------------------------------------- B2w
+// B2w's step is a chain of latencies: a warp sums the exp terms, then
+// the head's psi (each 4 chunks(I) ordered adds and a butterfly), the
+// classes' dot products with psi' (the same, a row a class) and their
+// terms; its floor is deep.marginal_wide_floor, and a block of 16 warps
+// also waits on its SM's schedulers.  With its rows in device memory it took
+// 10,142 clocks a step at 512 isoforms, 3,820 of them the class terms'
+// loads of device memory, and 29,551 at 2,048, 18,180 of them those
+// loads.  Here:
+//
+// - The weights live in shared memory for the whole launch where a
+//   block holds them (a launch of few lanes): each block copies its
+//   classes' rows (padded to 128 chunks(I), zeros past I) once, and a
+//   step's class terms read them there, up to four rows a warp at once.
+//   Where the rows do not fit one block, a lane is a thread-block
+//   cluster of `cluster` blocks that split its classes, rows =
+//   ceil(C / cluster) each: every block computes the same alpha', psi',
+//   log psi' and MH decision (the same floats in the same order: no
+//   broadcast), its classes' terms, and writes them into every block's
+//   term buffer (distributed shared memory); one cluster barrier a step
+//   (arrive.release and wait.acquire: ~1,300 clocks, a GPU-scope fence
+//   and an L1 invalidation in the SASS), and two term buffers by the
+//   step's parity, so a block that runs ahead cannot overwrite terms a
+//   slower one still sums.  Where the rows would leave the launch more
+//   than one wave, or fit no cluster (wide.py), they stay in device
+//   memory.
+// - Randoms are drawn a step ahead, off the chain: the next step's
+//   normal pairs and log u_accept by the warps that wait while warp 0
+//   makes the step's two psi sums (in a cluster each block draws its
+//   share of the pairs into every block), into two buffers by parity.
+// - Six barriers a step in place of nine: alpha' is fused into the exp
+//   pass, the Dirichlet and proposal quadratics' terms are computed by
+//   the warps that sum them (warps 0-3, beside the class terms) and
+//   never stored, and every warp sums the class terms itself after the
+//   last barrier, then takes the MH decision.
+//
+// The sums keep their order (slot l adds 128 c + 4 l + q in (c, q)
+// order, then the butterfly; the class terms likewise), so the chain is
+// the first wide kernel's, to the bit, in every plan.
+namespace cg = cooperative_groups;
+
 struct MarginalParams {
   const float* weights;  // (E, C, I) class weights
   const float* counts;   // (E, C) reads per class
@@ -851,23 +947,55 @@ struct MarginalParams {
   float* loglik_out;     // (E, RREC, K)
   int* acc_out;          // (E, K)
   float* final_psi;      // (E, K, I)
-  float* scratch;        // lane arrays, or null: in shared memory
+  float* scratch;        // a block's lane arrays, or null: in shared memory
   int E, C, I, K, iters, burn_in, lag, rrec;
   Keys keys;
   int fixed_u;
-  int nc, ncc, lane_floats;  // chunks of I and of C; a lane's floats
-  int vec;  // rows of 16-byte pieces: I % 4 == 0 and weights aligned
+  int nc, ncc, lane_floats;  // chunks of I and of C; a block's lane floats
+  int vec;      // rows of 16-byte pieces: I % 4 == 0 and weights aligned
+  int cluster;  // blocks of a lane
+  int rows;     // classes of a block: ceil(C / cluster)
 };
 
-// The (I,) proposal normals of a step into z, as B2 draws them: with
-// Philox pair j's radius gives isoform j r cos and isoform j + H r sin
-// (0 past the head isoforms); under fixed_u every head row is r cos, as
-// the TPU kernel's cos-only _normal gives.
-__device__ __forceinline__ void marginal_normals(const MarginalParams& p,
-                                                 int k, uint32_t lane,
-                                                 uint32_t step, float* z) {
+// The head: the step's sums and the drawn-ahead log u_accept.
+constexpr int kS1 = 0, kS2 = 1;  // sum exp(alpha'), sum of the head's psi'
+constexpr int kSq = 2;           // (h - 1) log psi', log psi' on the head,
+                                 // and the two proposal quadratics
+constexpr int kLogU = 8;         // two slots, by the step's parity
+
+// The cluster barrier in two halves: arrive (releasing this thread's
+// writes, the remote ones included) and wait (acquiring the others').
+__device__ __forceinline__ void cluster_arrive() {
+#ifdef __CUDACC__
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+#else
+  shim_cluster_arrive();
+#endif
+}
+__device__ __forceinline__ void cluster_wait() {
+#ifdef __CUDACC__
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+#else
+  shim_cluster_wait();
+#endif
+}
+
+// The normal pairs j = j0 + g, g + cluster ... < j1 (g: this block's
+// rank where the pairs are split over the cluster, else 0, every pair) of
+// a step, as B2 draws them: with Philox pair j's radius gives isoform j
+// r cos and isoform j + H r sin (0 past the head isoforms); under
+// fixed_u every head row is r cos, as the TPU kernel's cos-only _normal
+// gives.  Drawer t of n takes every n-th of them; each is written into
+// z of every block that reads it (``split``: the whole cluster).
+__device__ __forceinline__ void marginal_pairs(const MarginalParams& p,
+                                               int k, uint32_t lane,
+                                               uint32_t step, int j0, int j1,
+                                               int t, int n, float* z,
+                                               bool split, unsigned rank) {
   const int H = (p.I + 1) / 2;
-  for (int j = (int)threadIdx.x; j < H; j += (int)blockDim.x) {
+  const int stride = split ? p.cluster : 1;
+  for (int j = j0 + (split ? (int)rank : 0) + t * stride; j < j1;
+       j += n * stride) {
     float u1 = kFixedU, u2 = kFixedU;
     if (!p.fixed_u) {
       const uint4 b =
@@ -878,111 +1006,173 @@ __device__ __forceinline__ void marginal_normals(const MarginalParams& p,
     const float r = sqrtf(-2.0f * logf(fmaxf(u1, kTwoM24)));
     const float ang = kTwoPi * u2;
     const float c = r * cosf(ang);
-    z[j] = c;
-    if (j + H < p.I) {
-      float s = 0.f;
-      if (j + H < k - 1) s = p.fixed_u ? c : r * sinf(ang);
-      z[j + H] = s;
+    float s = 0.f;
+    if (j + H < p.I && j + H < k - 1) s = p.fixed_u ? c : r * sinf(ang);
+    for (int q = 0; q < stride; ++q) {
+      float* zq = split ? cg::this_cluster().map_shared_rank(z, (unsigned)q)
+                        : z;
+      zq[j] = c;
+      if (j + H < p.I) zq[j + H] = s;
     }
   }
 }
 
-// psi and log psi of alpha a (pallas_marginal.py logistic_inv): e =
-// exp(a) on the head isoforms, head = e / (1 + sum e), the last isoform
-// takes 1 - sum(head); lp = log max(psi, 1e-38) on the real isoforms.
-// Also the Dirichlet terms (h - 1) log psi and the head's log psi, for
-// the step's sums.  Two sums of its own; ends synchronised.
-__device__ __forceinline__ void marginal_psi(int P, int k, const int* nc,
-                                             const float* a, const float* h1,
-                                             float* psi, float* lp,
-                                             float* t_dir, float* t_head,
-                                             float* head) {
-  const int tid = (int)threadIdx.x, nt = (int)blockDim.x;
-  for (int i = tid; i < P; i += nt) psi[i] = i < k - 1 ? expf(a[i]) : 0.f;
-  __syncthreads();
-  {
-    const float* xs[1] = {psi};
-    slot_sums(xs, 1, nc, head + kSums + 8);
+// A class's term counts_c log(s_c) (0 where s_c is 0), into the term
+// buffer tb of every block of the lane's cluster.
+__device__ __forceinline__ void marginal_term(const MarginalParams& p,
+                                              const float* cnt, int c,
+                                              float v, float* tb) {
+  const float t = v > 0.f ? cnt[c] * logf(fmaxf(v, kTiny)) : 0.f;
+  if (p.cluster == 1) {
+    tb[c] = t;
+    return;
   }
-  __syncthreads();
-  const float denom = 1.0f + head[kSums + 8];
-  for (int i = tid; i < P; i += nt)
-    if (i < k - 1) psi[i] = psi[i] / denom;
-  __syncthreads();
-  {
-    const float* xs[1] = {psi};
-    slot_sums(xs, 1, nc, head + kSums + 9);
-  }
-  __syncthreads();
-  const float rest = 1.0f - head[kSums + 9];
-  for (int i = tid; i < P; i += nt) {
-    const float last = i == k - 1 ? 1.f : 0.f;
-    const float v = psi[i] + last * rest;
-    const float l = i < k ? logf(fmaxf(v, kTiny)) : 0.f;
-    psi[i] = v;
-    lp[i] = l;
-    t_dir[i] = i < k ? h1[i] * l : 0.f;
-    t_head[i] = i < k - 1 ? l : 0.f;
-  }
-  __syncthreads();
+  for (int q = 0; q < p.cluster; ++q)
+    cg::this_cluster().map_shared_rank(tb, (unsigned)q)[c] = t;
 }
 
-// The read term's class terms counts_c log(s_c), s_c = sum_i W_ci psi_i
-// (0 where s_c is 0), at their class: a warp a class row (two at once,
-// c and c + warps, whose loads and sums overlap), its lanes the chunks'
-// isoforms.
-__device__ __forceinline__ void marginal_terms(const MarginalParams& p,
-                                               int e, const float* psi,
-                                               float* term) {
-  const int warps = (int)blockDim.x >> 5, w = (int)threadIdx.x >> 5;
-  const int l = (int)threadIdx.x & 31;
-  const int I = p.I;
-  const bool vec = p.vec != 0;
+// Chunk ch of RPP class rows into their sums v: slot l adds w * psi of
+// its four isoforms in turn.  Every row's weights are loaded before any
+// is added, so that the rows' loads overlap.
+template <int RPP>
+__device__ __forceinline__ void row_chunk(const float* const* row,
+                                          const float* psi, int ch, int len,
+                                          bool vec, float* v) {
+  const int i0 = 128 * ch + 4 * ((int)threadIdx.x & 31);
+  const float4 ps = four(psi, i0);
+  float wv[RPP][4];
+#pragma unroll
+  for (int j = 0; j < RPP; ++j) load4(row[j], i0, len, vec, wv[j]);
+#pragma unroll
+  for (int j = 0; j < RPP; ++j) {
+    v[j] = v[j] + wv[j][0] * ps.x;
+    v[j] = v[j] + wv[j][1] * ps.y;
+    v[j] = v[j] + wv[j][2] * ps.z;
+    v[j] = v[j] + wv[j][3] * ps.w;
+  }
+}
+
+// This block's class terms, s_c = sum_i W_ci psi_i.  The rows go round
+// the warps w0 ... (RW of them): warp w0 + r takes rows r, r + RW, ...
+// RPP at a time, its lanes a row's chunks' isoforms (a warp past its
+// last row repeats its first and keeps nothing of it).  A row's sum is
+// kept by the lane whose turn it is, and every 32 rows the lanes take
+// their rows' logs at once.
+template <bool WS, int RPP>
+__device__ __forceinline__ void marginal_rows(const MarginalParams& p,
+                                              int e, int c0, int nrows,
+                                              const float* wrow,
+                                              const float* psi, float* tb,
+                                              int w0) {
+  const int w = (int)threadIdx.x >> 5, l = (int)threadIdx.x & 31;
+  const int RW = ((int)blockDim.x >> 5) - w0, r = w - w0;
+  const int I = p.I, P = 128 * p.nc, nc = p.nc;
+  const int len = WS ? P : I;
+  const bool vec = WS || p.vec != 0;
   const float* W = p.weights + (size_t)e * p.C * I;
-  for (int c = w; c < p.C; c += 2 * warps) {
-    const int c2 = c + warps < p.C ? c + warps : c;
-    const float* row = W + (size_t)c * I;
-    const float* row2 = W + (size_t)c2 * I;
-    float v = 0.f, v2 = 0.f;
-    for (int ch = 0; ch < p.nc; ++ch) {
-      const int i0 = 128 * ch + 4 * l;
-      const float4 ps = four(psi, i0);
-      float wv[4], wv2[4];
-      load4(row, i0, I, vec, wv);
-      load4(row2, i0, I, vec, wv2);
-      v = v + wv[0] * ps.x;
-      v2 = v2 + wv2[0] * ps.x;
-      v = v + wv[1] * ps.y;
-      v2 = v2 + wv2[1] * ps.y;
-      v = v + wv[2] * ps.z;
-      v2 = v2 + wv2[2] * ps.z;
-      v = v + wv[3] * ps.w;
-      v2 = v2 + wv2[3] * ps.w;
+  const float* cnt = p.counts + (size_t)e * p.C;
+  if (r < 0) return;
+  float mine = 0.f;  // this lane's row's sum, of class mine_c
+  int mine_c = -1, kept = 0;
+  for (int t0 = r; t0 < nrows; t0 += RPP * RW) {
+    int tt[RPP];
+    bool own[RPP];
+    const float* row[RPP];
+    float v[RPP];
+#pragma unroll
+    for (int j = 0; j < RPP; ++j) {
+      own[j] = t0 + j * RW < nrows;
+      tt[j] = own[j] ? t0 + j * RW : t0;
+      row[j] = WS ? wrow + (size_t)tt[j] * P : W + (size_t)(c0 + tt[j]) * I;
+      v[j] = 0.f;
     }
+    for (int ch = 0; ch < nc; ++ch) row_chunk<RPP>(row, psi, ch, len, vec, v);
     for (int o = 16; o > 0; o >>= 1) {
-      v = v + __shfl_xor_sync(kFull, v, o);
-      v2 = v2 + __shfl_xor_sync(kFull, v2, o);
+#pragma unroll
+      for (int j = 0; j < RPP; ++j)
+        v[j] = v[j] + __shfl_xor_sync(kFull, v[j], o);
     }
-    if (l == 0) {
-      const float* cnt = p.counts + (size_t)e * p.C;
-      term[c] = v > 0.f ? cnt[c] * logf(fmaxf(v, kTiny)) : 0.f;
-      if (c2 != c)
-        term[c2] = v2 > 0.f ? cnt[c2] * logf(fmaxf(v2, kTiny)) : 0.f;
+#pragma unroll
+    for (int j = 0; j < RPP; ++j) {
+      if (!own[j]) continue;
+      if (l == kept) {
+        mine = v[j];
+        mine_c = c0 + tt[j];
+      }
+      if (++kept == 32) {
+        marginal_term(p, cnt, mine_c, mine, tb);
+        mine_c = -1;
+        kept = 0;
+      }
     }
+  }
+  if (mine_c >= 0) marginal_term(p, cnt, mine_c, mine, tb);
+}
+
+// Rows in shared memory (a launch of few lanes, whose step is a chain of
+// latencies) go to the warps past the four that sum the quadratics, up
+// to four at once; rows in device memory (a launch that fills the card)
+// to every warp, two at once.  Either way a warp's lanes take their
+// rows' logs 32 at once: at 2,048 events, 100 x 6, in blocks of 64 and
+// 32 threads, of 64 isoforms and 256 classes 35.48 ms, of 2,048 and 64
+// 768.81 ms, where two rows a warp with their logs on lane 0 (the first
+// wide kernel's way) took 47.63 and 817.99 (wide_times.py --marginal on an
+// H100, that layout forced).  A warp
+// takes its share in as few passes as it can, its rows as even over them
+// as they go.
+template <bool WS>
+__device__ __forceinline__ void marginal_terms(const MarginalParams& p,
+                                               int e, int c0, int nrows,
+                                               const float* wrow,
+                                               const float* psi, float* tb) {
+  constexpr int kMost = WS ? 4 : 2;
+  const int warps = (int)blockDim.x >> 5;
+  const int w0 = WS && warps >= 8 ? 4 : 0;
+  const int per = (nrows + warps - w0 - 1) / (warps - w0);  // rows a warp
+  const int passes = (per + kMost - 1) / kMost;
+  switch (passes > 0 ? (per + passes - 1) / passes : 1) {
+    case 4:
+      marginal_rows<WS, WS ? 4 : 2>(p, e, c0, nrows, wrow, psi, tb, w0);
+      break;
+    case 3:
+      marginal_rows<WS, WS ? 3 : 2>(p, e, c0, nrows, wrow, psi, tb, w0);
+      break;
+    case 2:
+      marginal_rows<WS, 2>(p, e, c0, nrows, wrow, psi, tb, w0);
+      break;
+    default:
+      marginal_rows<WS, 1>(p, e, c0, nrows, wrow, psi, tb, w0);
   }
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-    marginal_wide_kernel(const MarginalParams p) {
+// Registers: with its rows in device memory (a launch that fills the
+// card) at most 64 a thread, two blocks of 512 an SM, as the first wide
+// kernel took; with its rows in shared memory (a block an SM) up to 128, which
+// its four rows at once need.  The step-breakdown build leaves its
+// stamps' registers free of the former bound, lest they spill.
+#ifdef MISO_B2W_CLOCKS
+#define B2W_BOUNDS __launch_bounds__(kMaxThreads)
+#else
+#define B2W_BOUNDS __launch_bounds__(kMaxThreads, WS ? 1 : 2)
+#endif
+template <bool WS>
+__global__ void B2W_BOUNDS marginal_wide_kernel(const MarginalParams p) {
   extern __shared__ __align__(16) float smem[];
-  const int lane_i = (int)blockIdx.x;
+  const int cl = p.cluster;
+  const unsigned rank = cl > 1 ? cg::this_cluster().block_rank() : 0u;
+  const int lane_i = (int)blockIdx.x / cl;
   const int e = lane_i / p.K;
   const uint32_t lane = (uint32_t)lane_i;
   const int tid = (int)threadIdx.x, nt = (int)blockDim.x;
-  const int I = p.I, P = 128 * p.nc, PC = 128 * p.ncc;
+  const int warps = nt >> 5, w = tid >> 5;
+  const int I = p.I, C = p.C, P = 128 * p.nc, PC = 128 * p.ncc;
+  // shared: the two term buffers, this block's weight rows (WS), then
+  // the lane's arrays unless they lie in scratch
+  float* terms = smem;
+  float* wrow = smem + 2 * PC;
   float* head = p.scratch != nullptr
-                    ? p.scratch + (size_t)lane_i * p.lane_floats
-                    : smem;
+                    ? p.scratch + (size_t)blockIdx.x * p.lane_floats
+                    : wrow + (WS ? (size_t)p.rows * P : 0);
   // the current state and the proposal's swap places on an accept
   float* alpha = head + kHeadFloats;
   float* psi = alpha + P;
@@ -991,13 +1181,15 @@ __global__ void __launch_bounds__(kMaxThreads)
   float* an = h1 + P;
   float* pn = an + P;
   float* lpn = pn + P;
-  float* t_dir = lpn + P;     // the step's normals, then (h - 1) log psi'
-  float* t_head = t_dir + P;  // log psi' on the head isoforms
-  float* t_cp = t_head + P;   // the two proposal quadratics' terms
-  float* t_pc = t_cp + P;
-  float* term = t_pc + P;     // PC classes
-  // the chunks of each sum of a step: the class terms', then I's
-  const int nc[5] = {p.ncc, p.nc, p.nc, p.nc, p.nc};
+  float* zb = lpn + P;  // two steps' normals, by parity
+  const int c0 = (int)rank * p.rows;
+  const int nrows = C - c0 < p.rows ? (C - c0 > 0 ? C - c0 : 0) : p.rows;
+  // the next step's pairs go to every block of the cluster where the
+  // lane arrays lie in shared memory; in scratch each block draws all
+  const bool split = cl > 1 && p.scratch == nullptr;
+  // drawers: every warp but warp 0, which sums meanwhile (all of a
+  // one-warp block, after its sum)
+  const int d0 = warps > 1 ? 32 : 0;
 
   const int k = p.num_iso[e];
   const float ns = p.scal[4 * e];
@@ -1021,72 +1213,163 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
     h1[i] = v_h1;
     alpha[i] = v_alpha;
+    psi[i] = 0.f;
+    lp[i] = 0.f;
   }
-  for (int c = tid; c < PC; c += nt) term[c] = 0.f;
-  marginal_normals(p, k, lane, 0u, t_dir);
-  __syncthreads();
-  // one proposal from the start (miso.c:834)
-  for (int i = tid; i < P; i += nt) {
-    const float hd = i < k - 1 ? 1.f : 0.f;
-    const float z = i < I ? t_dir[i] : 0.f;
-    alpha[i] = alpha[i] + ns * z * hd;
+  for (int c = tid; c < 2 * PC; c += nt) terms[c] = 0.f;
+  if (WS) {
+    // this block's rows, once for the launch
+    const float* W = p.weights + ((size_t)e * C + c0) * I;
+    for (int x = tid; x < p.rows * P; x += nt) {
+      const int t = x / P, i = x - t * P;
+      wrow[x] = t < nrows && i < I ? W[(size_t)t * I + i] : 0.f;
+    }
   }
-  __syncthreads();
-  const float log_tiny = logf(kTiny);
-  marginal_psi(P, k, nc + 1, alpha, h1, psi, lp, t_dir, t_head, head);
-  marginal_terms(p, e, psi, term);
-  __syncthreads();
-  {
-    const float* xs[3] = {term, t_dir, t_head};
-    slot_sums(xs, 3, nc, head + kSums);
+  // step 0's normals, every pair in every block
+  marginal_pairs(p, k, lane, 0u, 0, (I + 1) / 2, tid, nt, zb, false, 0u);
+  if (cl > 1) {  // every block has started before any writes a peer
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    __syncthreads();
   }
-  __syncthreads();
-  float cjs = head[kSums] + (head[kSums + 1] + dir_const);
-  float lt = k > 0 ? lp[k - 1] : log_tiny;
-  float base = (prop_const - head[kSums + 2]) - lt;
 
+  const float log_tiny = logf(kTiny);
+  // the first window's pairs: half, or all where one warp sums and draws
+  const int H = (I + 1) / 2, H2 = warps > 1 ? (H + 1) / 2 : H;
+  float cjs = 0.f, lt = 0.f, base = 0.f;
   int next_rec = p.burn_in + p.lag - 1;
   int accepted = 0, rec = 0;
-  for (int m = 0; m < p.iters; ++m) {
-    const uint32_t step = (uint32_t)m + 1u;
-    marginal_normals(p, k, lane, step, t_dir);
-    __syncthreads();
-    for (int i = tid; i < P; i += nt) {
-      const float hd = i < k - 1 ? 1.f : 0.f;
-      const float z = i < I ? t_dir[i] : 0.f;
-      an[i] = alpha[i] + ns * z * hd;
-    }
-    __syncthreads();
-    marginal_psi(P, k, nc + 1, an, h1, pn, lpn, t_dir, t_head, head);
-    marginal_terms(p, e, pn, term);
-    // the proposal densities' quadratics: log q(psi | alpha') of the
-    // current state and log q(psi' | alpha) of the proposal
-    // (miso.c:97-122, pallas_marginal.py proposal_score)
-    const float ltn = k > 0 ? lpn[k - 1] : log_tiny;
-    for (int i = tid; i < P; i += nt) {
-      float cp = 0.f, pc = 0.f;
-      if (i < k - 1) {
-        cp = (lpn[i] - ltn) - alpha[i];
-        pc = (lp[i] - lt) - an[i];
+#ifdef MISO_B2W_CLOCKS
+  B2wClocks clk = {};
+#endif
+  // s = 0: one proposal from the start, always taken (miso.c:834); s =
+  // m + 1: MH step m
+  for (int s = 0; s <= p.iters; ++s) {
+    B2_MARK();
+    const float* z = zb + (s & 1) * P;
+    float* zn = zb + ((s + 1) & 1) * P;
+    const bool draw = s < p.iters;
+    // h = 0: alpha' and exp, then their sum; h = 1: the division, then
+    // the head's psi' sum.  Meanwhile the other warps draw the next
+    // step's pairs, half each time, and log u_accept.
+    for (int h = 0; h < 2; ++h) {
+      if (h == 0) {
+        for (int i = tid; i < P; i += nt) {
+          const float hd = i < k - 1 ? 1.f : 0.f;
+          const float zi = i < I ? z[i] : 0.f;
+          const float a = alpha[i] + ns * zi * hd;
+          an[i] = a;
+          pn[i] = i < k - 1 ? expf(a) : 0.f;
+        }
+      } else {
+        const float denom = 1.0f + head[kS1];
+        for (int i = tid; i < P; i += nt)
+          if (i < k - 1) pn[i] = pn[i] / denom;
       }
-      t_cp[i] = cp * cp;
-      t_pc[i] = pc * pc;
+      if (h == 0)
+        B2_ADD(kB2Exp);
+      else
+        B2_ADD(kB2DivLog);
+      __syncthreads();
+      B2_ADD(kB2Wait);
+      if (w == 0) {
+        const float sum = warp_sum(pn, p.nc);
+        if (tid == 0) head[kS1 + h] = sum;
+        B2_ADD(kB2PsiSums);
+      }
+      if (draw && tid >= d0) {
+        if (h == 0 && tid == d0)
+          head[kLogU + ((s + 1) & 1)] =
+              log_accept(p.keys, p.fixed_u, lane, (uint32_t)s + 1u);
+        marginal_pairs(p, k, lane, (uint32_t)s + 1u, h == 0 ? 0 : H2,
+                       h == 0 ? H2 : H, tid - d0, nt - d0, zn, split, rank);
+        B2_ADD(kB2Normals);
+      }
+      __syncthreads();
+      B2_ADD(kB2Wait);
     }
-    __syncthreads();
-    {
-      const float* xs[5] = {term, t_dir, t_head, t_cp, t_pc};
-      slot_sums(xs, 5, nc, head + kSums);
+    // psi' (the last isoform takes 1 - the head's sum) and log psi'
+    const float rest = 1.0f - head[kS2];
+    for (int i = tid; i < P; i += nt) {
+      const float last = i == k - 1 ? 1.f : 0.f;
+      const float v = pn[i] + last * rest;
+      pn[i] = v;
+      lpn[i] = i < k ? logf(fmaxf(v, kTiny)) : 0.f;
     }
+    B2_ADD(kB2DivLog);
     __syncthreads();
-    const float pjs = head[kSums] + (head[kSums + 1] + dir_const);
-    const float basen = (prop_const - head[kSums + 2]) - ltn;
-    const float pto_c = base + (-0.5f * head[kSums + 4]) * inv_sigma;
-    const float cto_p = basen + (-0.5f * head[kSums + 3]) * inv_sigma;
-    // iteration 0 drops the proposal correction (pallas_marginal.py:146)
-    const float full = m > 0 ? 1.f : 0.f;
-    const float logr = (pjs - cjs) + full * (pto_c - cto_p);
-    const float log_u = log_accept(p.keys, p.fixed_u, lane, step);
-    if (logr >= 0.f || log_u < logr) {
+    B2_ADD(kB2Wait);
+    const float ltn = k > 0 ? lpn[k - 1] : log_tiny;
+    float* tb = terms + (s & 1) * PC;
+    marginal_terms<WS>(p, e, c0, nrows, wrow, pn, tb);
+    if (tid == nt - 32)
+      B2_ADD(kB2Rows);
+    else
+      B2_ADD(kB2Terms);
+    // warps 0-3: the Dirichlet term (j = 0), log psi' on the head (1), and
+    // the proposal densities' quadratics, log q(psi | alpha') of the
+    // current state (2: (log psi'_i - log psi'_last) - alpha_i) and
+    // log q(psi' | alpha) of the proposal (3: (log psi_i - log psi_last)
+    // - alpha'_i) (miso.c:97-122, pallas_marginal.py proposal_score),
+    // summed as they are computed
+    for (int j = w; j < 4; j += warps) {
+      float v;
+      if (j == 0) {
+        v = warp_sum(p.nc, [&](int i0) {
+          const float4 h = four(h1, i0), lg = four(lpn, i0);
+          return make_float4(i0 < k ? h.x * lg.x : 0.f,
+                             i0 + 1 < k ? h.y * lg.y : 0.f,
+                             i0 + 2 < k ? h.z * lg.z : 0.f,
+                             i0 + 3 < k ? h.w * lg.w : 0.f);
+        });
+      } else if (j == 1) {
+        v = warp_sum(p.nc, [&](int i0) {
+          const float4 lg = four(lpn, i0);
+          return make_float4(i0 < k - 1 ? lg.x : 0.f, i0 + 1 < k - 1 ? lg.y : 0.f,
+                             i0 + 2 < k - 1 ? lg.z : 0.f,
+                             i0 + 3 < k - 1 ? lg.w : 0.f);
+        });
+      } else {
+        const float* lq = j == 2 ? lpn : lp;
+        const float* am = j == 2 ? alpha : an;
+        const float last = j == 2 ? ltn : lt;
+        v = warp_sum(p.nc, [&](int i0) {
+          const float4 lg = four(lq, i0), a = four(am, i0);
+          const float d0 = i0 < k - 1 ? (lg.x - last) - a.x : 0.f;
+          const float d1 = i0 + 1 < k - 1 ? (lg.y - last) - a.y : 0.f;
+          const float d2 = i0 + 2 < k - 1 ? (lg.z - last) - a.z : 0.f;
+          const float d3 = i0 + 3 < k - 1 ? (lg.w - last) - a.w : 0.f;
+          return make_float4(d0 * d0, d1 * d1, d2 * d2, d3 * d3);
+        });
+      }
+      if ((tid & 31) == 0) head[kSq + j] = v;
+    }
+    B2_ADD(kB2Quad);
+    if (cl > 1) {
+      cluster_arrive();
+      cluster_wait();
+    } else {
+      __syncthreads();
+    }
+    B2_ADD(kB2Terms);
+    // every warp sums the class terms alike
+    const float s0 = warp_sum(tb, p.ncc);
+    B2_ADD(kB2Sums);
+    const float pjs = s0 + (head[kSq] + dir_const);
+    const float basen = (prop_const - head[kSq + 1]) - ltn;
+    bool take = s == 0;
+    if (s > 0) {
+      const float pto_c = base + (-0.5f * head[kSq + 3]) * inv_sigma;
+      const float cto_p = basen + (-0.5f * head[kSq + 2]) * inv_sigma;
+      // iteration 0 drops the proposal correction (pallas_marginal.py:146)
+      const float full = s > 1 ? 1.f : 0.f;
+      const float logr = (pjs - cjs) + full * (pto_c - cto_p);
+      const float log_u = head[kLogU + (s & 1)];
+      take = logr >= 0.f || log_u < logr;
+      accepted += take ? 1 : 0;
+    }
+    if (take) {
       float* t = alpha;
       alpha = an;
       an = t;
@@ -1099,58 +1382,122 @@ __global__ void __launch_bounds__(kMaxThreads)
       lt = ltn;
       base = basen;
       cjs = pjs;
-      ++accepted;
     }
-    if (m == next_rec) {
+    if (s > 0 && s - 1 == next_rec) {
       next_rec += p.lag;
       if (rec < p.rrec) {
-        const size_t o = ((size_t)e * p.rrec + rec) * p.K + (lane_i - e * p.K);
-        for (int i = tid; i < I; i += nt) p.psi_out[o * I + i] = psi[i];
-        if (tid == 0) p.loglik_out[o] = cjs;
+        if (rank == 0) {
+          const size_t o =
+              ((size_t)e * p.rrec + rec) * p.K + (lane_i - e * p.K);
+          for (int i = tid; i < I; i += nt) p.psi_out[o * I + i] = psi[i];
+          if (tid == 0) p.loglik_out[o] = cjs;
+        }
         ++rec;
       }
     }
+    B2_ADD(kB2MH);
+#ifdef MISO_B2W_CLOCKS
+    if (s == 0)
+      clk = B2wClocks{};  // the iterations alone
+    else
+      clk.v[kB2Steps] += 1;
+#endif
   }
-  if (tid == 0) p.acc_out[lane_i] = accepted;
-  for (int i = tid; i < I; i += nt)
-    p.final_psi[(size_t)lane_i * I + i] = psi[i];
+#ifdef MISO_B2W_CLOCKS
+  // each lane's first thread, and the class rows from its last warp's
+  if (rank == 0 && tid == 0)
+    for (int i = 0; i < kB2Slots; ++i)
+      if (i != kB2Rows || nt == 32) atomicAdd(&b2w_clocks[i], clk.v[i]);
+  if (rank == 0 && tid == nt - 32 && nt > 32)
+    atomicAdd(&b2w_clocks[kB2Rows], clk.v[kB2Rows]);
+#endif
+  if (rank == 0) {
+    if (tid == 0) p.acc_out[lane_i] = accepted;
+    for (int i = tid; i < I; i += nt)
+      p.final_psi[(size_t)lane_i * I + i] = psi[i];
+  }
+  if (cl > 1) {  // no block leaves while a peer may still read it
+    cluster_arrive();
+    cluster_wait();
+  }
 }
 
 // A lane's floats: the head, the kernel's I-wide arrays (128 chunks(I)
 // each), for B1w its n = R read scores and a class table of `rows` rows
 // (rounded up to whole 16 bytes, which the lanes' float4 loads in
-// scratch need), for B2w its class terms (kind 0: B1w, 1: B2w; n the
-// class count for B2w).
+// scratch need); for B2w a block's (kind 0: B1w, 1: B2w), whose class
+// terms and weight rows lie apart (marginal_shared_floats).
 long long lane_floats(int kind, int n, int I, int rows) {
   const long long P = 128LL * chunks(I);
   if (kind == 0)  // whole 16 bytes: the next lane's arrays in scratch
     return (kHeadFloats + kReassignArrays * P + n +
             (long long)rows * (P + kRowScalars) + 3) / 4 * 4;
-  return kHeadFloats + kMarginalArrays * P + 128LL * chunks(n);
+  return kHeadFloats + kMarginalArrays * P;
 }
 
-// The plan's own consistency: a block of whole warps within the bounds,
-// and the lane's arrays in shared memory (exactly their size) or in
-// scratch (no shared memory).
+// B2w's shared floats: its two term buffers, its block's weight rows
+// where they lie in shared memory, and its lane floats where they do.
+long long marginal_shared_floats(int C, int I, int cluster, int wshared,
+                                 int arrays_shared) {
+  const long long P = 128LL * chunks(I);
+  const long long rows = (C + cluster - 1) / cluster;
+  return 2 * 128LL * chunks(C) + (wshared ? rows * P : 0) +
+         (arrays_shared ? lane_floats(1, C, I, 0) : 0);
+}
+
+// A block of whole warps within the bounds.
+bool block_ok(int threads) {
+  return threads >= 32 && threads <= kMaxThreads && threads % 32 == 0;
+}
+
+// The plan's own consistency: a block_ok block, and the lane's arrays in
+// shared memory (exactly their size) or in scratch (no shared memory).
 bool plan_ok(int threads, long long floats, long long shared_bytes,
              const float* scratch) {
-  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0)
-    return false;
+  if (!block_ok(threads)) return false;
   if (scratch != nullptr) return shared_bytes == 0;
   return shared_bytes == floats * 4 && shared_bytes <= kMaxShared;
 }
 
+// B2w's: a block_ok block, a cluster of 1, 2, 4 or 8 blocks, and exactly
+// the shared memory its layout takes, within a block's.
+bool marginal_plan_ok(int threads, int C, int I, int cluster, int wshared,
+                      long long shared_bytes, const float* scratch) {
+  if (!block_ok(threads)) return false;
+  if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8)
+    return false;
+  if (wshared != 0 && wshared != 1) return false;
+  const long long need =
+      4 * marginal_shared_floats(C, I, cluster, wshared, scratch == nullptr);
+  return shared_bytes == need && shared_bytes <= kMaxShared;
+}
+
+// A launch of `blocks` blocks, in clusters of `cluster` (consecutive
+// blocks form one; 1: no cluster dimension); a launch the card cannot
+// place returns its error.
 template <class Kernel, class Params>
 int launch(Kernel kernel, const Params& p, int blocks, int threads,
-           long long shared_bytes, void* stream) {
+           long long shared_bytes, void* stream, int cluster = 1) {
   if (shared_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)shared_bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<blocks, threads, (size_t)shared_bytes,
-           static_cast<cudaStream_t>(stream)>>>(p);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks, 1u, 1u);
+  cfg.blockDim = dim3((unsigned)threads, 1u, 1u);
+  cfg.dynamicSmemBytes = (size_t)shared_bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -1212,12 +1559,14 @@ extern "C" int miso_marginal_wide(
     float* psi_out, float* loglik_out, int* acc_out, float* final_psi,
     float* scratch, int E, int C, int I, int K, int iters, int burn_in,
     int lag, int rrec, unsigned int seed_lo, unsigned int seed_hi,
-    int fixed_u, int threads, long long shared_bytes, void* stream) {
+    int fixed_u, int threads, int cluster, int wshared,
+    long long shared_bytes, void* stream) {
   const long long lanes = (long long)E * K;
   if (lanes == 0) return 0;
   const long long floats = lane_floats(1, C, I, 0);
-  if (lanes > 0x7fffffffLL || I < 2 || C < 1 || lag < 1 ||
-      !plan_ok(threads, floats, shared_bytes, scratch))
+  if (lanes * cluster > 0x7fffffffLL || I < 2 || C < 1 || lag < 1 ||
+      !marginal_plan_ok(threads, C, I, cluster, wshared, shared_bytes,
+                        scratch))
     return (int)cudaErrorInvalidValue;
   MarginalParams p{weights, counts, num_iso, hyper, scal, start, psi_out,
                    loglik_out, acc_out, final_psi, scratch, E, C, I, K,
@@ -1228,6 +1577,84 @@ extern "C" int miso_marginal_wide(
   p.ncc = chunks(C);
   p.lane_floats = (int)floats;
   p.vec = I % 4 == 0 && reinterpret_cast<uintptr_t>(weights) % 16 == 0;
-  return launch(marginal_wide_kernel, p, (int)lanes, threads, shared_bytes,
-                stream);
+  p.cluster = cluster;
+  p.rows = (C + cluster - 1) / cluster;
+  const int blocks = (int)(lanes * cluster);
+  return wshared ? launch(marginal_wide_kernel<true>, p, blocks, threads,
+                          shared_bytes, stream, cluster)
+                 : launch(marginal_wide_kernel<false>, p, blocks, threads,
+                          shared_bytes, stream, cluster);
 }
+
+#ifdef MISO_B2W_CLOCKS
+// The step breakdown's sums since the last read (kB2Slots values), then
+// cleared.
+extern "C" int miso_marginal_wide_clocks(unsigned long long* out) {
+  cudaError_t rc = cudaMemcpyFromSymbol(out, b2w_clocks, sizeof(b2w_clocks));
+  if (rc != cudaSuccess) return (int)rc;
+  static const unsigned long long zeros[kB2Slots] = {};
+  return (int)cudaMemcpyToSymbol(b2w_clocks, zeros, sizeof(zeros));
+}
+
+#ifdef __CUDACC__
+#include <cooperative_groups.h>
+
+// Latencies of B2w's synchronisation, in clocks per barrier, from one
+// block (or one cluster) doing nothing else: a block barrier of 32 and
+// of 512 threads, a cluster barrier over clusters of 2, 4 and 8 blocks of
+// 512 threads, and, in a cluster of 4, a barrier after each block's first
+// thread stores a float into the next block's shared memory.
+enum B2wLatency {
+  kLatBar32, kLatBar512, kLatCluster2, kLatCluster4, kLatCluster8,
+  kLatRemote4, kB2wLatSlots
+};
+
+__global__ void wide_barrier_probe(double* out, int reps, int slot) {
+  const long long t = clock64();
+  for (int r = 0; r < reps; ++r) __syncthreads();
+  if (threadIdx.x == 0) out[slot] = (double)(clock64() - t) / reps;
+}
+
+__global__ void wide_cluster_probe(double* out, int reps, int slot,
+                                   int remote) {
+  __shared__ float box[64];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cl = cg::this_cluster();
+  box[threadIdx.x & 63] = 0.f;
+  cl.sync();
+  const unsigned next = (cl.block_rank() + 1) % cl.num_blocks();
+  const long long t = clock64();
+  for (int r = 0; r < reps; ++r) {
+    if (remote && threadIdx.x == 0)
+      cl.map_shared_rank(box, next)[r & 63] = (float)r;
+    cl.sync();
+  }
+  if (threadIdx.x == 0 && cl.block_rank() == 0)
+    out[slot] = (double)(clock64() - t) / reps;
+}
+
+extern "C" int miso_wide_latencies(double* out, int reps) {
+  wide_barrier_probe<<<1, 32, 0>>>(out, reps, kLatBar32);
+  wide_barrier_probe<<<1, 512, 0>>>(out, reps, kLatBar512);
+  const int clusters[4] = {2, 4, 8, 4};
+  const int slots[4] = {kLatCluster2, kLatCluster4, kLatCluster8,
+                        kLatRemote4};
+  for (int j = 0; j < 4; ++j) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)clusters[j], 1u, 1u);
+    cfg.blockDim = dim3(512u, 1u, 1u);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)clusters[j];
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t rc = cudaLaunchKernelEx(&cfg, wide_cluster_probe, out,
+                                              reps, slots[j], j == 3 ? 1 : 0);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  return (int)cudaGetLastError();
+}
+#endif  // __CUDACC__
+#endif  // MISO_B2W_CLOCKS

@@ -12,8 +12,11 @@ takes seconds, not minutes.
 
 ``load_b3_clocks`` builds a second library, apart: the multinomial kernel
 alone with ``-DMISO_B3_CLOCKS``, which adds clock64() stamps between the
-phases of a step and a latency probe (see the source's ``ClockSlot``).
-Only ``chip_smoke.py`` asks for it; ``load`` never builds it.
+phases of a step and a latency probe (see the source's ``ClockSlot``);
+``load_b2w_clocks`` a third: the wide kernels' source alone with
+``-DMISO_B2W_CLOCKS``, B2w's stamps (``B2wClock``) and a probe of its
+barriers.  Only ``chip_smoke.py`` asks for them; ``load`` never builds
+them.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libmiso_kernels.so")
 CLOCKS_LIB_PATH = os.path.join(BUILD_DIR, "libmiso_b3_clocks.so")
+B2W_CLOCKS_LIB_PATH = os.path.join(BUILD_DIR, "libmiso_b2w_clocks.so")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v"]
@@ -45,6 +49,7 @@ SOURCE_FLAGS = {"marginal_kernel.cu": ["-fmad=false"],
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _CLOCKS_LIB: Optional[ctypes.CDLL] = None
+_B2W_CLOCKS_LIB: Optional[ctypes.CDLL] = None
 # what the last build of LIB_PATH printed (ptxas registers / spills) and
 # took
 BUILD_INFO = {"seconds": None, "log": ""}
@@ -156,7 +161,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                            # scratch
         + [ci] * 8         # E, C, I, K, iters, burn_in, lag, rrec
         + [cu, cu]         # seed words
-        + [ci] * 2         # fixed_u, threads
+        + [ci] * 4         # fixed_u, threads, cluster, rows shared
         + [ctypes.c_longlong, vp])   # shared bytes, stream
     lib.miso_wide_lane_floats.restype = ctypes.c_longlong
     lib.miso_wide_lane_floats.argtypes = [ci] * 4
@@ -207,6 +212,40 @@ def load_b3_clocks() -> ctypes.CDLL:
         if _CLOCKS_LIB is None:
             _CLOCKS_LIB = bind_b3_clocks(ctypes.CDLL(path), errors)
         return _CLOCKS_LIB
+
+
+B2W_CLOCKS_BUILD_INFO = {"seconds": None, "log": ""}
+
+
+def bind_b2w_clocks(lib: ctypes.CDLL, errors: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare B2w's step-breakdown library's C interface on ``lib``: its
+    entry point, the reader of its sums and (built by nvcc) the barrier
+    probe; ``errors`` lends the error strings."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.miso_marginal_wide.restype = ci
+    lib.miso_marginal_wide.argtypes = errors.miso_marginal_wide.argtypes
+    lib.miso_marginal_wide_clocks.restype = ci
+    lib.miso_marginal_wide_clocks.argtypes = [vp]
+    if hasattr(lib, "miso_wide_latencies"):
+        lib.miso_wide_latencies.restype = ci
+        lib.miso_wide_latencies.argtypes = [vp, ci]
+    lib.miso_cuda_error_string = errors.miso_cuda_error_string
+    return lib
+
+
+def load_b2w_clocks() -> ctypes.CDLL:
+    """The wide kernels built with B2w's step-breakdown stamps
+    (-DMISO_B2W_CLOCKS) into B2W_CLOCKS_LIB_PATH, a library of its own,
+    at first use; never the production library.  For ``chip_smoke.py``'s
+    breakdown only."""
+    global _B2W_CLOCKS_LIB
+    errors = load()
+    path = build(B2W_CLOCKS_LIB_PATH, [os.path.join(CSRC, "wide_kernel.cu")],
+                 ["MISO_B2W_CLOCKS"], B2W_CLOCKS_BUILD_INFO)
+    with _LOCK:
+        if _B2W_CLOCKS_LIB is None:
+            _B2W_CLOCKS_LIB = bind_b2w_clocks(ctypes.CDLL(path), errors)
+        return _B2W_CLOCKS_LIB
 
 
 def source_enum(enum: str, source: str = "multinomial_kernel.cu"):

@@ -225,6 +225,60 @@ def multinomial_floor(C: int, I: int, T: int, iters: int,
     return 1e3 * (iters + 1) * step / SM_CLOCK_HZ
 
 
+# Barrier latencies behind ``marginal_wide_floor``, in clocks: measured
+# on an H100 (NVIDIA H100 80GB HBM3, 700 W) by the barrier probe of B2w's
+# step-breakdown build (``chip_smoke.py``'s ``b2w_latencies``: 4,096
+# barriers in a row, nothing else): a block barrier 14.7 clocks at 32
+# threads and 44.7 at 512; a cluster barrier (arrive.release,
+# wait.acquire: a GPU-scope fence and an L1 invalidation in the SASS)
+# 1,300-1,306 at 2 blocks of 512, 1,318-1,345 at 4, 1,376-1,404 at 8.
+BLOCK_BAR_CLOCKS = {32: 14.7, 512: 44.7}
+CLUSTER_BAR_CLOCKS = {2: 1303.0, 4: 1324.0, 8: 1382.0}
+# B2w's barriers a step besides the one that ends the class terms
+B2W_BARRIERS = 5
+
+
+def marginal_wide_floor(C: int, I: int, threads: int, cluster: int,
+                        iters: int, clocks=None) -> float:
+    """The dependent-chain floor of one B2w launch in milliseconds: the
+    latency of the chain of a step that depends on the chain's state,
+    every lane's values where they are needed, times iters + 1 steps at
+    ``SM_CLOCK_HZ``.  Randoms are not on it (they depend on (lane, step)
+    alone and are drawn ahead).  A step, in the kernel's summing order
+    (slot l adds 4 chunks(n) values in turn, then a butterfly of five
+    shuffles): alpha' (two dependent FP32 instructions) and exp; the sum
+    of exp over the isoforms; the division; the sum of the head's psi';
+    psi' (two instructions); then, side by side, a class row's dot
+    product (its 4 chunks(I) adds and butterfly), log and product by the
+    count, or log psi' and the quadratics' sum; the exchange of the
+    class terms (a block barrier, or at ``cluster`` > 1 a cluster
+    barrier); the class terms' sum over 4 chunks(C); about ten
+    instructions of MH; and ``B2W_BARRIERS`` block barriers of
+    ``threads``.  ``clocks`` replaces the latencies above by a run's own
+    probes (``Expf``, ``Logf``, ``Divf``, ``Shfl``, ``Bar32``, ``Bar512``,
+    ``Cluster2`` ...).  An estimate built from measured latencies, read
+    against a timed launch; not a bound."""
+    lat = {"Expf": EXPF_CLOCKS, "Logf": LOGF_CLOCKS, "Divf": DIVF_CLOCKS,
+           "Shfl": SHUFFLE_CLOCKS, "Bar32": BLOCK_BAR_CLOCKS[32],
+           "Bar512": BLOCK_BAR_CLOCKS[512]}
+    lat.update({"Cluster%d" % c: x for c, x in CLUSTER_BAR_CLOCKS.items()})
+    lat.update(clocks or {})
+    dep = DEP_CLOCKS
+
+    def chunk_sum(n):
+        return 4 * -(-n // 128) * dep + 5 * (lat["Shfl"] + dep)
+
+    bar = lat["Bar32"] + (lat["Bar512"] - lat["Bar32"]) * (
+        threads // 32 - 1) / 15
+    exchange = lat["Cluster%d" % cluster] if cluster > 1 else bar
+    row = chunk_sum(I) + lat["Logf"] + dep
+    quad = lat["Logf"] + 3 * dep + chunk_sum(I)
+    step = (2 * dep + lat["Expf"] + chunk_sum(I) + dep + lat["Divf"]
+            + chunk_sum(I) + 2 * dep + max(row, quad) + exchange
+            + chunk_sum(C) + 10 * dep + B2W_BARRIERS * bar)
+    return 1e3 * (iters + 1) * step / SM_CLOCK_HZ
+
+
 def run_batch_multinomial(seed: int, batch: EventBatch, cfg: SamplerConfig,
                           start_psi=None, fixed_uniform=None
                           ) -> SamplerResult:

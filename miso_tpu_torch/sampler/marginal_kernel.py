@@ -124,13 +124,15 @@ def marginal_plan(E: int, C: int, I: int, K: int) -> MarginalPlan:
 
 def wide_plan(E: int, C: int, I: int, K: int) -> wide.WidePlan:
     """B2w's launch for E events of (C, I) class weights and K chains
-    (``wide.wide_plan``): a block a lane, its warps over the classes and
-    its threads over a class row's isoforms."""
+    (``wide.marginal_plan``): a block, or a cluster of blocks, a lane,
+    its warps over the classes and its threads over a class row's
+    isoforms, the class rows in shared memory where they fit."""
     return wide.wide_plan("marginal", E, C, I, K)
 
 
 def all_wide_plans(E: int, C: int, I: int, K: int):
-    """Every block width B2w can be launched with at this shape."""
+    """Every block width, cluster size and home of the class rows B2w can
+    be launched with at this shape."""
     return wide.all_wide_plans("marginal", E, C, I, K)
 
 
@@ -400,8 +402,10 @@ def _marginal_cuda(seed, batch, cfg, consts, start_psi, fixed, plan=None):
 def _marginal_wide_cuda(seed, batch, cfg, consts, start_psi, fixed,
                         plan=None):
     """Launch B2w (csrc/wide_kernel.cu) on the batch's CUDA device, laid
-    out by ``wide_plan`` (``plan`` forces another block width, or
-    ``shared_bytes=0`` the lane arrays into scratch)."""
+    out by ``wide_plan`` (``plan`` forces another block width, cluster or
+    home of the class rows, or ``shared_bytes=0`` the lane arrays into
+    scratch).  A plan the card refuses raises; nothing relaunches it in
+    another."""
     from miso_tpu_torch import kernels
 
     f32 = torch.float32
@@ -413,10 +417,13 @@ def _marginal_wide_cuda(seed, batch, cfg, consts, start_psi, fixed,
         plan = wide_plan(E, C, I, K)
     inputs, start, (psi_out, ll_out, acc, final_psi) = _class_tensors(
         batch, cfg, consts, start_psi)
+    # the lane arrays of every block where the plan gives them no shared
+    # memory
     scratch = None
     if plan.shared_bytes == 0:
-        scratch = torch.empty(E * K * wide.lane_floats("marginal", C, I),
-                              dtype=f32, device=dev)
+        scratch = torch.empty(
+            E * K * plan.cluster * wide.lane_floats("marginal", C, I),
+            dtype=f32, device=dev)
     lib = kernels.load()
     seed = int(seed) & ((1 << 64) - 1)
     with torch.cuda.device(dev):
@@ -429,7 +436,8 @@ def _marginal_wide_cuda(seed, batch, cfg, consts, start_psi, fixed,
             None if scratch is None else scratch.data_ptr(),
             E, C, I, K, cfg.iters, cfg.burn_in, cfg.lag, RREC,
             seed & 0xFFFFFFFF, seed >> 32, int(bool(fixed)),
-            plan.threads, plan.shared_bytes, stream)
+            plan.threads, plan.cluster, int(plan.weights == "shared"),
+            wide.launch_bytes(plan, C, I), stream)
     kernels.check(lib, rc, "wide marginal kernel launch (%s)" % (plan,))
     LAUNCHES["wide"] += 1
     final_n = torch.zeros((E, K, I), dtype=f32, device=dev)

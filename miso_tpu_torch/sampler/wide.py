@@ -31,6 +31,17 @@ reads that falls in it); where not even one row fits a block beside the
 lane's arrays, the arrays and a table of ``SCRATCH_ROWS`` rows go to
 scratch.
 
+B2w keeps a lane's class weights in shared memory for the whole
+launch, where they fit (``marginal_plan``): a block's rows, padded to
+128 chunks(I) floats, beside its two class-term buffers and, where they
+fit too, its lane arrays.  Where one block cannot hold the rows a lane
+is a thread-block cluster of ``cluster`` blocks that split its classes
+(ceil(C / cluster) rows each), one cluster barrier a step; where no
+cluster the launch can take holds them (``lanes x cluster <= SMS``), or
+where rows in shared memory would leave the launch more blocks than one
+wave of the card holds, the rows stay in device memory.  Its block is
+the one that keeps an SM busiest in the launch's first wave.
+
 Constants: csrc/wide_kernel.cu holds the same values (kMaxThreads,
 kHeadFloats, kReassignArrays, kMarginalArrays, kRowScalars, kMaxShared).
 """
@@ -62,10 +73,23 @@ WIDE_THREADS = (32, 64, 128, 256, 512)
 HEAD_FLOATS = 64
 # I-wide arrays of a lane: B1w alpha, psi, efflen, its log, hyper - 1,
 # the counts and four terms summed each step; B2w alpha, psi, log psi,
-# hyper - 1, the proposal's three, and four terms, beside its class
-# terms.
+# hyper - 1, the proposal's three and two steps' normals (its terms are
+# summed as they are computed, never stored), beside its class terms.
 REASSIGN_ARRAYS = 10
-MARGINAL_ARRAYS = 11
+MARGINAL_ARRAYS = 9
+# B2w's clusters: blocks of a lane (the cluster sizes every card takes)
+# and the homes of its class rows, and the registers a thread of each
+# instance may take (its __launch_bounds__: two blocks of 512 an SM with
+# its rows in device memory, one in shared memory)
+CLUSTERS = (1, 2, 4, 8)
+WEIGHT_HOMES = ("device", "shared")
+MARGINAL_REGISTERS = {"device": 64, "shared": 128}
+# B2w's class rows a warp takes at most where a launch's blocks would be
+# narrower: at 2,048 events of 64 isoforms, 100 x 6, blocks of a warp
+# take 64 classes in 10.59 ms, blocks of two 256 in 34.75 (B2w with its
+# rows in device memory for every launch: 13.52, 52.51; wide_times.py
+# --marginal on an H100)
+ROWS_A_WARP = 128
 # B1w walks every read, building no class table, where a launch's
 # classes are more than this share of its read slots (``walks``): for
 # rows of one chunk (I <= 128), and of more.  Timed on an H100 at 64,
@@ -98,6 +122,7 @@ SMS = 132
 SM_THREADS = 2048
 SM_BLOCKS = 32
 SM_SHARED = 233472
+SM_REGISTERS = 65536
 BLOCK_RESERVED = 1024
 SM_BUSY_WARPS = 16
 # Threads a launch keeps at most where it has the lanes for them.  A
@@ -113,8 +138,13 @@ KINDS = ("reassign", "marginal")
 class WidePlan(NamedTuple):
     """How one launch of a wide kernel is laid out."""
     threads: int       # a lane's block, a multiple of 32
-    shared_bytes: int  # the lane's arrays in shared memory; 0: in scratch
+    shared_bytes: int  # the dynamic shared memory a block asks for; 0:
+                       # the lane's arrays in scratch (B2w then asks for
+                       # its term buffers and shared rows alone)
     rows: int = 0      # B1w: class rows a table tile holds; B2w: 0
+    cluster: int = 1   # B2w: blocks of a lane, a thread-block cluster
+    weights: str = "device"   # B2w: where its class rows lie (B1w reads
+                              # device memory)
 
 
 def chunks(n: int) -> int:
@@ -125,14 +155,40 @@ def chunks(n: int) -> int:
 def lane_floats(kind: str, n: int, I: int, rows: int = 0) -> int:
     """A lane's floats: the head, the kernel's I-wide arrays (128
     chunks(I) each), for B1w the read scores of its n = R read slots and
-    a class table of ``rows`` rows (rounded up to whole 16 bytes), for
-    B2w its class terms (n = C, padded alike)."""
+    a class table of ``rows`` rows (rounded up to whole 16 bytes); for
+    B2w a block's (n = C; its class terms and rows apart:
+    ``marginal_bytes``)."""
     P = 128 * chunks(I)
     if kind == "reassign":
         # whole 16 bytes: the next lane's arrays in scratch follow
         return 4 * -(-(HEAD_FLOATS + REASSIGN_ARRAYS * P + n
                        + rows * (P + ROW_SCALARS)) // 4)
-    return HEAD_FLOATS + MARGINAL_ARRAYS * P + 128 * chunks(n)
+    return HEAD_FLOATS + MARGINAL_ARRAYS * P
+
+
+def weight_rows(C: int, cluster: int) -> int:
+    """B2w's class rows a block holds: its share of the lane's C."""
+    return -(-C // cluster)
+
+
+def marginal_bytes(C: int, I: int, cluster: int = 1,
+                   weights: str = "device", arrays: bool = True) -> int:
+    """B2w's dynamic shared memory a block: two term buffers (128
+    chunks(C) floats each), its ``weight_rows`` rows of 128 chunks(I)
+    where ``weights`` is "shared", and its lane floats where ``arrays``
+    lie in shared memory."""
+    P = 128 * chunks(I)
+    return 4 * (2 * 128 * chunks(C)
+                + (weight_rows(C, cluster) * P if weights == "shared" else 0)
+                + (lane_floats("marginal", C, I) if arrays else 0))
+
+
+def launch_bytes(plan: WidePlan, C: int, I: int) -> int:
+    """The dynamic shared memory B2w's ``plan`` launches with: its
+    ``shared_bytes``, or with its lane arrays in scratch (0) the term
+    buffers and shared rows alone."""
+    return plan.shared_bytes or marginal_bytes(C, I, plan.cluster,
+                                               plan.weights, arrays=False)
 
 
 def walks(R: int, C: Optional[int], I: int) -> bool:
@@ -155,6 +211,14 @@ def _rows_in(budget: int, R: int, I: int) -> int:
     if room >= 1 and 4 * lane_floats("reassign", R, I, room) > budget:
         room -= 1                       # the rounding to 16 bytes
     return room
+
+
+def resident(threads: int, shared_bytes: int, registers: int) -> int:
+    """Blocks of ``threads`` threads of ``registers`` and ``shared_bytes``
+    one SM holds at once."""
+    return min(SM_BLOCKS, SM_THREADS // threads,
+               SM_SHARED // (shared_bytes + BLOCK_RESERVED),
+               SM_REGISTERS // (threads * registers))
 
 
 def sm_blocks(threads: int, lanes: int) -> int:
@@ -202,14 +266,94 @@ def check_shape(kind: str, E: int, n: int, I: int, K: int,
 
 
 def _layout(kind: str, n: int, I: int, threads: int,
-            classes: Optional[int] = None, lanes: int = 1) -> WidePlan:
+            classes: Optional[int] = None, lanes: int = 1,
+            cluster: int = 1, weights: str = "device") -> WidePlan:
     rows = 0
     if kind == "reassign":
         rows = table_rows(n, I, classes, threads, lanes)
-    need = 4 * lane_floats(kind, n, I, rows)
+        need = 4 * lane_floats(kind, n, I, rows)
+    else:
+        need = marginal_bytes(n, I, cluster, weights)
     return WidePlan(threads=threads,
                     shared_bytes=need if need <= MAX_SHARED else 0,
-                    rows=rows)
+                    rows=rows, cluster=cluster, weights=weights)
+
+
+def _threads(blocks: int) -> int:
+    """The widest block whose ``blocks`` stay within ``CARD_THREADS``, 32
+    threads where none does."""
+    return max([t for t in WIDE_THREADS if blocks * t <= CARD_THREADS]
+               or [WIDE_THREADS[0]])
+
+
+def _fits(plan: WidePlan, C: int, I: int) -> bool:
+    """Whether B2w's plan asks no block for more shared memory than it
+    has."""
+    return launch_bytes(plan, C, I) <= MAX_SHARED
+
+
+def marginal_plan(E: int, C: int, I: int, K: int) -> WidePlan:
+    """B2w's launch for E events of (C, I) class weights and K chains.
+    Its class rows lie in shared memory for the launch where a block of
+    the smallest cluster (``CLUSTERS``) whose lanes x cluster blocks stay
+    within the card's ``SMS`` holds them, beside its lane arrays, and one
+    wave of the card holds every block (``resident``, at the instance's
+    ``MARGINAL_REGISTERS``); else in device memory, a lane then a cluster
+    of the largest such size (its blocks split the rows).  Its block by
+    ``_marginal_threads``.  Timed on an H100 (``wide_times.py``):
+    against B2w with its rows in device memory for every launch, over I =
+    64 ... 2,048, C = 64 and 256, E = 4, 64 and 2,048 (``--marginal``),
+    0.07-0.96 of its times; at 3 events,
+    blocks of 512, 1000 x 6 (``--plans``), rows in shared memory beat
+    device memory (I=512, C=64: 4.34 against 5.01 ms; I=2,048, C=64, a
+    cluster of 4: 6.39 against 9.09), a larger cluster of shared rows
+    gains under 1 % (I=512, C=64: 4.30, 4.29 ms in 2 and 4), and device
+    rows gain by their cluster (I=2,048, C=256: 38.54, 22.20, 14.49 ms in
+    1, 2 and 4 blocks)."""
+    lanes = E * K
+    allowed = [c for c in CLUSTERS if lanes * c <= SMS] or [1]
+    for c in allowed:
+        plan = _marginal_layout(lanes, C, I, c, "shared")
+        if plan.shared_bytes and lanes * c <= SMS * resident(
+                plan.threads, plan.shared_bytes,
+                MARGINAL_REGISTERS["shared"]):
+            return plan
+    return _marginal_layout(lanes, C, I, allowed[-1], "device")
+
+
+def _marginal_layout(lanes: int, C: int, I: int, cluster: int,
+                     weights: str) -> WidePlan:
+    """B2w's plan of ``cluster`` blocks a lane, its rows in ``weights``,
+    in the block of ``_marginal_threads``."""
+    plan = _layout("marginal", C, I, 32, lanes=lanes, cluster=cluster,
+                   weights=weights)
+    return plan._replace(threads=_marginal_threads(
+        lanes * cluster, C, cluster, launch_bytes(plan, C, I),
+        MARGINAL_REGISTERS[weights]))
+
+
+def _marginal_threads(blocks: int, C: int, cluster: int, shared_bytes: int,
+                      registers: int) -> int:
+    """B2w's block, in a launch of ``blocks`` blocks of ``shared_bytes``
+    and ``registers`` a thread: the one that keeps the most threads of an
+    SM busy in the launch's first wave (the blocks an SM holds, or if
+    fewer the launch's blocks an SM gets, times the block), the narrowest
+    of equals, and a warp for every ``ROWS_A_WARP`` of its class rows.
+    A launch of one wave takes the widest block.  At 2,048 events, 100 x
+    6 (``wide_times.py --marginal`` on an H100), of 2,048 isoforms and 64
+    classes, whose lane arrays leave an SM three blocks, blocks of 32,
+    128 and 512 threads took 765.69, 200.35 and 90.81 ms; of 512 and 64,
+    eleven blocks an SM, 58.85, 25.16 and 33.88 ms (128 the pick).  The
+    pick is not always the fastest: of 512 and 256, 97.71 ms in 128
+    threads, 86.75 in 512; of 128 and 256, 35.23 in 64, 32.50 in 128."""
+    share = -(-blocks // SMS)
+
+    def busy(t):
+        return min(resident(t, shared_bytes, registers), share) * t
+
+    best = max(WIDE_THREADS, key=lambda t: (busy(t), -t))
+    rows = weight_rows(C, cluster)
+    return min(max(best, 32 * -(-rows // ROWS_A_WARP)), WIDE_THREADS[-1])
 
 
 def wide_plan(kind: str, E: int, n: int, I: int, K: int,
@@ -219,21 +363,30 @@ def wide_plan(kind: str, E: int, n: int, I: int, K: int,
     C, None for read tiles, a read a class) and K chains: the widest
     block whose E * K lanes stay within ``CARD_THREADS``, 32 threads
     where none does; the lane's arrays in shared memory where they fit a
-    block, else in scratch; B1w's table rows by ``table_rows``."""
+    block, else in scratch; B1w's table rows by ``table_rows``; B2w's
+    plan by ``marginal_plan``."""
     check_shape(kind, E, n, I, K, classes)
-    threads = max([t for t in WIDE_THREADS if E * K * t <= CARD_THREADS]
-                  or [WIDE_THREADS[0]])
-    return _layout(kind, n, I, threads, classes, E * K)
+    if kind == "marginal":
+        return marginal_plan(E, n, I, K)
+    return _layout(kind, n, I, _threads(E * K), classes, E * K)
 
 
 def all_wide_plans(kind: str, E: int, n: int, I: int, K: int,
                    classes: Optional[int] = None):
-    """Every plan a wide kernel can be launched with at this shape, one
-    per block width: the checks run them all.  ``plan._replace(
-    shared_bytes=0)`` puts a plan's lane arrays in scratch, and
-    ``tiled(plan, R, I, rows)`` B1w's table in tiles of ``rows``."""
+    """Every plan a wide kernel can be launched with at this shape: the
+    checks run them all.  One per block width; for B2w one per block
+    width, cluster size and home of its rows where a block holds what the
+    plan puts in its shared memory.  ``plan._replace(shared_bytes=0)``
+    puts a plan's lane arrays in scratch, and ``tiled(plan, R, I, rows)``
+    B1w's table in tiles of ``rows``."""
     check_shape(kind, E, n, I, K, classes)
-    return [_layout(kind, n, I, t, classes, E * K) for t in WIDE_THREADS]
+    if kind == "reassign":
+        return [_layout(kind, n, I, t, classes, E * K)
+                for t in WIDE_THREADS]
+    plans = [_layout(kind, n, I, t, lanes=E * K, cluster=c, weights=home)
+             for t in WIDE_THREADS for c in CLUSTERS
+             for home in WEIGHT_HOMES]
+    return [p for p in plans if _fits(p, n, I)]
 
 
 def tiled(plan: WidePlan, R: int, I: int, rows: int) -> WidePlan:

@@ -4,6 +4,8 @@ one CUDA card: what ``wide.WIDE_FROM`` is chosen from.
     python3 miso_tpu_torch/sampler/wide_times.py [--tree DIR] [--reps N]
     python3 miso_tpu_torch/sampler/wide_times.py --plans [--reps N]
     python3 miso_tpu_torch/sampler/wide_times.py --mix [--reps N]
+    python3 miso_tpu_torch/sampler/wide_times.py --marginal [--tree DIR]
+    python3 miso_tpu_torch/sampler/wide_times.py --buckets [--tree DIR]
 
 ``--tree DIR`` imports ``miso_tpu_torch`` from DIR, another checkout of
 the repo (a tree whose narrow kernels B1 and B2 still have instances of
@@ -24,13 +26,29 @@ line is a JSON object of the best of ``--reps`` times in milliseconds
 per case.
 
 ``--plans`` times instead B1w and B2w in every block width of their
-plans (32 ... 512 threads a lane) at I = 16, 128, 512 and 2,048 (E = 4
-events, 1000 iterations x 6 chains): B1w at R = 16 and 416 reads
-(``lane_test_batch``, a class a read), B2w at C = 4 and 64 classes
-(``marginal_lane_batch``, E = 3): how a lane's step time splits between
-the Gibbs sweep over the reads and the rest; and, where the tree's B1w
-reads class tensors, B1w on the classes of four genes of 300 and of
-1,100 isoforms (I = 512 and 2,048).
+plans (32 ... 512 threads a lane; B2w also in every cluster size and
+home of its class rows, where the tree's B2w has them) at I = 16, 128,
+512 and 2,048 (E = 4 events, 1000 iterations x 6 chains): B1w at R = 16
+and 416 reads (``lane_test_batch``, a class a read), B2w at C = 4, 64
+and 256 classes (``marginal_lane_batch``, E = 3): how a lane's step time
+splits between the Gibbs sweep over the reads and the rest; and, where
+the tree's B1w reads class tensors, B1w on the classes of four genes of
+300 and of 1,100 isoforms (I = 512 and 2,048).
+
+``--marginal`` times B2w as the tree's wrapper launches it (its own
+plan) at I = 64, 128, 512 and 2,048 isoforms (60 % of them real), C =
+64 and 256 classes (single-end and paired-end class counts), on the two
+real events of ``marginal_lane_batch`` tiled to E = 4, 64 and 2,048
+events, at 1000 x 6 (100 x 6 at 2,048), after holding it against its
+plain version under fixed uniforms at E = 4; at 2,048 events also in
+every block width of its plan's layout: what ``wide.marginal_plan``
+rests on.  Run it on the parent's tree and on this one in one call
+(``--tree``), in turns.
+
+``--buckets`` times B2w through the tree's wrapper on ``chip_smoke.py``'s
+wide buckets, four genes of 300 and of 1,100 isoforms
+(``testing.wide_event``, seeds 3 ... 6; I = 512 and 2,048) at stock
+settings, 5000 iterations x 6 chains.
 
 ``--mix`` times B1w's two forms on class tensors of every class share:
 four events (``testing.wide_class_batch``) of R = 416 read slots spread
@@ -161,7 +179,7 @@ def plan_times(reps):
     for kind in ("reassign", "marginal"):
         cfg = SamplerConfig(algorithm=kind, **QUICK)
         for I in (16, 128, 512, 2048):
-            for n in ((16, 416) if kind == "reassign" else (4, 64)):
+            for n in ((16, 416) if kind == "reassign" else (4, 64, 256)):
                 num_iso = max(2, I * 6 // 10)
                 if kind == "reassign":
                     b = lane_test_batch(I, num_iso, 3, "cuda", E=4, R=n)
@@ -175,15 +193,111 @@ def plan_times(reps):
                     plans = mk.all_wide_plans(3, n, I, cfg.chains)
                 row = []
                 for plan in plans:
-                    label = "%s I=%d %s=%d threads=%d" % (
+                    label = "%s I=%d %s=%d %s" % (
                         kind, I, "R" if kind == "reassign" else "C", n,
-                        plan.threads)
+                        plan_tag(plan))
                     out[label] = timed(lambda: launch(
                         1, b, cfg, consts, None, False, plan=plan), reps)
-                    row.append("%d: %.2f" % (plan.threads, out[label]))
+                    row.append("%s: %.2f" % (plan_tag(plan), out[label]))
                 print("  %s I=%d %s=%d, %d x %d, ms by threads a lane: %s"
                       % (kind, I, "R" if kind == "reassign" else "C", n,
                          cfg.iters, cfg.chains, "  ".join(row)), flush=True)
+    return out
+
+
+def plan_tag(plan):
+    """A plan's block width and, where it has them, B2w's cluster and
+    the home of its class rows."""
+    tag = "threads=%d" % plan.threads
+    if getattr(plan, "cluster", None) is not None and plan.rows == 0:
+        tag += " cluster=%d rows=%s" % (plan.cluster, plan.weights)
+    return tag
+
+
+MARGINAL_WIDTHS = (64, 128, 512, 2048)
+MARGINAL_CLASSES = (64, 256)
+# (copies of the four events, schedule): E = 4, 64, 2,048 at every width
+MARGINAL_TILES = ((1, QUICK), (16, QUICK), (512, FULL_CARD))
+
+
+def marginal_times(reps):
+    """{case: ms} of B2w in the tree's own plan (``--marginal``)."""
+    import torch
+
+    from miso_tpu_torch.sampler import marginal_kernel as mk
+    from miso_tpu_torch.sampler import wide
+    from miso_tpu_torch.sampler.mcmc import EventBatch, SamplerConfig
+    from miso_tpu_torch.testing import marginal_lane_batch
+
+    out = {}
+    short = SamplerConfig(algorithm="marginal", **CHECK)
+    for I in MARGINAL_WIDTHS:
+        for C in MARGINAL_CLASSES:
+            two = marginal_lane_batch(I, I * 6 // 10, 3, "cuda", C=C)
+            pick = torch.tensor([0, 1, 0, 1], device=two.weights.device)
+            base = EventBatch(*[t.index_select(0, pick).contiguous()
+                                for t in two])
+            consts = mk._marginal_consts(base)
+            ref = mk._marginal_plain(0, base, short, consts, None,
+                                     mk.FIXED_U, wide_order=True)
+            check("marginal I=%d C=%d" % (I, C), mk._marginal_wide_cuda(
+                0, base, short, consts, None, True), ref)
+            for tiles, schedule in MARGINAL_TILES:
+                cfg = SamplerConfig(algorithm="marginal", **schedule)
+                b = EventBatch(*[t.repeat(tiles, *[1] * (t.dim() - 1))
+                                 .contiguous() for t in base])
+                E = b.weights.shape[0]
+                bc = mk._marginal_consts(b)
+                label = "marginal I=%d C=%d E=%d" % (I, C, E)
+                out[label] = timed(lambda: mk._marginal_wide_cuda(
+                    5, b, cfg, bc, None, False), reps)
+                plan = wide.wide_plan("marginal", E, C, I, cfg.chains)
+                print("  %-30s %d x %d  %9.2f ms  (plan %s)" % (
+                    label, cfg.iters, cfg.chains, out[label],
+                    plan_tag(plan)), flush=True)
+                if tiles == MARGINAL_TILES[-1][0] and hasattr(plan,
+                                                              "cluster"):
+                    out.update(width_times(b, cfg, bc, plan, label, reps))
+    return out
+
+
+def width_times(b, cfg, consts, plan, label, reps):
+    """{case: ms} of B2w in every block width of ``plan``'s layout (its
+    cluster, the home of its rows and of its lane arrays)."""
+    from miso_tpu_torch.sampler import marginal_kernel as mk
+
+    E, C, I = b.weights.shape
+    out, row = {}, []
+    for p in mk.all_wide_plans(E, C, I, cfg.chains):
+        if (p.cluster, p.weights, p.shared_bytes > 0) != (
+                plan.cluster, plan.weights, plan.shared_bytes > 0):
+            continue
+        key = "%s threads=%d" % (label, p.threads)
+        out[key] = timed(lambda: mk._marginal_wide_cuda(
+            5, b, cfg, consts, None, False, plan=p), reps)
+        row.append("%d: %.2f" % (p.threads, out[key]))
+    print("  %-30s by threads a lane: %s" % (label, "  ".join(row)),
+          flush=True)
+    return out
+
+
+def bucket_times(reps):
+    """{case: ms} of B2w at chip_smoke.py's wide buckets (``--buckets``)."""
+    from miso_tpu_torch.sampler import marginal_kernel as mk
+    from miso_tpu_torch.sampler.mcmc import SamplerConfig
+    from miso_tpu_torch.testing import padded_batch, wide_event
+
+    out = {}
+    stock = SamplerConfig(algorithm="marginal")
+    for gene_iso in (300, 1100):
+        b = padded_batch([wide_event("marginal", num_iso=gene_iso, seed=3 + j)
+                          for j in range(4)], "cuda")
+        label = "marginal 4 x %d isoforms I=%d C=%d" % (
+            gene_iso, b.weights.shape[2], b.weights.shape[1])
+        out[label] = timed(lambda: mk.run_batch_marginal(3, b, stock), reps)
+        print("  %-40s %d x %d  %9.2f ms" % (label, stock.iters,
+                                             stock.chains, out[label]),
+              flush=True)
     return out
 
 
@@ -276,6 +390,12 @@ def main(argv=None) -> int:
     ap.add_argument("--mix", action="store_true",
                     help="time B1w's table and walk (and B1 at 64 "
                     "isoforms) over class shares instead")
+    ap.add_argument("--marginal", action="store_true",
+                    help="time B2w in its own plan over widths, class "
+                    "counts and events instead")
+    ap.add_argument("--buckets", action="store_true",
+                    help="time B2w at chip_smoke.py's wide buckets at "
+                    "stock settings instead")
     args = ap.parse_args(argv)
     # this file's own directory is no place to import the package from
     sys.path[0] = os.path.abspath(args.tree or os.path.join(
@@ -305,6 +425,16 @@ def main(argv=None) -> int:
         return 0
     if args.mix:
         print(json.dumps({"card": card, "mix_ms": mix_times(args.reps)}))
+        return 0
+    if args.buckets:
+        print(json.dumps({"card": card, "tree": os.path.dirname(
+            miso_tpu_torch.__file__), "buckets_ms": bucket_times(
+                args.reps)}))
+        return 0
+    if args.marginal:
+        print(json.dumps({"card": card, "tree": os.path.dirname(
+            miso_tpu_torch.__file__), "marginal_ms": marginal_times(
+                args.reps)}))
         return 0
     wide_b1 = getattr(rk, "_reassign_wide_cuda", None)
     wide_b2 = getattr(mk, "_marginal_wide_cuda", None)

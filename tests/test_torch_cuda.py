@@ -394,6 +394,47 @@ def test_wide_kernel_matches_plain_in_every_plan(cuda, kind, I, num_iso,
         _assert_same_chain(got, ref)
 
 
+# B2w in every cluster size and home of its class rows (C = 5 classes,
+# some blocks of a cluster without rows), every block width, its lane
+# arrays in shared memory and in scratch, at 128, 512 and 2,048 isoforms
+B2W_CLUSTERS = [(I, num_iso, cluster, home)
+                for I, num_iso in ((128, 70), (512, 300), (2048, 1100))
+                for cluster in wide.CLUSTERS for home in wide.WEIGHT_HOMES]
+
+
+@pytest.mark.parametrize("I,num_iso,cluster,home", B2W_CLUSTERS)
+def test_marginal_wide_kernel_in_every_cluster_and_home(cuda, I, num_iso,
+                                                        cluster, home):
+    """Every plan of ``cluster`` blocks a lane with its rows in ``home``
+    draws the chain of a block a lane with its rows in device memory, to
+    the bit, and is the wide-order plain version within the tolerances,
+    from AUTO and GIVEN starts."""
+    cfg = SamplerConfig(iters=24, burn_in=6, lag=3, chains=2,
+                        algorithm="marginal")
+    batch, consts, plans, launch, plain = _wide_case("marginal", I,
+                                                     num_iso, cuda)
+    first = plans[0]
+    assert (first.cluster, first.weights) == (1, "device")
+    plans = [p for p in plans if (p.cluster, p.weights) == (cluster, home)]
+    plans += [p._replace(shared_bytes=0) for p in plans if p.shared_bytes]
+    E = batch.weights.shape[0]
+    sp = np.zeros((E, 2, I), np.float32)
+    sp[:2, :, :num_iso] = np.random.default_rng(9).dirichlet(
+        np.ones(num_iso), size=(2, 2))
+    for start in (None, torch.from_numpy(sp).to(cuda)):
+        ref = plain(0, batch, cfg, consts, start, rk.FIXED_U,
+                    wide_order=True)
+        want = launch(0, batch, cfg, consts, start, True,
+                      plan=first).to_numpy()
+        for plan in plans:
+            got = launch(0, batch, cfg, consts, start, True, plan=plan)
+            torch.cuda.synchronize()
+            for name, a, b in zip(want._fields, got.to_numpy(), want):
+                np.testing.assert_array_equal(a, b, err_msg="%s %s" % (
+                    name, plan))
+            _assert_same_chain(got, ref)
+
+
 @pytest.mark.parametrize("I,num_iso", [(64, 40), (128, 70), (384, 250),
                                        (512, 300), (2048, 1100)])
 def test_wide_kernel_reads_classes(cuda, I, num_iso):
@@ -428,7 +469,8 @@ def test_wide_kernel_reads_classes(cuda, I, num_iso):
 @pytest.mark.parametrize("kind", wide.KINDS)
 def test_wide_philox_chain_is_the_same_in_every_plan(cuda, kind):
     """One seed, one chain: every output bit-equal in every block width
-    and in scratch (every sum runs in one order whatever the block)."""
+    (B2w: every cluster size and home of its class rows) and in scratch
+    (every sum runs in one order whatever the block)."""
     cfg = SamplerConfig(iters=300, burn_in=50, lag=5, chains=3,
                         algorithm=kind)
     batch, consts, plans, launch, _ = _wide_case(kind, 128, 70, cuda)

@@ -4,6 +4,9 @@ on the CPU: the cases of tests/test_deep_events.py, the multinomial
 draws' own invariants, and the pipeline's routing of deep and wide
 buckets.
 """
+import contextlib
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -350,6 +353,41 @@ def test_a_kernel_that_fails_is_never_rerouted(monkeypatch, capsys):
             runner.abort()
         assert (dict(mk.LAUNCHES), dict(rk.LAUNCHES),
                 dict(deep.LAUNCHES)) == before
+    # a B2w plan the card refuses (here a cluster of 4 blocks with their
+    # class rows in shared memory) raises through the wrapper after one
+    # launch: no other plan, no cluster of 1, no plain version runs it
+    from miso_tpu_torch import kernels
+    from miso_tpu_torch.sampler import wide
+    from miso_tpu_torch.testing import marginal_lane_batch
+
+    calls = []
+
+    class Refusing:
+        def miso_marginal_wide(self, *args):
+            calls.append(args)
+            return 7          # the launch's error, as cudaLaunchKernelEx
+
+        def miso_cuda_error_string(self, rc):
+            return b"cluster out of resources"
+
+    monkeypatch.setattr(kernels, "load", Refusing)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    batch = marginal_lane_batch(512, 300, 3, "cpu", C=256)
+    plan = mk.wide_plan(3, 256, 512, 2)
+    assert (plan.cluster, plan.weights) == (4, "shared")
+    before = dict(mk.LAUNCHES)
+    with pytest.raises(RuntimeError, match="wide marginal kernel launch.*"
+                       "cluster out of resources"):
+        mk._marginal_wide_cuda(0, batch, SamplerConfig(
+            algorithm="marginal", iters=4, burn_in=0, lag=1, chains=2),
+            mk._marginal_consts(batch), None, True)
+    assert len(calls) == 1 and dict(mk.LAUNCHES) == before
+    # threads, cluster, rows shared, shared bytes: the plan's, as given
+    assert calls[0][-5:-1] == (plan.threads, 4, 1, wide.launch_bytes(
+        plan, 256, 512))
     # and a CUDA tensor has no route but the kernel, B1 / B2 or their wide
     # forms by width: the wrappers choose by the tensors' device alone
     import inspect

@@ -110,6 +110,14 @@ def clocks_library(shim_library, tmp_path_factory):
         ["MISO_B3_CLOCKS"]), shim_library)
 
 
+@pytest.fixture(scope="module")
+def b2w_clocks_library(shim_library, tmp_path_factory):
+    """B2w's step-breakdown build (-DMISO_B2W_CLOCKS) for the CPU."""
+    return kernels.bind_b2w_clocks(host_build(
+        tmp_path_factory.mktemp("b2w_clocks"), ["wide_kernel.cu"],
+        ["MISO_B2W_CLOCKS"]), shim_library)
+
+
 @pytest.fixture
 def on_cpu(shim_library, monkeypatch):
     """The wrappers' CUDA routes, launching the host build on CPU
@@ -120,6 +128,84 @@ def on_cpu(shim_library, monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: types.SimpleNamespace(cuda_stream=0))
     return shim_library
+
+
+# A cluster's blocks through the shim: each thread stores into the next
+# block's shared memory (map_shared_rank), the cluster barrier (sync, and
+# its two halves, arrive and wait), then reads what the block before
+# stored, round after round.
+CLUSTER_PROBE = r"""
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+namespace cg = cooperative_groups;
+
+__global__ void ring(int* out, int rounds, int halves) {
+  extern __shared__ __align__(16) float box[];
+  cg::cluster_group cl = cg::this_cluster();
+  const unsigned r = cl.block_rank(), n = cl.num_blocks();
+  for (int k = 0; k < rounds; ++k) {
+    cl.map_shared_rank(box, (r + 1) % n)[threadIdx.x] =
+        (float)(1000 * k + 100 * (int)r + (int)threadIdx.x);
+    if (halves) {
+      shim_cluster_arrive();
+      shim_cluster_wait();
+    } else {
+      cl.sync();
+    }
+    out[(blockIdx.x * rounds + k) * blockDim.x + threadIdx.x] =
+        (int)box[threadIdx.x] + 10000 * (int)n;
+    cl.sync();
+  }
+}
+
+extern "C" int run_ring(int* out, int blocks, int threads, int cluster,
+                        int rounds, int halves) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks, 1u, 1u);
+  cfg.blockDim = dim3((unsigned)threads, 1u, 1u);
+  cfg.dynamicSmemBytes = (size_t)threads * 4;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (cluster == 0) {  // no cluster dimension: clusters of one block
+    ring<<<blocks, threads, threads * 4>>>(out, rounds, halves);
+    return (int)cudaGetLastError();
+  }
+  return (int)cudaLaunchKernelEx(&cfg, ring, out, rounds, halves);
+}
+"""
+
+
+@pytest.mark.parametrize("cluster,halves", [(0, 0), (1, 0), (2, 0), (4, 0),
+                                            (4, 1), (8, 1)])
+def test_shim_runs_a_cluster_s_blocks_together(tmp_path, cluster, halves):
+    """The shim's clusters, which B2w's checks here rest on: a block
+    reads what the block before it in its cluster stored into its shared
+    memory before the cluster barrier, every round (a launch without a
+    cluster dimension: clusters of one block); a grid that clusters do
+    not tile is refused."""
+    src = tmp_path / "ring.cu"
+    src.write_text(CLUSTER_PROBE)
+    lib = host_build(tmp_path, [str(src)])
+    lib.run_ring.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5
+    blocks, threads, rounds = 2 * max(cluster, 1), 64, 3
+    out = np.zeros((blocks, rounds, threads), np.int32)
+    assert lib.run_ring(out.ctypes.data, blocks, threads, cluster, rounds,
+                        halves) == 0
+    b = np.arange(blocks)[:, None, None]
+    k = np.arange(rounds)[None, :, None]
+    t = np.arange(threads)[None, None, :]
+    n = max(cluster, 1)
+    before = (b % n - 1) % n
+    np.testing.assert_array_equal(out, 10000 * n + 1000 * k + 100 * before
+                                  + t)
+    if cluster > 1:
+        assert lib.run_ring(out.ctypes.data, blocks + 1, threads, cluster,
+                            rounds, halves) != 0
 
 
 @pytest.mark.parametrize("entry,source", [
@@ -394,9 +480,15 @@ def test_wide_source_matches_plain_in_every_plan(on_cpu, kind, I, num_iso,
     isoforms)."""
     cfg = SamplerConfig(algorithm=kind, **WIDE)
     batch, consts, plans, launch, plain = _wide_case(kind, I, num_iso)
-    plan = next(p for p in plans if p.threads == threads)
-    assert plan.shared_bytes == 4 * wide.lane_floats(
-        kind, 16 if kind == "reassign" else 5, I, plan.rows)
+    # B2w: a block a lane, its rows in device memory (the clusters and
+    # shared rows: test_marginal_wide_source_in_every_cluster_and_home)
+    plan = next(p for p in plans if p.threads == threads
+                and p.cluster == 1 and p.weights == "device")
+    if kind == "reassign":
+        assert plan.shared_bytes == 4 * wide.lane_floats(kind, 16, I,
+                                                         plan.rows)
+    else:
+        assert plan.shared_bytes == wide.marginal_bytes(5, I)
     if arrays == "scratch":
         plan = plan._replace(shared_bytes=0)
     E = batch.weights.shape[0]
@@ -418,6 +510,64 @@ def test_wide_source_matches_plain_in_every_plan(on_cpu, kind, I, num_iso,
             valid = (batch.read_w.sum(-1) > 0).sum(-1, keepdim=True)
             np.testing.assert_array_equal(
                 got.final_n.sum(-1).numpy(), valid.expand(E, 2).numpy())
+
+
+# B2w in every cluster size and home of its class rows (C = 5 classes:
+# at a cluster of 4 the last block holds none), with its lane arrays in
+# shared memory and in scratch, at 128 isoforms in every block width
+# (one warp, two, four and more: the warps that draw ahead and sum the
+# quadratics; a cluster of 4 to four warps), at 512 in the narrowest and
+# the widest; a cluster of 8 (three blocks without rows) at 128.  The
+# shim runs a cluster's threads one after another, so the schedule is
+# short: six steps, three records.
+CLUSTER_SHORT = dict(iters=6, burn_in=1, lag=2, chains=2)
+CLUSTER_WIDTHS = {(128, 1): wide.WIDE_THREADS, (128, 2): wide.WIDE_THREADS,
+                  (128, 4): (32, 64, 128), (128, 8): (32, 128),
+                  (512, 1): (32, 512), (512, 2): (32, 512),
+                  (512, 4): (32, 512)}
+B2W_CLUSTER_PLANS = [(I, num_iso, cluster, home, arrays)
+                     for I, num_iso in ((128, 70), (512, 300))
+                     for cluster in (1, 2, 4)
+                     for home in wide.WEIGHT_HOMES
+                     for arrays in ("shared", "scratch")] + [
+    (128, 70, 8, "shared", "shared")]
+
+
+@pytest.mark.parametrize("I,num_iso,cluster,home,arrays", B2W_CLUSTER_PLANS)
+def test_marginal_wide_source_in_every_cluster_and_home(
+        on_cpu, I, num_iso, cluster, home, arrays):
+    """B2w is the wide-order plain version to the bit under fixed
+    uniforms in the block widths of a plan of ``cluster`` blocks a lane
+    with its class rows in ``home`` (shared memory: every block its
+    share, once for the launch) and its lane arrays in shared memory or
+    scratch, from the AUTO start (and at 128 isoforms, arrays in shared
+    memory, a GIVEN one: its logf's last bits differ from torch's from
+    ~200 isoforms on, ROADMAP C.6)."""
+    cfg = SamplerConfig(algorithm="marginal", **CLUSTER_SHORT)
+    batch, consts, _, launch, plain = _wide_case("marginal", I, num_iso)
+    plans = [p for p in mk.all_wide_plans(3, 5, I, 2)
+             if p.cluster == cluster and p.weights == home]
+    assert [p.threads for p in plans] == list(wide.WIDE_THREADS)
+    for p in plans:
+        assert p.shared_bytes == wide.marginal_bytes(5, I, cluster, home)
+    plans = [p for p in plans if p.threads in CLUSTER_WIDTHS[I, cluster]]
+    if arrays == "scratch":
+        plans = [p._replace(shared_bytes=0) for p in plans]
+    E = batch.weights.shape[0]
+    starts = [None]
+    if I == 128 and cluster <= 2 and arrays == "shared":
+        starts.append(torch.cat([_start(num_iso, 2, 2, I),
+                                 torch.zeros((E - 2, 2, I))]))
+    for given in starts:
+        ref = plain(0, batch, cfg, consts, given, rk.FIXED_U,
+                    wide_order=True)
+        for plan in plans:
+            got = launch(0, batch, cfg, consts, given, True, plan=plan)
+            if given is None:
+                _assert_bit_equal(got, ref)
+            # from a GIVEN start the host's logf and torch's log may
+            # differ in the last bit; on the card they agree
+            _assert_same_chain(got, ref)
 
 
 def _assert_bit_equal(got, ref):
@@ -526,11 +676,21 @@ def test_wide_source_draws_one_philox_chain_from_classes_and_tiles(
 @pytest.mark.parametrize("kind", wide.KINDS)
 def test_wide_source_draws_one_philox_chain_in_every_plan(on_cpu, kind):
     """One seed, one chain: every output bit-equal in every block width
-    and in scratch, the log-likelihood too (every sum runs in one order
+    and in scratch, and for B2w in every cluster size and home of its
+    class rows (a cluster's blocks draw their share of the normals into
+    every block), the log-likelihood too (every sum runs in one order
     whatever the block); another seed, another chain."""
     cfg = SamplerConfig(algorithm=kind, iters=20, burn_in=5, lag=5,
                         chains=2)
     batch, consts, plans, launch, _ = _wide_case(kind, 128, 70)
+    if kind == "marginal":
+        # B2w: every block width a block a lane, rows in device memory;
+        # every cluster size and home of the rows at 64 threads
+        plans = [p for p in plans if p.cluster == 1 and p.weights == "device"
+                 ] + [p for p in plans if p.threads == 64 and (
+                     p.cluster, p.weights) != (1, "device")]
+        assert len(plans) == len(wide.WIDE_THREADS) + 2 * len(
+            wide.CLUSTERS) - 1
     first = None
     for plan in plans + [plans[0]._replace(shared_bytes=0)]:
         got = launch(17, batch, cfg, consts, None, False,
@@ -577,15 +737,28 @@ LAUNCHES_OF = {"reassign": rk.LAUNCHES, "marginal": mk.LAUNCHES}
 def test_wide_launcher_refuses_a_plan_it_cannot_lay_out(on_cpu, kind,
                                                         change):
     """A block of whole warps up to 512 threads, and the lane's arrays in
-    shared memory of exactly their size: anything else is refused, not
-    run, and not counted."""
+    shared memory of exactly their size (B2w: a cluster of 1, 2, 4 or 8
+    blocks, and shared memory of exactly its layout for the plan's home
+    of the rows): anything else is refused, not run, and not counted."""
     cfg = SamplerConfig(algorithm=kind, **WIDE)
     batch, consts, plans, launch, _ = _wide_case(kind, 128, 70)
-    bad = plans[0]._replace(**change)
+    bads = [plans[0]._replace(**change)]
+    if kind == "marginal":
+        bads += [plans[0]._replace(**change, cluster=c) for c in (0, 3, 16)]
+        bads.append(plans[0]._replace(**change, weights="shared"))
     launches = dict(LAUNCHES_OF[kind])
-    with pytest.raises(RuntimeError, match="wide %s kernel launch" % kind):
-        launch(0, batch, cfg, consts, None, True, plan=bad)
+    for bad in bads:
+        with pytest.raises(RuntimeError,
+                           match="wide %s kernel launch" % kind):
+            launch(0, batch, cfg, consts, None, True, plan=bad)
     assert LAUNCHES_OF[kind] == launches
+    if kind == "marginal":
+        # a cluster the launcher takes, with the bytes of another home
+        for c in (1, 3):
+            plan = plans[0]._replace(cluster=c, weights="shared")
+            with pytest.raises(RuntimeError, match="wide marginal kernel"):
+                launch(0, batch, cfg, consts, None, True, plan=plan)
+        assert LAUNCHES_OF[kind] == launches
 
 
 @pytest.mark.parametrize("kind", wide.KINDS)
@@ -593,8 +766,10 @@ def test_wide_launcher_refuses_a_launch_without_its_arrays(on_cpu, kind):
     """The lane arrays lie in shared memory or in scratch, never both and
     never neither: a launch with scratch and shared memory, or with
     neither, or asking for more shared memory than a block has, is
-    refused, and so is a B1w table of no rows; the source's size of a
-    lane's arrays is wide.lane_floats's."""
+    refused, and so is a B1w table of no rows; B2w's shared memory is its
+    layout's to the byte (term buffers, shared rows, lane arrays), its
+    cluster 1, 2, 4 or 8 blocks and its rows' home 0 or 1; the source's
+    size of a lane's arrays is wide.lane_floats's."""
     n = 16 if kind == "reassign" else 5
     batch, _, plans, _, _ = _wide_case(kind, 128, 70)
     rows = plans[0].rows
@@ -606,14 +781,27 @@ def test_wide_launcher_refuses_a_launch_without_its_arrays(on_cpu, kind):
     assert wide.all_wide_plans(kind, 2, n, 8192, 2)[0].shared_bytes == 0
     E, I = batch.weights.shape[0], 128
     need = plans[0].shared_bytes
-    scratch = torch.empty(E * 2 * wide.lane_floats(kind, n, I, rows))
+    scratch = torch.empty(E * 2 * 8 * wide.lane_floats(kind, n, I, rows))
     out = [torch.empty(m) for m in (E * I, E, E * 2, E * 2 * I, E * 2 * I)]
     consts = (rk._event_consts(batch) if kind == "reassign"
               else mk._marginal_consts(batch))
-    cases = [(scratch, need, rows), (None, 0, rows), (None, need - 4, rows),
-             (None, 4 * wide.lane_floats(kind, n, 8192, rows), rows)]
+    # (scratch, shared bytes, B1w's rows or B2w's (cluster, rows shared))
     if kind == "reassign":
-        cases.append((None, 4 * wide.lane_floats(kind, n, I, 0), 0))
+        cases = [(scratch, need, rows), (None, 0, rows),
+                 (None, need - 4, rows),
+                 (None, 4 * wide.lane_floats(kind, n, 8192, rows), rows),
+                 (None, 4 * wide.lane_floats(kind, n, I, 0), 0)]
+    else:
+        assert need == wide.marginal_bytes(n, I)
+        terms = wide.marginal_bytes(n, I, arrays=False)
+        shared = wide.marginal_bytes(n, I, 2, "shared")
+        cases = [(scratch, need, (1, 0)), (None, 0, (1, 0)),
+                 (None, need - 4, (1, 0)), (scratch, 0, (1, 0)),
+                 (None, wide.marginal_bytes(n, 8192), (1, 0)),
+                 (None, need, (3, 0)), (None, need, (16, 0)),
+                 (None, need, (0, 0)), (None, need, (1, 2)),
+                 (None, need, (2, 1)), (None, shared, (1, 1)),
+                 (scratch, terms, (1, 1))]
     for arrays, shared, r in cases:
         ptr = None if arrays is None else arrays.data_ptr()
         if kind == "reassign":
@@ -631,8 +819,21 @@ def test_wide_launcher_refuses_a_launch_without_its_arrays(on_cpu, kind):
                 batch.num_iso.data_ptr(), consts[0].data_ptr(),
                 consts[1].data_ptr(), None, *[t.data_ptr() for t in out[:3]],
                 out[4].data_ptr(), ptr, E, 5, I, 2, 4, 0, 1, 1, 0, 0, 1, 32,
-                shared, None)
+                *r, shared, None)
         assert rc != 0, (arrays is not None, shared, r)
+    if kind == "marginal":
+        # and the layouts it does take: the same calls, laid out right
+        out = [torch.empty(m) for m in (E * 2 * I, E * 2, E * 2, E * 2 * I)]
+        for arrays, shared, r in [(None, need, (1, 0)), (scratch, terms, (1, 0)),
+                                  (None, wide.marginal_bytes(n, I, 2, "shared"),
+                                   (2, 1))]:
+            rc = on_cpu.miso_marginal_wide(
+                batch.weights.data_ptr(), batch.counts.data_ptr(),
+                batch.num_iso.data_ptr(), consts[0].data_ptr(),
+                consts[1].data_ptr(), None, *[t.data_ptr() for t in out],
+                None if arrays is None else arrays.data_ptr(),
+                E, 5, I, 2, 4, 0, 1, 1, 0, 0, 1, 32, *r, shared, None)
+            assert rc == 0, (arrays is not None, shared, r)
 
 
 # ------------------------------------------------ the multinomial kernel B3
@@ -902,3 +1103,47 @@ def test_multinomial_step_breakdown_build_draws_the_same_chain(
     # the read clears them
     assert clocks_library.miso_multinomial_clocks(sums.ctypes.data) == 0
     assert not sums.any()
+
+
+def test_marginal_wide_step_breakdown_build_draws_the_same_chain(
+        on_cpu, b2w_clocks_library, monkeypatch):
+    """B2w's step-breakdown build (-DMISO_B2W_CLOCKS) changes no draw:
+    its chain is the production build's, bit for bit, in a plan of one
+    block a lane and in one of a cluster; its sums count every step of
+    every lane once and stamp every phase that lies on the lane's first
+    thread's chain."""
+    batch, consts, plans, _, _ = _wide_case("marginal", 128, 70)
+    E = batch.weights.shape[0]
+    cfg = SamplerConfig(algorithm="marginal", iters=21, burn_in=5, lag=4,
+                        chains=2)
+    slots = kernels.source_enum("B2wClock", "wide_kernel.cu")
+    sums = np.zeros(len(slots), np.uint64)
+    assert b2w_clocks_library.miso_marginal_wide_clocks(
+        sums.ctypes.data) == 0
+    for plan in _b2w_clock_plans(plans):
+        want = mk._marginal_wide_cuda(17, batch, cfg, consts, None, False,
+                                      plan=plan)
+        with monkeypatch.context() as m:
+            m.setattr(kernels, "load", lambda: b2w_clocks_library)
+            got = mk._marginal_wide_cuda(17, batch, cfg, consts, None,
+                                         False, plan=plan)
+        _assert_bit_equal(got, want)
+        assert b2w_clocks_library.miso_marginal_wide_clocks(
+            sums.ctypes.data) == 0
+        v = dict(zip(slots, sums.tolist()))
+        assert v["kB2Steps"] == E * cfg.chains * cfg.iters, plan
+        for name in ("kB2Exp", "kB2PsiSums", "kB2DivLog", "kB2Terms",
+                     "kB2Quad", "kB2Sums", "kB2MH", "kB2Wait", "kB2Rows"):
+            assert v[name] > 0, (name, plan)
+    # the read clears them
+    assert b2w_clocks_library.miso_marginal_wide_clocks(
+        sums.ctypes.data) == 0
+    assert not sums.any()
+
+
+def _b2w_clock_plans(plans):
+    """The plans the breakdown build is held in: the first block width,
+    and a cluster of two where the plan has clusters."""
+    out = [plans[0]]
+    out += [p for p in plans if p.cluster == 2][:1]
+    return out

@@ -284,11 +284,16 @@ def test_wide_plan_constants_equal_the_kernel_source():
                                4096, 8192, 16384])
 def test_a_wide_plan_exists_for_every_width(kind, I):
     """A block of 32 ... 512 threads, as wide as ``CARD_THREADS`` allows
-    over the launch's lanes; the lane's arrays in shared memory where
-    they fit, else in scratch; B1w's class table of a row per class with
-    reads where it fits beside them and leaves an SM the blocks the
-    launch gives it, else as many rows as do (four at least, as many as
-    fit a block at most), else (scratch) ``SCRATCH_ROWS``."""
+    over the launch's blocks (B2w: the block that keeps the most threads
+    of an SM busy in the first wave, the narrowest of equals, and a warp
+    for every ``ROWS_A_WARP`` class rows); the lane's arrays in shared memory where they fit, else
+    in scratch; B1w's class table of a row per class with reads where it
+    fits beside them and leaves an SM the blocks the launch gives it,
+    else as many rows as do (four at least, as many as fit a block at
+    most), else (scratch) ``SCRATCH_ROWS``; B2w's class rows in shared
+    memory in the smallest cluster of ``lanes x cluster <= SMS`` blocks
+    whose block holds them beside its arrays and whose blocks one wave
+    of the card holds, else in device memory in the largest."""
     plan_of = rk.wide_plan if kind == "reassign" else mk.wide_plan
     for E in (1, 4, 64, 2048):
         for K in (1, 6):
@@ -296,15 +301,16 @@ def test_a_wide_plan_exists_for_every_width(kind, I):
                 plan = plan_of(E, n, I, K)
                 assert plan in wide.all_wide_plans(kind, E, n, I, K)
                 assert plan.threads in wide.WIDE_THREADS
+                blocks = E * K * plan.cluster
                 fits = [t for t in wide.WIDE_THREADS
-                        if E * K * t <= wide.CARD_THREADS]
+                        if blocks * t <= wide.CARD_THREADS]
+                if kind == "marginal":
+                    _check_marginal_plan(plan, E * K, n, I)
+                    continue
                 assert plan.threads == max(fits or [32])
                 need = 4 * wide.lane_floats(kind, n, I, plan.rows)
                 assert plan.shared_bytes == (need if need <= wide.MAX_SHARED
                                              else 0)
-                if kind == "marginal":
-                    assert plan.rows == 0
-                    continue
                 assert plan.rows == 1          # read tiles walk
                 for C in (1, 7, 64, n):
                     plan = plan_of(E, n, I, K, classes=C)
@@ -332,6 +338,49 @@ def test_a_wide_plan_exists_for_every_width(kind, I):
                     else:
                         assert plan.rows == min(most, wide.SCRATCH_ROWS)
                         assert plan.shared_bytes == 0
+
+
+def _marginal_threads(lanes, C, I, cluster, weights):
+    """B2w's block by its rule, written out: the threads of an SM busy in
+    the first wave (blocks it holds, or the launch's blocks it gets if
+    fewer, times the block) at their most, the narrowest of equals; a
+    warp for every ROWS_A_WARP rows."""
+    need = wide.marginal_bytes(C, I, cluster, weights)
+    if need > wide.MAX_SHARED:
+        need = wide.marginal_bytes(C, I, cluster, weights, arrays=False)
+    regs = wide.MARGINAL_REGISTERS[weights]
+    share = -(-lanes * cluster // wide.SMS)
+    busy = {t: min(wide.resident(t, need, regs), share) * t
+            for t in wide.WIDE_THREADS}
+    most = max(busy.values())
+    best = min(t for t in wide.WIDE_THREADS if busy[t] == most)
+    return min(max(best, 32 * -(-wide.weight_rows(C, cluster)
+                                // wide.ROWS_A_WARP)), 512)
+
+
+def _check_marginal_plan(plan, lanes, C, I):
+    """B2w's plan against its rule (see test_a_wide_plan_exists_for_
+    every_width)."""
+    assert plan.rows == 0
+    assert plan.threads == _marginal_threads(lanes, C, I, plan.cluster,
+                                             plan.weights)
+    need = wide.marginal_bytes(C, I, plan.cluster, plan.weights)
+    assert plan.shared_bytes == (need if need <= wide.MAX_SHARED else 0)
+    allowed = [c for c in wide.CLUSTERS if lanes * c <= wide.SMS] or [1]
+    assert plan.cluster in allowed
+
+    def shared_fits(c):
+        t = _marginal_threads(lanes, C, I, c, "shared")
+        b = wide.marginal_bytes(C, I, c, "shared")
+        return b <= wide.MAX_SHARED and lanes * c <= wide.SMS * wide.resident(
+            t, b, wide.MARGINAL_REGISTERS["shared"])
+
+    if plan.weights == "shared":
+        assert shared_fits(plan.cluster)
+        assert not any(shared_fits(c) for c in allowed if c < plan.cluster)
+    else:
+        assert plan.cluster == allowed[-1]
+        assert not any(shared_fits(c) for c in allowed)
 
 
 def test_wide_plan_examples():
@@ -364,8 +413,22 @@ def test_wide_plan_examples():
     assert [rk.wide_plan(E, 512, 128, 6).threads
             for E in (64, 128, 1024, 2048)] == [512, 256, 32, 32]
     assert rk.wide_plan(4, 512, 2048, 6).threads == 512
-    assert mk.wide_plan(4, 64, 2048, 6).shared_bytes == 4 * (
-        64 + 11 * 2048 + 128)
+    # B2w: at 4 genes of 300 isoforms the rows fit one block, at 1,100 a
+    # cluster of 4 blocks (16 rows each); at 64 events they stay in device
+    # memory (one block an SM would take three waves)
+    assert mk.wide_plan(4, 64, 512, 6) == wide.WidePlan(
+        512, 4 * (2 * 128 + 64 * 512 + 64 + 9 * 512), 0, 1, "shared")
+    assert mk.wide_plan(4, 64, 2048, 6) == wide.WidePlan(
+        512, 4 * (2 * 128 + 16 * 2048 + 64 + 9 * 2048), 0, 4, "shared")
+    assert mk.wide_plan(4, 256, 512, 6)[3:] == (4, "shared")
+    assert mk.wide_plan(4, 256, 2048, 6)[3:] == (4, "device")
+    assert mk.wide_plan(64, 64, 512, 6)[3:] == (1, "device")
+    assert [mk.wide_plan(2048, C, 64, 6).threads for C in (64, 256)] == [
+        32, 64]
+    # 2,048 events of 512 and 2,048 isoforms: lane arrays that leave an SM
+    # 11 and 3 blocks take blocks of 4 and 16 warps
+    assert [mk.wide_plan(2048, 64, I, 6).threads for I in (512, 2048)] == [
+        128, 512]
     assert rk.wide_plan(2048, 512, 128, 6).threads == 32
     assert rk.wide_plan(4, 64, 5248, 2).shared_bytes > 0
     assert rk.wide_plan(4, 64, 5249, 2) == wide.WidePlan(512, 0, 1)
@@ -390,9 +453,9 @@ def _f32(x):
 
 
 def _kernel_slot_sum(x):
-    """slot_sums of csrc/wide_kernel.cu, transcribed: lane l adds the
-    float4 of isoforms 128 c + 4 l ... + 3 for c = 0, 1, ... from 0,
-    then v += shfl_xor(v, o) for o = 16 ... 1, in float32."""
+    """warp_sum of csrc/wide_kernel.cu (a row of slot_sums), transcribed:
+    lane l adds the float4 of isoforms 128 c + 4 l ... + 3 for c = 0, 1,
+    ... from 0, then v += shfl_xor(v, o) for o = 16 ... 1, in float32."""
     import numpy as np
     n = len(x)
     v = [np.float32(0)] * 32
@@ -697,6 +760,38 @@ def test_a_launch_with_no_steps_is_bound_by_bytes():
     b = rk.reassign_bound(2048, 16384, 2, 1, 0, 0)
     assert b["bound_by"] == "bytes"
     assert b["bound_ms"] == b["bytes_ms"] > b["ops_ms"]
+
+
+def test_marginal_wide_floor_is_a_chain_of_steps():
+    """B2w's dependent-chain floor: its steps' chain from the measured
+    latencies, to the clock at the wide buckets' shapes; it grows with the
+    steps, the isoforms' chunks (its four sums over them) and the classes'
+    chunks, and a cluster's barrier in place of a block's."""
+    dep, sh = deep.DEP_CLOCKS, deep.SHUFFLE_CLOCKS
+
+    def chunk_sum(n):
+        return 16 * -(-n // 128) + 5 * (sh + dep)
+
+    step = (2 * dep + deep.EXPF_CLOCKS + chunk_sum(512) + dep
+            + deep.DIVF_CLOCKS + chunk_sum(512) + 2 * dep
+            + deep.LOGF_CLOCKS + 3 * dep + chunk_sum(512) + 44.7
+            + chunk_sum(64) + 10 * dep + 5 * 44.7)
+    assert deep.marginal_wide_floor(64, 512, 512, 1, 5000) == pytest.approx(
+        1e3 * 5001 * step / deep.SM_CLOCK_HZ)
+    base = deep.marginal_wide_floor(64, 512, 512, 1, 5000)
+    assert 3.0 < base < 6.0
+    assert deep.marginal_wide_floor(64, 512, 512, 1, 10001) == \
+        pytest.approx(2 * base)
+    assert deep.marginal_wide_floor(64, 2048, 512, 1, 5000) > base
+    assert deep.marginal_wide_floor(256, 512, 512, 1, 5000) > base
+    assert deep.marginal_wide_floor(64, 512, 32, 1, 5000) < base
+    assert deep.marginal_wide_floor(64, 512, 512, 4, 5000) == pytest.approx(
+        base + 1e3 * 5001 * (1324.0 - 44.7) / deep.SM_CLOCK_HZ)
+    assert 8.0 < deep.marginal_wide_floor(64, 2048, 512, 4, 5000) < 12.0
+    # a run's own probes in the constants' place
+    assert deep.marginal_wide_floor(64, 512, 512, 1, 5000, clocks={
+        "Logf": deep.LOGF_CLOCKS + 100}) == pytest.approx(
+            base + 1e3 * 5001 * 100 / deep.SM_CLOCK_HZ)
 
 
 def test_marginal_bound_arithmetic():
