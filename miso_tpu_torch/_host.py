@@ -9,7 +9,8 @@ _write_events_batch (:810-873), _pack_events_batch (:876-904),
 write_event_results (:907-924) and _CompileStream (:927-1302).  Their home imports jax at module level
 (pipeline.py:42), so they live here and not in a file of the same name.
 tests/test_torch_pipeline.py checks that each copy still equals its
-original.
+original, ``_CompileStream`` once its trace sites (``tracer``, the
+``with self.tracer.span(...)`` lines) are taken out.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from miso_tpu_torch import trace
 from miso_tpu_torch.core.events import (CompiledEvent, compile_paired_end,
                                         compile_paired_end_many,
                                         compile_single_end,
@@ -298,7 +300,10 @@ class _CompileStream:
     """
 
     def __init__(self, items, alignments, cfg: RunConfig, output_dir: str,
-                 verbose: bool, emit, workers: int = 1, done=None):
+                 verbose: bool, emit, workers: int = 1, done=None,
+                 tracer: trace.Tracer = trace.OFF):
+        # the job's tracer: the compile's spans (trace.py)
+        self.tracer = tracer
         self.items = items
         self.alignments = alignments
         self.cfg = cfg
@@ -347,13 +352,14 @@ class _CompileStream:
 
     # ------------------------------------------------------- chrom scans
     def _scan_raw(self, chrom, strand):
-        try:
-            return getattr(self.alignments, self.scan_method)(
-                chrom, given_read_len=self.cfg.filter_read_len,
-                strand_rule=self.cfg.strand_rule,
-                target_strand=None if self.strandless else strand)
-        except KeyError:
-            return KeyError  # sentinel: chrom absent from the BAM
+        with self.tracer.span("compile.scan", chrom=chrom):
+            try:
+                return getattr(self.alignments, self.scan_method)(
+                    chrom, given_read_len=self.cfg.filter_read_len,
+                    strand_rule=self.cfg.strand_rule,
+                    target_strand=None if self.strandless else strand)
+            except KeyError:
+                return KeyError  # sentinel: chrom absent from the BAM
 
     def chrom_scan(self, chrom, strand):
         if not hasattr(self.alignments, self.scan_method):
@@ -378,7 +384,8 @@ class _CompileStream:
                     and (nxt, None) not in self.scan_cache):
                 self.scan_futures[(nxt, None)] = self.prefetcher.submit(
                     self._scan_raw, nxt, None)
-        scan = fut.result()
+        with self.tracer.span("compile.scan_wait", chrom=chrom):
+            scan = fut.result()
         with self.scan_lock:
             self.scan_cache[key] = scan
             while len(self.scan_cache) > 4:
@@ -481,15 +488,16 @@ class _CompileStream:
         unpickle per chromosome when the index has it (io/index.py),
         per-gene pickles otherwise."""
         from miso_tpu_torch.io.index import load_chrom_batch
-        batch = load_chrom_batch(d)
-        out = []
-        for gene_id, fname in group:
-            entry = None
-            if batch is not None:
-                entry = batch.get(gene_id)
-            if entry is None:
-                entry = load_indexed_gene(fname)[gene_id]
-            out.append((gene_id, entry))
+        with self.tracer.span("compile.load", genes=len(group)):
+            batch = load_chrom_batch(d)
+            out = []
+            for gene_id, fname in group:
+                entry = None
+                if batch is not None:
+                    entry = batch.get(gene_id)
+                if entry is None:
+                    entry = load_indexed_gene(fname)[gene_id]
+                out.append((gene_id, entry))
         return out
 
     def _run_group(self, d: str, group, entries=None) -> None:
@@ -562,15 +570,16 @@ class _CompileStream:
                 if tables is not None and all(
                         gid in trow for _, _, gid in sub):
                     rows = [trow[gid] for _, _, gid in sub]
-                evs = compile_paired_end_many(
-                    [g for g, _, _ in sub], [nm for _, nm, _ in sub],
-                    scan, read_len=cfg.read_len,
-                    mean_frag_len=cfg.mean_frag_len,
-                    frag_variance=cfg.frag_variance,
-                    num_sds=cfg.num_sds, overhang=cfg.overhang_len,
-                    min_event_reads=cfg.min_event_reads,
-                    tables=tables if rows is not None else None,
-                    rows=rows)
+                with self.tracer.span("compile.match", genes=len(sub)):
+                    evs = compile_paired_end_many(
+                        [g for g, _, _ in sub], [nm for _, nm, _ in sub],
+                        scan, read_len=cfg.read_len,
+                        mean_frag_len=cfg.mean_frag_len,
+                        frag_variance=cfg.frag_variance,
+                        num_sds=cfg.num_sds, overhang=cfg.overhang_len,
+                        min_event_reads=cfg.min_event_reads,
+                        tables=tables if rows is not None else None,
+                        rows=rows)
                 if evs is not None:
                     for ev in evs:
                         if ev is None:
@@ -611,14 +620,15 @@ class _CompileStream:
                     if tables is not None and all(
                             gid in trow for _, _, gid in sub):
                         rows = [trow[gid] for _, _, gid in sub]
-                    evs = compile_single_end_many(
-                        [g for g, _, _ in sub], [n for _, n, _ in sub],
-                        scan, read_len=cfg.read_len,
-                        overhang=cfg.overhang_len,
-                        algorithm=cfg.algorithm,
-                        min_event_reads=cfg.min_event_reads,
-                        tables=tables if rows is not None else None,
-                        rows=rows)
+                    with self.tracer.span("compile.match", genes=len(sub)):
+                        evs = compile_single_end_many(
+                            [g for g, _, _ in sub], [n for _, n, _ in sub],
+                            scan, read_len=cfg.read_len,
+                            overhang=cfg.overhang_len,
+                            algorithm=cfg.algorithm,
+                            min_event_reads=cfg.min_event_reads,
+                            tables=tables if rows is not None else None,
+                            rows=rows)
                     if evs is not None:
                         for ev in evs:
                             if ev is None:
@@ -630,33 +640,34 @@ class _CompileStream:
                     rest.extend(sub)
             todo = rest
 
-        if self.workers > 1 and len(todo) > 16:
-            from concurrent.futures import ThreadPoolExecutor
-            with ThreadPoolExecutor(max_workers=self.workers) as pool:
-                # bounded windows, not one map over the whole group:
-                # Executor.map submits everything eagerly, so a whole
-                # chromosome's CompiledEvents would buffer in futures
-                # and defeat the consumer queue's backpressure.  map
-                # preserves order within each window, so emitted event
-                # order (and with it PRNG chunk keys) stays
-                # deterministic.
-                window = self.workers * 8
-                for lo in range(0, len(todo), window):
-                    if self.stop:
-                        return
-                    for ev in pool.map(
-                            lambda t: self.compile_one(t[0], t[1]),
-                            todo[lo:lo + window]):
-                        if ev is None:
-                            self.skipped += 1
-                        else:
-                            self.emit(ev)
-            return
-        for gene, name, _gid in todo:
-            if self.stop:
+        with self.tracer.span("compile.fallback", genes=len(todo)):
+            if self.workers > 1 and len(todo) > 16:
+                from concurrent.futures import ThreadPoolExecutor
+                with ThreadPoolExecutor(max_workers=self.workers) as pool:
+                    # bounded windows, not one map over the whole group:
+                    # Executor.map submits everything eagerly, so a whole
+                    # chromosome's CompiledEvents would buffer in futures
+                    # and defeat the consumer queue's backpressure.  map
+                    # preserves order within each window, so emitted event
+                    # order (and with it PRNG chunk keys) stays
+                    # deterministic.
+                    window = self.workers * 8
+                    for lo in range(0, len(todo), window):
+                        if self.stop:
+                            return
+                        for ev in pool.map(
+                                lambda t: self.compile_one(t[0], t[1]),
+                                todo[lo:lo + window]):
+                            if ev is None:
+                                self.skipped += 1
+                            else:
+                                self.emit(ev)
                 return
-            ev = self.compile_one(gene, name)
-            if ev is None:
-                self.skipped += 1
-            else:
-                self.emit(ev)
+            for gene, name, _gid in todo:
+                if self.stop:
+                    return
+                ev = self.compile_one(gene, name)
+                if ev is None:
+                    self.skipped += 1
+                else:
+                    self.emit(ev)

@@ -11,7 +11,8 @@ asks for CUDA where there is none raises).  The port runs every mode of
 ``--paired-end MEAN SD``, ``--algorithm reassign|marginal|classes``,
 ``--linear-start``, ``--convergent`` (with ``--convergent-growth``),
 ``--summary-only``, ``--pack-output`` and ``--profile DIR`` (a
-``torch.profiler`` Chrome trace), and ``--coordinator HOST:PORT
+``torch.profiler`` Chrome trace that carries the program's own spans
+beside the kernels, ``trace.py``), and ``--coordinator HOST:PORT
 --num-hosts N --host-id K`` (every host runs the same command on its
 own cards, takes its round-robin shard of the genes and writes into
 the shared output tree; ``parallel/distributed.py``).
@@ -93,7 +94,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", dest="profile_dir", default=None,
                    metavar="DIR",
                    help="Write a torch.profiler Chrome trace of the run "
-                        "to DIR.")
+                        "to DIR: the torch ops and kernels, and beside them "
+                        "the program's layers (compile, dispatch, waits on "
+                        "the card, materializer, writers) on the same "
+                        "clock; prints one line per bucket shape.")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--coordinator", dest="coordinator", default=None,
                    help="Multi-host: coordinator address host:port "

@@ -30,6 +30,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from miso_tpu_torch import trace
 from miso_tpu_torch.sampler.mcmc import (EventBatch, SamplerConfig,
                                          SamplerResult, batch_from_numpy)
 
@@ -101,14 +102,16 @@ def _split(arr, n: int) -> List[np.ndarray]:
 def _shard_inputs(batch, mesh: Mesh, streams, start_psi=None):
     """[(torch ``EventBatch``, start psi or None)] per mesh entry: the
     entry's slice of the host batch (and of ``start_psi``), copied to its
-    device by ``batch_from_numpy`` under its stream."""
+    device by ``batch_from_numpy`` under its stream.  A copy from pageable
+    memory returns only when the kernels queued before it on the stream
+    have run: each is a ``wait_card`` span (``trace``)."""
     n = len(mesh)
     parts = [_split(a, n) for a in batch]
     starts = ([None] * n if start_psi is None
               else _split(np.asarray(start_psi, np.float32), n))
     out = []
     for k, (dev, s) in enumerate(zip(mesh, streams)):
-        with on_stream(s):
+        with on_stream(s), trace.span("wait_card", shard=k):
             out.append(batch_from_numpy(type(batch)(*(p[k] for p in parts)),
                                         dev, starts[k]))
     return out

@@ -47,6 +47,7 @@ kernel's place on the card.
 from __future__ import annotations
 
 import functools
+import json
 import os
 import queue as queue_mod
 import threading
@@ -56,6 +57,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from miso_tpu_torch import trace
 from miso_tpu_torch.core.events import (CompiledEvent, bucket_events,
                                         _round_up, _round_up_iso,
                                         _round_up_reads, pad_events)
@@ -189,19 +191,21 @@ class StreamRunner:
     is a mesh of one entry, on its device's default stream.
 
     ``on_chunk(tags, results)`` fires on the materializer thread as each
-    chunk lands.  ``bucket_stats`` collects one dict per chunk."""
+    chunk lands, inside the chunk's ``materialize`` span.  ``tracer`` is
+    the job's (``trace.job``): the dispatch and materialize spans of a
+    chunk share its chunk id."""
 
     MAX_PENDING = 4  # chunks of device-side lookahead (device memory)
 
     def __init__(self, cfg: RunConfig, seed: int = 0, device="cuda",
-                 bucket_stats: Optional[list] = None, on_chunk=None):
+                 on_chunk=None, tracer: trace.Tracer = trace.OFF):
         self.cfg = cfg
         self.seed = seed
         # an unsharded run is a mesh of one entry, on the default stream
         self.mesh = resolve_mesh(device) or (resolve_device(device),)
         self.streams = shard_streams(self.mesh)
-        self.bucket_stats = bucket_stats
         self.on_chunk = on_chunk
+        self.tracer = tracer
         # the host axis of the chunk seeds: this host's id in a
         # multi-host run, None (no axis) on a single host
         self.host = (distributed.process_index()
@@ -283,12 +287,22 @@ class StreamRunner:
 
     # ---------------------------------------------------------- dispatch
     def _dispatch(self, key, evs, tags) -> None:
+        tr = self.tracer
+        chunk = tr.next_chunk()
+        # lanes: the event slots _pow2_pad_events pads the chunk to
+        with tr.span("dispatch", chunk=chunk, shape=key, events=len(evs),
+                     lanes=1 << (len(evs) - 1).bit_length()):
+            self._dispatch_chunk(key, evs, tags, chunk)
+        self._check_err()
+
+    def _dispatch_chunk(self, key, evs, tags, chunk) -> None:
         cfg = self.cfg
+        tr = self.tracer
         pad_iso, pad_classes, pad_reads = key
-        t_bucket = time.time()
-        batch = EventBatch(**pad_events(
-            evs, pad_iso=pad_iso, pad_classes=pad_classes,
-            pad_reads=pad_reads, read_dtype=np.float32, per_read=False))
+        with tr.span("dispatch.pad"):
+            batch = EventBatch(**pad_events(
+                evs, pad_iso=pad_iso, pad_classes=pad_classes,
+                pad_reads=pad_reads, read_dtype=np.float32, per_read=False))
         lo = self.bucket_off.get(key, 0)
         self.bucket_off[key] = lo + cfg.max_batch_events
         # one seed per shard; a mesh of one entry has no shard axis
@@ -296,24 +310,30 @@ class StreamRunner:
         seeds = [chunk_seed(self.seed, lo, pad_iso, pad_classes, pad_reads,
                             host=self.host, shard=k if n > 1 else None)
                  for k in range(n)]
-        start = (linear_start(evs, cfg, pad_iso) if cfg.start == "linear"
-                 else None)
+        start = None
+        if cfg.start == "linear":
+            with tr.span("dispatch.start"):
+                start = linear_start(evs, cfg, pad_iso)
         sampler = functools.partial(run_sampler, pad_reads=pad_reads)
         if cfg.stop == "convergent":
-            self._dispatch_convergent(key, evs, tags, batch, start, seeds,
-                                      sampler, t_bucket)
+            with tr.span("dispatch.launch"):
+                self._dispatch_convergent(evs, tags, batch, start, seeds,
+                                          sampler)
             return
-        batch, start = _pow2_pad_events(batch, start, len(evs))
+        with tr.span("dispatch.pad"):
+            batch, start = _pow2_pad_events(batch, start, len(evs))
         two_iso = pad_iso == 2
-        # each shard quantised on its own device and stream
-        parts = run_batch_sharded(
-            seeds, batch, self.sampler_cfg, self.mesh, sampler,
-            start_psi=start, streams=self.streams).map(
-                lambda res: self._device_payload(res, two_iso))
-        self._put({
-            "evs": evs, "tags": tags, "parts": parts, "two_iso": two_iso,
-            "t0": t_bucket, "shape": key})
-        self._check_err()
+        # each shard quantised on its own device and stream; the copies
+        # to the card are the wait_card spans of parallel/mesh.py
+        with tr.span("dispatch.launch"):
+            parts = run_batch_sharded(
+                seeds, batch, self.sampler_cfg, self.mesh, sampler,
+                start_psi=start, streams=self.streams).map(
+                    lambda res: self._device_payload(res, two_iso))
+        with tr.span("queue_wait"):
+            self._put({
+                "evs": evs, "tags": tags, "parts": parts,
+                "two_iso": two_iso, "chunk": chunk})
 
     def _device_payload(self, res, two_iso: bool) -> dict:
         """What the materializer copies of one sampler result: psi ticks,
@@ -345,8 +365,8 @@ class StreamRunner:
                 res.accepted.device).record_event()
                 if res.accepted.is_cuda else None)}
 
-    def _dispatch_convergent(self, key, evs, tags, batch, start, seeds,
-                             sampler, t_bucket) -> None:
+    def _dispatch_convergent(self, evs, tags, batch, start, seeds,
+                             sampler) -> None:
         """Convergent stop for one bucket (pipeline.py:506-572), on the
         dispatch thread: each round needs the last round's R-hat.  The
         class tensors are sliced per round on the host, and REASSIGN
@@ -393,12 +413,6 @@ class StreamRunner:
             if j in summaries:
                 res_d["summary"] = summaries[j]
             results.append(res_d)
-        if self.bucket_stats is not None:
-            dt = time.time() - t_bucket
-            self.bucket_stats.append({
-                "shape": key, "events": len(evs), "seconds": dt,
-                "events_per_s": len(evs) / max(dt, 1e-9),
-                "stop": "convergent"})
         if self.on_chunk is not None:
             self.on_chunk(tags, results)
 
@@ -419,11 +433,17 @@ class StreamRunner:
         int32 ticks and centipoints become uint16 on the host.  A sharded
         chunk's parts are copied once their events have completed and
         joined in event order."""
+        with self.tracer.span("materialize", chunk=p["chunk"]):
+            self._materialize_parts(p)
+
+    def _materialize_parts(self, p: dict) -> None:
+        tr = self.tracer
         evs = p["evs"]
         parts = p["parts"]
-        for part in parts:
-            if part["ready"] is not None:
-                part["ready"].synchronize()
+        with tr.span("wait_card"):
+            for part in parts:
+                if part["ready"] is not None:
+                    part["ready"].synchronize()
 
         def joined(name, index=None):
             got = [part[name] if index is None else part[name][index]
@@ -433,17 +453,22 @@ class StreamRunner:
             got = [_to_numpy(t) for t in got]
             return got[0] if len(got) == 1 else np.concatenate(got)
 
-        accepted = joined("accepted")
-        rejected = joined("rejected")
-        final_n = joined("final_n")
-        final_psi = joined("final_psi")
+        with tr.span("materialize.copy"):
+            accepted = joined("accepted")
+            rejected = joined("rejected")
+            final_n = joined("final_n")
+            final_psi = joined("final_psi")
+            q = joined("quant")
+            summ = (None if parts[0]["summ"] is None
+                    else [joined("summ", i) for i in range(3)])
+            cmin, cmax, resid = ((None,) * 3 if q is None else (
+                joined("ll_min"), joined("ll_max"), joined("ll_resid")))
         n_real = len(evs)
         S = parts[0]["n_samples"]
-        q = joined("quant")
         q = None if q is None else q.astype(np.uint16)
         summary = None
-        if parts[0]["summ"] is not None:
-            ssum, lo_t, hi_t = (joined("summ", i) for i in range(3))
+        if summ is not None:
+            ssum, lo_t, hi_t = summ
             ssum = ssum.astype(np.int64).sum(axis=1)
             lo_v = lo_t.astype(np.float64) / 1e4
             hi_v = hi_t.astype(np.float64) / 1e4
@@ -458,11 +483,10 @@ class StreamRunner:
                 mean_v, lo_v, hi_v = (a.reshape(len(a), 1)
                                       for a in (mean_v, lo_v, hi_v))
             summary = (mean_v, lo_v, hi_v)
-        ticks = cmin_i = resid = None
+        ticks = cmin_i = None
         wide = set()
         if q is not None:
-            cmin, cmax = joined("ll_min"), joined("ll_max")
-            resid = joined("ll_resid").astype(np.uint16)
+            resid = resid.astype(np.uint16)
             if p["two_iso"]:
                 ticks = np.empty(q.shape + (2,), np.uint16)
                 ticks[:, :, 0] = q
@@ -502,21 +526,23 @@ class StreamRunner:
                     res["score_cents"] = (resid[j].astype(np.int64)
                                           + cmin_i[j])
             results.append(res)
-        if self.bucket_stats is not None:
-            dt = time.time() - p["t0"]
-            self.bucket_stats.append({
-                "shape": p["shape"], "events": len(evs), "seconds": dt,
-                "events_per_s": len(evs) / max(dt, 1e-9)})
         if self.on_chunk is not None:
             self.on_chunk(p["tags"], results)
 
 
+def _in_span(span, fn, *args):
+    """``fn(*args)`` inside ``span``, on the thread that runs it (a writer
+    batch on the pool)."""
+    with span:
+        return fn(*args)
+
+
 def run_events(events: List[CompiledEvent], cfg: RunConfig, seed: int = 0,
-               device="cuda", bucket_stats: Optional[list] = None,
-               on_chunk=None):
+               device="cuda", on_chunk=None):
     """Run compiled events through the sampler, bucketed by shape, on
     ``device`` or the mesh it names (``resolve_mesh``).  Returns a list
-    parallel to ``events`` of per-event result dicts."""
+    parallel to ``events`` of per-event result dicts.  Traced as one job
+    when it starts under ``torch.profiler`` (``trace.job``)."""
     out: List[Optional[dict]] = [None] * len(events)
 
     def _on_chunk(tags, results):
@@ -525,32 +551,61 @@ def run_events(events: List[CompiledEvent], cfg: RunConfig, seed: int = 0,
         if on_chunk is not None:
             on_chunk(tags, out)
 
-    runner = StreamRunner(cfg, seed=seed, device=device,
-                          bucket_stats=bucket_stats, on_chunk=_on_chunk)
-    for key, idxs in bucket_events(events):
-        for i in idxs:
-            runner.add(events[i], tag=i)
-    runner.finish()
+    with trace.job() as tracer:
+        runner = StreamRunner(cfg, seed=seed, device=device,
+                              on_chunk=_on_chunk, tracer=tracer)
+        for key, idxs in bucket_events(events):
+            for i in idxs:
+                runner.add(events[i], tag=i)
+        runner.finish()
     return out
+
+
+# the profiler annotation that puts the program's clock on the trace's
+PROFILE_ANCHOR = "miso_trace_anchor"
 
 
 def profile_run(fn, profile_dir: str, devices, verbose: bool = True):
     """Run ``fn()`` under ``torch.profiler`` -- host calls, and the cards'
     kernels and copies when one of ``devices`` is CUDA -- and write the
-    Chrome trace into ``profile_dir``."""
-    from torch.profiler import ProfilerActivity, profile
+    Chrome trace into ``profile_dir``, with the program's own spans and
+    counters of the jobs ``fn`` runs (``trace``: traced, as they start
+    under the profiler) as a process of their own on the trace's clock.
+    Under ``verbose`` prints one line per bucket shape.  Returns what
+    ``fn`` returns."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     cuda = [d for d in dict.fromkeys(devices) if d.type == "cuda"]
     os.makedirs(profile_dir, exist_ok=True)
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=acts) as prof:
-        fn()
+        anchor = time.perf_counter_ns()
+        with record_function(PROFILE_ANCHOR):
+            pass
+        out = fn()
         for d in cuda:
             torch.cuda.synchronize(d)
+        recs = trace.records(anchor, time.perf_counter_ns())
     path = os.path.join(profile_dir, "miso_torch_trace.json")
     prof.export_chrome_trace(path)
+    with open(path) as f:
+        doc = json.load(f)
+    ts = [e["ts"] for e in doc["traceEvents"]
+          if e.get("name") == PROFILE_ANCHOR and e.get("ph") == "X"]
+    if not ts:
+        raise RuntimeError("the profiler kept no %s" % PROFILE_ANCHOR)
+    doc["traceEvents"] += trace.chrome_events(
+        recs, lambda t: ts[0] + (t - anchor) / 1e3)
+    with open(path, "w") as f:
+        json.dump(doc, f)
     if verbose:
         print("torch.profiler trace written to %s" % path)
+        for shape, row in sorted(trace.bucket_table(recs).items()):
+            print("  bucket (iso=%d, classes=%d, reads=%d): %d chunks, "
+                  "%d events in %d lanes, %.2fs queued, %.2fs run"
+                  % (shape + (row["chunks"], row["events"], row["lanes"],
+                              row["queued_s"], row["run_s"])))
+    return out
 
 
 def compute_all_genes_psi(
@@ -569,9 +624,29 @@ def compute_all_genes_psi(
     """The ``miso --run`` engine on ``device``, or on every visible card
     for ``"cuda"`` where there are more than one, or on the mesh a list of
     devices names (``resolve_mesh``).  Returns the number of events
-    written.  A copy of pipeline.py:1304-1567.  ``profile_dir`` wraps the
-    run's consume loop in ``torch.profiler`` and writes a Chrome trace
-    there (pipeline.py:1492-1497 does it with ``jax.profiler``)."""
+    written.  A copy of pipeline.py:1304-1567.  ``profile_dir`` runs the
+    call under ``torch.profiler`` and writes a Chrome trace there, with
+    the program's layers beside the torch ops and kernels
+    (``profile_run``; pipeline.py:1492-1497 profiles with
+    ``jax.profiler``).  The call is one traced job when it starts under a
+    profiler (``trace.job``)."""
+    if profile_dir:
+        return profile_run(
+            functools.partial(compute_all_genes_psi, index_dir,
+                              alignments_path, read_len, output_dir, cfg=cfg,
+                              settings=settings, gene_ids=gene_ids,
+                              seed=seed, verbose=verbose, device=device),
+            profile_dir, resolve_mesh(device) or (resolve_device(device),),
+            verbose)
+    with trace.job() as tracer:
+        return _compute_all_genes_psi(
+            tracer, index_dir, alignments_path, read_len, output_dir, cfg,
+            settings, gene_ids, seed, verbose, device)
+
+
+def _compute_all_genes_psi(tracer: trace.Tracer, index_dir, alignments_path,
+                           read_len, output_dir, cfg, settings, gene_ids,
+                           seed, verbose, device) -> int:
     from miso_tpu_torch.io.sanity import check_gff_and_bam, setup_logger
 
     settings = settings or Settings.get()
@@ -603,7 +678,6 @@ def compute_all_genes_psi(
         # build the region index once before fanning out threads
         list(alignments.fetch(alignments.references[0], 0, 0))
 
-    bucket_stats: List[dict] = []
     from concurrent.futures import ThreadPoolExecutor
 
     write_pool = ThreadPoolExecutor(
@@ -620,6 +694,7 @@ def compute_all_genes_psi(
         packer = DirectPacker(output_dir)
 
     def on_chunk(evs, results):
+        chunk = tracer.chunk()
         rows_local = {}
         for ev, res in zip(evs, results):
             if res is None:
@@ -631,11 +706,17 @@ def compute_all_genes_psi(
             if packer is not None:
                 for lo in range(0, len(evs), 512):
                     write_futures.append(write_pool.submit(
+                        _in_span, tracer.span(
+                            "write", chunk=chunk,
+                            submitted=time.perf_counter_ns()),
                         _pack_events_batch, packer, cfg,
                         evs[lo:lo + 512], results[lo:lo + 512]))
             elif not cfg.summary_only:
                 for lo in range(0, len(evs), 512):
                     write_futures.append(write_pool.submit(
+                        _in_span, tracer.span(
+                            "write", chunk=chunk,
+                            submitted=time.perf_counter_ns()),
                         _write_events_batch, output_dir, cfg,
                         evs[lo:lo + 512], results[lo:lo + 512]))
             summary_rows.update(rows_local)
@@ -647,8 +728,8 @@ def compute_all_genes_psi(
                       "events/s)" % (progress["done"], len(items),
                                      progress["done"] / (now - t0)))
 
-    runner = StreamRunner(cfg, seed=seed, device=device,
-                          bucket_stats=bucket_stats, on_chunk=on_chunk)
+    runner = StreamRunner(cfg, seed=seed, device=device, on_chunk=on_chunk,
+                          tracer=tracer)
     if verbose and len(runner.mesh) > 1:
         print("Event catalog sharded over %d local devices"
               % len(runner.mesh))
@@ -663,12 +744,14 @@ def compute_all_genes_psi(
         workers = settings.get_num_processors() or 1
     stream = _CompileStream(items, alignments, cfg, output_dir, verbose,
                             emit=ev_queue.put, workers=workers,
-                            done=packer.done_names if packer else None)
+                            done=packer.done_names if packer else None,
+                            tracer=tracer)
 
     def produce():
         t = time.time()
         try:
-            stream.run()
+            with tracer.span("compile"):
+                stream.run()
             compile_done["seconds"] = time.time() - t
         except BaseException as e:
             compile_done["error"] = e
@@ -705,10 +788,7 @@ def compute_all_genes_psi(
         runner.finish()
 
     try:
-        if profile_dir:
-            profile_run(consume, profile_dir, runner.mesh, verbose)
-        else:
-            consume()
+        consume()
         written = 0
         for f in write_futures:
             written += f.result()
@@ -754,7 +834,8 @@ def compute_all_genes_psi(
                 except ValueError:
                     print("WARNING: cannot summarize resumed event %s "
                           "(too few samples)" % nm)
-        n_summ = write_summary_file(summary_filename, summary_rows)
+        with tracer.span("summary"):
+            n_summ = write_summary_file(summary_filename, summary_rows)
         if verbose:
             print("Posterior summary (%d events, device-side): %s"
                   % (n_summ, summary_filename))
@@ -762,11 +843,6 @@ def compute_all_genes_psi(
             written = ran
     if verbose:
         dt = time.time() - t0
-        for bs in bucket_stats:
-            print("  bucket (iso=%d, classes=%d, reads=%d): %d events "
-                  "in %.2fs (%.1f events/s)"
-                  % (bs["shape"] + (bs["events"], bs["seconds"],
-                                    bs["events_per_s"])))
         print("Quantified %d events (%d skipped) in %.2fs on %s "
               "(host compile %.2fs, overlapped); %.1f events/s "
               "(%.1f events/s/chip)"

@@ -24,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from miso_tpu_torch import trace
 from miso_tpu_torch.parallel.mesh import on_stream, run_batch_sharded
 from miso_tpu_torch.quantize import quantize_psi, quantize_scores
 from miso_tpu_torch.sampler.mcmc import (EventBatch, SamplerConfig,
@@ -113,10 +114,12 @@ def run_batch_convergent(seeds, events: EventBatch, cfg: SamplerConfig,
         res = run_batch_sharded([round_seed(s, round_i) for s in seeds],
                                 sub, cur, mesh, sampler, start_psi=sp,
                                 streams=streams)
-        # every shard's R-hat and counts, joined in event order
-        host = res.map(lambda r: [t.cpu().numpy() for t in (
-            batch_rhat(r.psi_samples), r.accepted, r.rejected, r.final_n,
-            r.final_psi)])
+        # every shard's R-hat and counts, joined in event order: the
+        # copies wait for the round's kernels
+        with trace.span("wait_card"):
+            host = res.map(lambda r: [t.cpu().numpy() for t in (
+                batch_rhat(r.psi_samples), r.accepted, r.rejected,
+                r.final_n, r.final_psi)])
         rh, acc, rej, fn, fpsi = (np.concatenate(f)[:nr]
                                   for f in zip(*host))
         iso_mask = np.arange(I)[None, :] < np.asarray(sub.num_iso)[:nr, None]

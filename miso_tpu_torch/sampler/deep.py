@@ -39,6 +39,7 @@ from typing import NamedTuple
 
 import torch
 
+from miso_tpu_torch import trace
 from miso_tpu_torch.sampler.mcmc import (EventBatch, SamplerConfig,
                                          SamplerResult)
 from miso_tpu_torch.sampler.model import gibbs_reassign
@@ -311,6 +312,7 @@ def _multinomial_plain(seed, batch, cfg, consts, start_psi=None,
     binomial draw's randomness; otherwise a ``torch.Generator`` seeded
     with ``seed`` draws them."""
     LAUNCHES["plain"] += 1
+    trace.count("launch", route="B3.plain", lanes=batch.weights.shape[0])
     f32 = torch.float32
     gen, uniform = _uniforms(seed, batch.weights.device, fixed_uniform)
     W = batch.weights.to(f32)[:, None]                      # (E, 1, C, I)
@@ -391,4 +393,5 @@ def _multinomial_cuda(seed, batch, cfg, consts, start_psi, fixed,
             plan.T, plan.lanes_per_block, plan.shared_bytes, stream)
     kernels.check(lib, rc, "multinomial kernel launch (%s)" % (plan,))
     LAUNCHES["cuda"] += 1
+    trace.count("launch", route="B3", lanes=E)
     return _result(psi_out, ll_out, acc, final_n, final_psi, cfg)

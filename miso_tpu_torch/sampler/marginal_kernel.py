@@ -48,6 +48,7 @@ from typing import NamedTuple
 
 import torch
 
+from miso_tpu_torch import trace
 from miso_tpu_torch.sampler import wide
 from miso_tpu_torch.sampler.mcmc import EventBatch, SamplerConfig
 from miso_tpu_torch.sampler.reassign_kernel import (FILL_WARPS, FIXED_U,
@@ -238,6 +239,8 @@ def _marginal_plain(seed, batch, cfg, consts, start_psi=None,
     dev = batch.weights.device
     if wide_order is None:
         wide_order = I > max(KERNEL_ISO)
+    trace.count("launch", route="B2w.plain" if wide_order else "B2.plain",
+                lanes=E)
     total = wide.wide_sum if wide_order else _seq_sum
     gen = None
     if fixed_uniform is None:
@@ -395,6 +398,7 @@ def _marginal_cuda(seed, batch, cfg, consts, start_psi, fixed, plan=None):
             plan.T, plan.lanes_per_block, stream)
     kernels.check(lib, rc, "marginal kernel launch (%s)" % (plan,))
     LAUNCHES["cuda"] += 1
+    trace.count("launch", route="B2", lanes=E)
     final_n = torch.zeros((E, K, I), dtype=f32, device=dev)
     return _result(psi_out, ll_out, acc, final_n, final_psi, cfg)
 
@@ -440,5 +444,6 @@ def _marginal_wide_cuda(seed, batch, cfg, consts, start_psi, fixed,
             wide.launch_bytes(plan, C, I), stream)
     kernels.check(lib, rc, "wide marginal kernel launch (%s)" % (plan,))
     LAUNCHES["wide"] += 1
+    trace.count("launch", route="B2w", lanes=E)
     final_n = torch.zeros((E, K, I), dtype=f32, device=dev)
     return _result(psi_out, ll_out, acc, final_n, final_psi, cfg)

@@ -45,6 +45,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from miso_tpu_torch import trace
 from miso_tpu_torch.sampler import wide
 from miso_tpu_torch.sampler.mcmc import (EventBatch, SamplerConfig,
                                          SamplerResult)
@@ -507,6 +508,8 @@ def _reassign_plain(seed, batch, cfg, consts, start_psi=None,
     gen, uniform = _uniforms(seed, dev, fixed_uniform)
     if wide_order is None:
         wide_order = I >= wide.WIDE_FROM
+    trace.count("launch", route="B1w.plain" if wide_order else "B1.plain",
+                lanes=E)
     rw = batch.read_w.to(f32)[:, None]                 # (E, 1, R, I)
     rls = batch.read_logscore.to(f32)[:, None]
     valid = rw.sum(-1) > 0                             # (E, 1, R)
@@ -718,6 +721,7 @@ def _reassign_cuda(seed, batch, cfg, consts, start_psi, fixed, plan=None):
             plan.shared_bytes, stream)
     kernels.check(lib, rc, "reassign kernel launch (%s)" % (plan,))
     LAUNCHES["cuda"] += 1
+    trace.count("launch", route="B1", lanes=E)
     return _result(psi_out, ll_out, acc, final_n, final_psi, cfg)
 
 
@@ -811,4 +815,5 @@ def _reassign_wide_cuda(seed, batch, cfg, consts, start_psi, fixed,
             plan.threads, plan.rows, plan.shared_bytes, stream)
     kernels.check(lib, rc, "wide reassign kernel launch (%s)" % (plan,))
     LAUNCHES["wide"] += 1
+    trace.count("launch", route="B1w", lanes=E)
     return _result(psi_out, ll_out, acc, final_n, final_psi, cfg)

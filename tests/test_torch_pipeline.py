@@ -12,6 +12,7 @@ the fast settings.
 import inspect
 import os
 import re
+import time
 
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ import miso_tpu_torch._host as host
 import miso_tpu_torch.pipeline as tp
 import miso_tpu_torch.quantize as tz
 import miso_tpu_torch.sampler.reassign_kernel as rk
+from miso_tpu_torch import trace
 from miso_tpu.core.events import compile_single_end
 from miso_tpu.core.gene import make_gene
 from miso_tpu.core.simulate import simulate_reads
@@ -172,10 +174,36 @@ def test_quantisation_and_summary_match_jax(I):
     "_pack_events_batch", "write_event_results", "_CompileStream"])
 def test_host_copy_has_not_drifted(name):
     """_host.py holds verbatim copies of miso_tpu/pipeline.py objects,
-    importing the port's own host modules."""
-    assert inspect.getsource(getattr(host, name)) == re.sub(
+    importing the port's own host modules, with the trace sites of
+    ``_CompileStream`` taken out."""
+    assert untraced(inspect.getsource(getattr(host, name))) == re.sub(
         r"miso_tpu(?!_torch)", "miso_tpu_torch",
         inspect.getsource(getattr(jp, name)))
+
+
+def untraced(src: str) -> str:
+    """``src`` without the port's trace sites: the ``tracer`` parameter
+    and attribute of ``_CompileStream``, and every ``with
+    self.tracer.span(...):`` line, its block moved back out."""
+    src = src.replace(",\n                 tracer: trace.Tracer = trace.OFF)",
+                      ")")
+    src = src.replace("        # the job's tracer: the compile's spans "
+                      "(trace.py)\n        self.tracer = tracer\n", "")
+    out, opened = [], []           # indents of the open with-lines
+    for line in src.split("\n"):
+        indent = len(line) - len(line.lstrip())
+        while opened and line.strip() and indent <= opened[-1]:
+            opened.pop()
+        if re.fullmatch(r"\s*with self\.tracer\.span\(.*\):", line):
+            opened.append(indent)
+            continue
+        out.append(line[4 * len(opened):] if line.strip() else line)
+    return "\n".join(out)
+
+
+def test_untraced_takes_out_every_trace_site_of_the_compile():
+    src = untraced(inspect.getsource(host._CompileStream))
+    assert "tracer" not in src and "trace." not in src
 
 
 def test_chunk_seeds_differ_across_chunks_and_bucket_axes():
@@ -196,10 +224,14 @@ def test_two_chunks_of_one_bucket_draw_different_streams():
     ev = compile_single_end(g, pos, cig, read_len=25)
     cfg = host.RunConfig(read_len=25, iters=60, burn_in=10, lag=5,
                          chains=2, max_batch_events=4)
-    stats = []
-    out = tp.run_events([ev] * 8, cfg, seed=0, device="cpu",
-                        bucket_stats=stats)
-    assert [s["events"] for s in stats] == [4, 4]
+    t0 = time.perf_counter_ns()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = tp.run_events([ev] * 8, cfg, seed=0, device="cpu")
+    chunks = [r.attrs["events"]
+              for r in trace.records(t0, time.perf_counter_ns())
+              if isinstance(r, trace.Span) and r.name == "dispatch"]
+    assert chunks == [4, 4]
     first, second = out[0]["psi_ticks"], out[4]["psi_ticks"]
     assert first.shape == second.shape == (20, 2)
     assert not np.array_equal(first, second)
