@@ -21,6 +21,10 @@
     python3 chip_smoke.py wide       # likewise: the wide kernels B1w and
                                      # B2w alone (their checks, the wide
                                      # buckets' runs and times)
+    python3 chip_smoke.py streams    # likewise: the stream pool's check
+                                     # alone (a mixed catalog through
+                                     # StreamRunner, bit-equal to a run
+                                     # on one stream)
     python3 chip_smoke.py multinomial [DIR]  # likewise: the deep route's
                                              # kernel B3 alone (its checks,
                                              # the deep catalog's runs, its
@@ -63,8 +67,10 @@ genes; buckets of 512 and 2,048 isoforms (four genes of 300 and of
 and MARGINAL (each one launch of B1w or B2w, which is then held against
 the plain version at that bucket's shape, timed beside it and its bound,
 and held against the exact posterior of a two-isoform event padded to
-the bucket's width); and the port's ``module_availability`` and
-``test_miso``.  The mesh phase (``parallel/mesh.py``): both kernels
+the bucket's width); a mixed catalog (buckets of 2, 16, 32 and 64
+isoforms and a deep one) through ``StreamRunner`` with its pool of
+streams and again with the pool forced to one stream, bit for bit the
+same; and the port's ``module_availability`` and ``test_miso``.  The mesh phase (``parallel/mesh.py``): both kernels
 sharded at their main shapes over ``[cuda:0]`` and ``[cuda:0, cuda:0]``
 (one stream per entry) against the unsharded launch -- bit-equal under
 fixed uniforms in the shards' launch plan, every Philox shard of the
@@ -1633,6 +1639,70 @@ def wide_buckets(gpu):
     return out
 
 
+# the stream pool's check: genes of 2, 12, 24 and 48 isoforms (buckets
+# of 2, 16, 32 and 64), read counts spread over many read pads, and three
+# deep ones (B3), in chunks of a few events
+POOL_GENES = ((2, 24), (12, 16), (24, 16), (48, 16))
+POOL_DEEP = 3
+POOL_CHUNK = 4
+
+
+def pool_events():
+    """The stream pool check's catalog: (events, the bucket keys)."""
+    evs = []
+    for num_iso, n in POOL_GENES:
+        evs += [wide_event("reassign", num_iso=num_iso, n_reads=150 + 23 * j,
+                           seed=50 + j) for j in range(n)]
+    evs += [deepened(wide_event("reassign", num_iso=2, n_reads=300,
+                                seed=90 + j), 100) for j in range(POOL_DEEP)]
+    return evs, sorted({tp._bucket_key(ev) for ev in evs})
+
+
+def stream_pool_check(gpu):
+    """A mixed catalog (``pool_events``: buckets of 2, 16, 32 and 64
+    isoforms and a deep one) through StreamRunner at stock settings,
+    twice: with the pool of ``tp.POOL_STREAMS`` streams, chunks side by
+    side and materialized as they complete, and with the pool forced to
+    one stream, so one chunk in flight.  Every event's psi ticks, scores,
+    final counts, summary and acceptance must be equal bit for bit."""
+    evs, keys = pool_events()
+    cfg = tp.RunConfig(read_len=25, max_batch_events=POOL_CHUNK)
+    if not any(k[2] > tp.DEEP_READS for k in keys) or {
+            k[0] for k in keys} != {2, 16, 32, 64}:
+        raise AssertionError("stream pool catalog: buckets %s" % keys)
+    runs = {}
+    for streams in (tp.POOL_STREAMS, 1):
+        saved = tp.POOL_STREAMS
+        tp.POOL_STREAMS = streams
+        try:
+            with Launches() as lc:
+                t = time.time()
+                results = tp.run_events(evs, cfg, seed=7, device=DEV)
+                torch.cuda.synchronize()
+                wall = time.time() - t
+        finally:
+            tp.POOL_STREAMS = saved
+        runs[streams] = results
+        print("stream pool of %d: %d events in %d buckets, %d launches, "
+              "%.2fs  [%s]" % (streams, len(evs), len(keys),
+                               sum(sum(c.values())
+                                   for c in lc.counts.values()), wall, gpu))
+    got, want = runs[tp.POOL_STREAMS], runs[1]
+    for j, (a, b) in enumerate(zip(got, want)):
+        if sorted(a) != sorted(b):
+            raise AssertionError("stream pool: event %d has %s, one stream "
+                                 "%s" % (j, sorted(a), sorted(b)))
+        for name in a:
+            x, y = a[name], b[name]
+            same = (all(np.array_equal(u, v) for u, v in zip(x, y))
+                    if isinstance(x, tuple) else np.array_equal(x, y))
+            if not same:
+                raise AssertionError("stream pool: event %d's %s differs "
+                                     "from the one-stream run's" % (j, name))
+    print("stream pool: every event's results bit-equal to the one-stream "
+          "run's  [%s]" % gpu)
+
+
 def host_batch(batch):
     """A batch on the card as the numpy batch a sharded run takes."""
     return EventBatch(*(t.cpu().numpy() for t in batch))
@@ -2378,6 +2448,13 @@ def main(only=None, sass_dir=None) -> int:
               % (time.time() - T_START, gpu))
         return 0
 
+    if only == "streams":
+        # the stream pool's check alone
+        stream_pool_check(gpu)
+        print("chip_smoke streams: %.1fs in all  [%s]"
+              % (time.time() - T_START, gpu))
+        return 0
+
     if only == "wide":
         # the wide kernels' checks and buckets alone
         wide_plans_check()
@@ -2668,6 +2745,7 @@ def main(only=None, sass_dir=None) -> int:
 
     # -- (m) buckets of 512 and 2,048 isoforms, and the port's probes
     wide = wide_buckets(gpu)
+    stream_pool_check(gpu)
     for kind in ("reassign", "marginal"):
         wide_err[kind] = max(wide_err[kind], wide[kind]["max_err"])
     probes()
@@ -2831,10 +2909,10 @@ def main(only=None, sass_dir=None) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] not in ([], ["marginal"], ["hosts"], ["mesh"],
-                             ["multinomial"], ["wide"]) \
+                             ["multinomial"], ["wide"], ["streams"]) \
             or len(sys.argv) > (3 if sys.argv[1:2] in (["marginal"],
                                                        ["multinomial"])
                                 else 2):
         sys.exit("usage: python3 chip_smoke.py [marginal [SASS_DIR] | hosts "
-                 "| mesh | multinomial [SASS_DIR] | wide]")
+                 "| mesh | multinomial [SASS_DIR] | wide | streams]")
     sys.exit(main(*sys.argv[1:]))

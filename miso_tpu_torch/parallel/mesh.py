@@ -12,8 +12,10 @@ no traffic between shards; results stay on their devices, in event order
 Shard k's seed carries a shard axis, the counterpart of
 ``jax.random.fold_in(key, axis_index)`` (``mesh.py:138-141``): the
 pipeline passes one ``chunk_seed(..., shard=k)`` per shard.  A mesh of
-one entry has no shard axis and runs on the default stream: it is the
-pipeline's run on one device.
+one entry has no shard axis.  The pipeline runs each chunk on a stream of
+every entry's pool (``stream_pool``), so chunks run side by side on a
+card; ``shard_streams`` gives the one stream an entry (the default
+stream for a mesh of one) of the convergent stop's rounds.
 
 Every launch of a sharded run is made from the calling thread, so the
 kernels' ``LAUNCHES`` counters need no lock.  A tensor of shard k is
@@ -84,6 +86,16 @@ def shard_streams(mesh: Mesh) -> Tuple[Optional[torch.cuda.Stream], ...]:
                  for d in mesh)
 
 
+def stream_pool(device: torch.device,
+                size: int) -> Tuple[Optional[torch.cuda.Stream], ...]:
+    """``size`` streams on ``device`` (None each for the CPU): PyTorch's
+    pool streams, which neither wait for the legacy default stream nor
+    it for them."""
+    if device.type != "cuda":
+        return (None,) * size
+    return tuple(torch.cuda.Stream(device=device) for _ in range(size))
+
+
 def on_stream(stream):
     """Context that makes ``stream`` (and its device) current; nothing for
     a CPU shard."""
@@ -102,9 +114,8 @@ def _split(arr, n: int) -> List[np.ndarray]:
 def _shard_inputs(batch, mesh: Mesh, streams, start_psi=None):
     """[(torch ``EventBatch``, start psi or None)] per mesh entry: the
     entry's slice of the host batch (and of ``start_psi``), copied to its
-    device by ``batch_from_numpy`` under its stream.  A copy from pageable
-    memory returns only when the kernels queued before it on the stream
-    have run: each is a ``wait_card`` span (``trace``)."""
+    device by ``batch_from_numpy`` under its stream, from page-locked
+    staging: it returns at once (each a ``wait_card`` span, ``trace``)."""
     n = len(mesh)
     parts = [_split(a, n) for a in batch]
     starts = ([None] * n if start_psi is None

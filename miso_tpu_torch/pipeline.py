@@ -16,9 +16,15 @@ device half is torch:
    alone.
    It quantises psi to ticks and scores to centipoints, with the
    posterior summary computed on the device (``quantize.py``);
-2. a materializer thread copies each chunk to the host, draws the final
-   assignment counts of MARGINAL/CLASSES events there, and hands the
-   chunk to the ``.miso`` writers.
+2. a materializer thread copies each chunk to the host as its kernels
+   finish, in no fixed order, draws the final assignment counts of
+   MARGINAL/CLASSES events there, and hands the chunk to the ``.miso``
+   writers.
+
+On a card the dispatch runs ahead of it: each chunk's copies (from
+page-locked staging), launch and payload go on a stream of a pool that no
+other chunk in flight holds, so the small launches of many buckets run
+side by side.
 
 ``--convergent`` runs each bucket through ``sampler/convergent.py``
 instead, synchronously on the dispatch thread.  ``--linear-start`` seeds
@@ -34,8 +40,8 @@ host or on several (``parallel/distributed.py``: each host runs its
 shard of the genes and writes its own summary into the shared tree).
 On a host with more than one visible card, ``device="cuda"`` splits every
 chunk's events over all of them (``parallel/mesh.py``, ``resolve_mesh``):
-each shard runs its kernel on its own card and stream, and the
-materializer joins the shards in event order.
+each shard runs its kernel on its own card and on a stream of that
+card's pool, and the materializer joins the shards in event order.
 
 Every kernel takes a bucket of any width: the REASSIGN and MARGINAL
 wrappers run their narrow instances (B1, B2) below ``wide.WIDE_FROM``
@@ -74,7 +80,8 @@ from miso_tpu_torch._host import (RunConfig, _CompileStream, _LazyResult,
 from miso_tpu_torch.parallel import distributed
 # resolve_device is imported from here by cli/main.py and cli/test_miso.py
 from miso_tpu_torch.parallel.mesh import (make_event_mesh, resolve_device,
-                                          run_batch_sharded, shard_streams)
+                                          run_batch_sharded, shard_streams,
+                                          stream_pool)
 from miso_tpu_torch.quantize import (quantize_psi, quantize_scores,
                                      summary_stats)
 from miso_tpu_torch.sampler.convergent import run_batch_convergent
@@ -91,6 +98,15 @@ from miso_tpu_torch.sampler.reassign_kernel import run_batch_reassign
 DEEP_READS = 16384
 # the last word of a chunk seed's shard part (chunk_seed)
 SHARD_TAG = 0x5348
+# streams in each mesh entry's pool, and the ceiling on the chunks in
+# flight: a chunk runs on one that no other chunk in flight holds, so the
+# launches of different buckets share the card (PERF.md, section 6)
+POOL_STREAMS = 16
+# the share of the smallest card's memory that the device tensors of the
+# chunks in flight may hold
+IN_FLIGHT_MEMORY_SHARE = 0.25
+# seconds between the materializer's looks at the chunks' ready events
+READY_POLL_S = 0.002
 
 
 def resolve_mesh(device):
@@ -182,28 +198,49 @@ def _full_row(parts, j: int):
     raise IndexError("event past the chunk")
 
 
+def _memory_budget(mesh) -> Optional[int]:
+    """Bytes the chunks in flight may hold: ``IN_FLIGHT_MEMORY_SHARE`` of
+    the smallest card's memory; None for a mesh of the CPU alone."""
+    cards = [d for d in mesh if d.type == "cuda"]
+    if not cards:
+        return None
+    return int(IN_FLIGHT_MEMORY_SHARE
+               * min(torch.cuda.mem_get_info(d)[1] for d in cards))
+
+
 class StreamRunner:
     """Streaming device dispatcher (pipeline.py:306-766): events
     accumulate into (pad_iso, pad_classes, pad_reads) buckets and every
     full bucket is dispatched at once; a materializer thread copies
-    finished chunks to the host while the next chunk runs.  Every chunk
-    is split over the mesh (``resolve_mesh(device)``); an unsharded run
-    is a mesh of one entry, on its device's default stream.
+    finished chunks to the host while later chunks run.  Every chunk is
+    split over the mesh (``resolve_mesh(device)``; an unsharded run is a
+    mesh of one entry) and runs on stream i of every entry's pool
+    (``stream_pool``), an i that no other chunk in flight holds: its
+    copies from page-locked staging, its launch and its device payload,
+    so chunks of different buckets run side by side as the card has room.
+
+    A chunk is in flight from its dispatch until it is materialized.
+    Fewer than ``POOL_STREAMS`` are, and on a card their device tensors
+    hold under ``IN_FLIGHT_MEMORY_SHARE`` of its memory (``_put`` waits
+    for room); the materializer takes whichever has completed first.  The
+    order changes no result: every chunk's seed keys on its bucket and
+    its offset in that bucket, and each event's results are its own.
 
     ``on_chunk(tags, results)`` fires on the materializer thread as each
     chunk lands, inside the chunk's ``materialize`` span.  ``tracer`` is
     the job's (``trace.job``): the dispatch and materialize spans of a
     chunk share its chunk id."""
 
-    MAX_PENDING = 4  # chunks of device-side lookahead (device memory)
-
     def __init__(self, cfg: RunConfig, seed: int = 0, device="cuda",
                  on_chunk=None, tracer: trace.Tracer = trace.OFF):
         self.cfg = cfg
         self.seed = seed
-        # an unsharded run is a mesh of one entry, on the default stream
         self.mesh = resolve_mesh(device) or (resolve_device(device),)
+        # the convergent stop's rounds: a stream per entry, the default
+        # stream for a mesh of one
         self.streams = shard_streams(self.mesh)
+        self.pools = [stream_pool(d, POOL_STREAMS) for d in self.mesh]
+        self.memory_budget = _memory_budget(self.mesh)
         self.on_chunk = on_chunk
         self.tracer = tracer
         # the host axis of the chunk seeds: this host's id in a
@@ -216,8 +253,11 @@ class StreamRunner:
         self.buckets: Dict[Tuple[int, int, int], Tuple[list, list]] = {}
         self.bucket_off: Dict[Tuple[int, int, int], int] = {}
         self.bucket_chunks: Dict[Tuple[int, int, int], int] = {}
-        self._pending: "queue_mod.Queue" = queue_mod.Queue(
-            maxsize=self.MAX_PENDING)
+        # the chunks in flight, in dispatch order, under _cond
+        self._in_flight: List[dict] = []
+        self._cond = threading.Condition()
+        self._closing = False
+        self._aborted = False
         self._mat_err: list = []
         self._mat_thread = threading.Thread(target=self._materialize_loop,
                                             daemon=True)
@@ -243,47 +283,81 @@ class StreamRunner:
             self._dispatch(key, evs, tags)
         self._check_err()
 
+    def chain_cost(self, key) -> int:
+        """What a step of a chain of bucket ``key`` costs, read from the
+        key: B1 and B1w (REASSIGN up to ``DEEP_READS`` reads) pass every
+        read slot over the isoforms, B3 and the MARGINAL/CLASSES kernels
+        every class."""
+        pad_iso, pad_classes, pad_reads = key
+        if self.cfg.algorithm == "reassign" and pad_reads <= DEEP_READS:
+            return pad_iso * pad_reads
+        return pad_iso * pad_classes
+
     def finish(self) -> None:
-        """Flush partial buckets in sub-chunks, drain, join the thread."""
+        """Flush partial buckets in sub-chunks, the costliest chains first
+        (``chain_cost``) so that the many short ones fill in around them;
+        drain, join the thread.  A bucket's chunks keep their order, and
+        with it their offsets and seeds."""
         step = (self.cfg.max_batch_events if self.cfg.stop == "convergent"
                 else max(256, self.cfg.max_batch_events // 8))
-        for key in sorted(self.buckets):
+        for key in sorted(self.buckets,
+                          key=lambda k: (-self.chain_cost(k), k)):
             evs, tags = self.buckets[key]
             for lo in range(0, len(evs), step):
                 self._dispatch(key, evs[lo:lo + step], tags[lo:lo + step])
         self.buckets.clear()
-        self._put(None)
+        with self._cond:
+            self._closing = True
+            self._cond.notify_all()
         self._mat_thread.join()
         self._check_err()
 
     def abort(self) -> None:
-        """Error-path shutdown: drop queued chunks, stop the thread."""
+        """Error-path shutdown: drop the chunks in flight, stop the
+        thread."""
         self.buckets.clear()
-        try:
-            while True:
-                self._pending.get_nowait()
-        except queue_mod.Empty:
-            pass
-        try:
-            self._pending.put(None, timeout=5)
-        except queue_mod.Full:
-            pass
+        with self._cond:
+            self._aborted = True
+            self._in_flight.clear()
+            self._cond.notify_all()
         self._mat_thread.join(timeout=30)
 
-    def _put(self, item) -> None:
-        """Bounded put that cannot deadlock if the materializer died."""
-        while True:
-            try:
-                self._pending.put(item, timeout=5)
-                return
-            except queue_mod.Full:
+    def _put(self, item: dict) -> None:
+        """Wait for room among the chunks in flight (fewer than the pool's
+        streams, their device bytes under the budget), then take ``item``
+        in on the first stream of the pool that none of them holds
+        (``item["stream"]``).  Raises if the materializer died."""
+        size = len(self.pools[0])
+        with self._cond:
+            while not self._room(size):
                 self._check_err()
                 if not self._mat_thread.is_alive():
                     raise RuntimeError("materializer thread died")
+                self._cond.wait(timeout=5)
+            item["stream"] = min(set(range(size)) - {
+                p["stream"] for p in self._in_flight})
+            self._in_flight.append(item)
+
+    def _room(self, size: int) -> bool:
+        if len(self._in_flight) >= size:
+            return False
+        return (self.memory_budget is None or not self._in_flight
+                or sum(p.get("bytes", 0) for p in self._in_flight)
+                < self.memory_budget)
 
     def _check_err(self):
         if self._mat_err:
             raise self._mat_err[0]
+
+    @staticmethod
+    def _passed(p: dict, device=None) -> bool:
+        """Have chunk ``p``'s kernels run (its part on ``device``, or all
+        its parts)?  Not while it is being dispatched."""
+        if "parts" not in p:
+            return False
+        return all(part["ready"] is None or part["ready"].query()
+                   for part in p["parts"]
+                   if device is None or part["device"] == device)
 
     # ---------------------------------------------------------- dispatch
     def _dispatch(self, key, evs, tags) -> None:
@@ -323,25 +397,50 @@ class StreamRunner:
         with tr.span("dispatch.pad"):
             batch, start = _pow2_pad_events(batch, start, len(evs))
         two_iso = pad_iso == 2
-        # each shard quantised on its own device and stream; the copies
-        # to the card are the wait_card spans of parallel/mesh.py
-        with tr.span("dispatch.launch"):
-            parts = run_batch_sharded(
-                seeds, batch, self.sampler_cfg, self.mesh, sampler,
-                start_psi=start, streams=self.streams).map(
-                    lambda res: self._device_payload(res, two_iso))
+        item = {"evs": evs, "tags": tags, "two_iso": two_iso,
+                "chunk": chunk}
         with tr.span("queue_wait"):
-            self._put({
-                "evs": evs, "tags": tags, "parts": parts,
-                "two_iso": two_iso, "chunk": chunk})
+            self._put(item)
+        if tr.on:
+            sampler = self._counted(sampler)
+        # each shard quantised on its device and on the chunk's stream of
+        # its pool; the copies to the card are the wait_card spans of
+        # parallel/mesh.py
+        with tr.span("dispatch.launch"):
+            res = run_batch_sharded(
+                seeds, batch, self.sampler_cfg, self.mesh, sampler,
+                start_psi=start,
+                streams=[pool[item["stream"]] for pool in self.pools])
+            parts = res.map(lambda r: self._device_payload(r, two_iso))
+        # on the card: the inputs and the sampler's results (the payload
+        # is smaller than the results)
+        nbytes = sum(np.asarray(a).nbytes for a in batch) + sum(
+            t.nbytes for r in res.shards for t in r)
+        with self._cond:
+            item.update(parts=parts, bytes=nbytes)
+            self._cond.notify_all()
+
+    def _counted(self, sampler):
+        """``sampler`` whose ``launch`` counters carry ``in_flight``: the
+        chunks in flight on the launch's device as it is issued, this one
+        included (``trace``)."""
+        def run(seed, batch, cfg, start_psi, **kw):
+            dev = batch.counts.device
+            with self._cond:
+                n = sum(1 for p in self._in_flight
+                        if not self._passed(p, dev))
+            with trace.counter_attrs(in_flight=n):
+                return sampler(seed, batch, cfg, start_psi, **kw)
+        return run
 
     def _device_payload(self, res, two_iso: bool) -> dict:
         """What the materializer copies of one sampler result: psi ticks,
         the device summary and score centipoints, on the result's device,
-        and on a card an event recorded after them on the current stream
-        (the materializer's copies run on another).  REASSIGN's final
-        counts come from the chain; the collapsed algorithms draw them on
-        the host from chain 0's final psi."""
+        and on a card an event recorded after them on the current stream,
+        the chunk's (the materializer takes the chunk once it has
+        passed).  REASSIGN's final counts come from the chain; the
+        collapsed algorithms draw them on the host from chain 0's final
+        psi."""
         quant = quantize_psi(res.flat_samples(), two_iso)
         bounds = _ci_bound_indices(quant.shape[1])
         summ = (None if bounds is None
@@ -361,6 +460,7 @@ class StreamRunner:
             "rejected": res.rejected,
             "final_n": res.final_n if reassign else None,
             "final_psi": None if reassign else res.final_psi,
+            "device": res.accepted.device,
             "ready": (torch.cuda.current_stream(
                 res.accepted.device).record_event()
                 if res.accepted.is_cuda else None)}
@@ -419,14 +519,30 @@ class StreamRunner:
     # ------------------------------------------------------- materialize
     def _materialize_loop(self):
         while True:
-            p = self._pending.get()
-            if p is None:
-                return
+            with self._cond:
+                while True:
+                    if self._aborted:
+                        return
+                    p = next((q for q in self._in_flight
+                              if self._passed(q)), None)
+                    if p is not None:
+                        break
+                    if self._closing and not self._in_flight:
+                        return
+                    # look again at the ready events while chunks run;
+                    # else sleep until a dispatch, finish or abort
+                    self._cond.wait(READY_POLL_S if any(
+                        "parts" in q for q in self._in_flight) else None)
             try:
                 self._materialize_chunk(p)
             except BaseException as e:  # surfaced on the caller thread
                 self._mat_err.append(e)
                 return
+            finally:
+                with self._cond:
+                    self._in_flight = [q for q in self._in_flight
+                                       if q is not p]
+                    self._cond.notify_all()
 
     def _materialize_chunk(self, p: dict) -> None:
         """pipeline.py:663-766 with device_get replaced by .cpu() copies;
@@ -602,9 +718,9 @@ def profile_run(fn, profile_dir: str, devices, verbose: bool = True):
         print("torch.profiler trace written to %s" % path)
         for shape, row in sorted(trace.bucket_table(recs).items()):
             print("  bucket (iso=%d, classes=%d, reads=%d): %d chunks, "
-                  "%d events in %d lanes, %.2fs queued, %.2fs run"
+                  "%d events in %d lanes, %.2fs in flight, %.2fs run"
                   % (shape + (row["chunks"], row["events"], row["lanes"],
-                              row["queued_s"], row["run_s"])))
+                              row["flight_s"], row["run_s"])))
     return out
 
 

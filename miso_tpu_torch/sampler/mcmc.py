@@ -80,21 +80,29 @@ def batch_from_numpy(batch, device, start_psi=None):
     """The JAX package's numpy batch (an ``EventBatch`` of arrays or the
     ``pad_events`` dict) -> (torch ``EventBatch``, start_psi tensor or
     None) on ``device``.  Float fields become float32 (bf16 per-read
-    tiles are upcast), ``num_iso`` int32; ``start_psi`` is (E, K, I)."""
+    tiles are upcast), ``num_iso`` int32; ``start_psi`` is (E, K, I).
+
+    To a card each array goes through page-locked staging, so its copy is
+    asynchronous on the current stream and waits for no work queued
+    before it.  The staging comes from PyTorch's caching host allocator,
+    which hands a block out again only once the copies recorded on it
+    have run: it may be dropped at once."""
     fields = batch._asdict() if hasattr(batch, "_asdict") else dict(batch)
     out = {}
     for name in EventBatch._fields:
-        a = fields[name]
-        if name == "num_iso":
-            t = torch.as_tensor(np.asarray(a, np.int32))
-        else:
-            t = torch.as_tensor(np.asarray(a, np.float32))
-        out[name] = t.to(device).contiguous()
+        out[name] = _to_device(fields[name], np.int32 if name == "num_iso"
+                               else np.float32, device)
     sp = None
     if start_psi is not None:
-        sp = torch.as_tensor(np.asarray(start_psi, np.float32)
-                             ).to(device).contiguous()
+        sp = _to_device(start_psi, np.float32, device)
     return EventBatch(**out), sp
+
+
+def _to_device(a, dtype, device) -> torch.Tensor:
+    t = torch.as_tensor(np.asarray(a, dtype))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True).contiguous()
+    return t.to(device).contiguous()
 
 
 def _pow2_pad_events(batch: EventBatch, start_psi, n: int):

@@ -31,18 +31,20 @@ chunk id):
   ``compile.fallback`` (a group's per-gene fallback);
 - ``dispatch`` (attrs ``shape``, ``events`` real, ``lanes`` launched),
   with ``dispatch.pad``, ``dispatch.start`` (the linear start),
-  ``dispatch.launch`` (the sampler calls and the device payload),
-  ``wait_card`` (the copies to the card, which wait for the kernels
-  queued before them) and ``queue_wait`` (a free slot in the
-  materializer's queue);
+  ``dispatch.launch`` (the staging, the sampler calls and the device
+  payload), ``wait_card`` (the copies to the card: from page-locked
+  staging they return at once, the convergent stop's included) and
+  ``queue_wait`` (room among the chunks in flight);
 - ``materialize``, with ``wait_card`` (the chunk's ready event) and
   ``materialize.copy`` (the copies to the host);
 - ``write`` (attr ``submitted``: when the batch was handed to the pool);
 - ``summary``: the summary file.
 
 Counter ``launch`` (attrs ``route``: B1, B1w, B2, B2w, B3, or the plain
-version's ``*.plain``; ``lanes``: the launch's event slots) after every
-sampler launch.
+version's ``*.plain``; ``lanes``: the launch's event slots; and, for a
+launch of the pipeline's dispatch, ``in_flight``: the chunks in flight on
+the launch's device as it is issued, its own included, so 1 is a launch
+that runs alone) after every sampler launch.
 """
 from __future__ import annotations
 
@@ -222,12 +224,27 @@ def span(name: str, **attrs):
 
 def count(name: str, **attrs) -> None:
     """A counter record inside this thread's innermost open span, as
-    ``span``."""
+    ``span``, with the attributes of the ``counter_attrs`` blocks open on
+    the thread."""
     if not _active:
         return
     top = _top()
     if top is not None:
-        top.tracer.count(name, **attrs)
+        extra = getattr(_local, "attrs", None)
+        top.tracer.count(name, **(dict(extra, **attrs) if extra else attrs))
+
+
+@contextlib.contextmanager
+def counter_attrs(**attrs):
+    """Inside the block, every ``count`` this thread makes also carries
+    ``attrs``: what the layer that opens it knows and the counting site
+    does not (the pipeline's chunks in flight, at a sampler's launch)."""
+    saved = getattr(_local, "attrs", None)
+    _local.attrs = dict(saved or {}, **attrs)
+    try:
+        yield
+    finally:
+        _local.attrs = saved
 
 
 # ------------------------------------------------------------ reading
@@ -262,28 +279,28 @@ def chrome_events(recs: List[object], to_us) -> List[dict]:
 
 def bucket_table(recs: List[object]) -> Dict[tuple, dict]:
     """Per bucket shape (pad_iso, pad_classes, pad_reads): its chunks,
-    real events, launched lanes, the seconds its chunks waited in the
-    materializer's queue (from the dispatch's put to the materializer's
-    start) and the seconds they ran (dispatch less its queue wait, plus
+    real events, launched lanes, the seconds from each chunk's dispatch
+    to the materializer's start on it (on the card, or done and waiting
+    for the materializer) and the seconds they ran on the host (dispatch
+    less its wait for room among the chunks in flight, plus
     materialize)."""
     spans = [r for r in recs if isinstance(r, Span)]
     mat = {(s.job, s.chunk): s for s in spans if s.name == "materialize"}
-    put = {s.parent: s for s in spans if s.name == "queue_wait"}
+    room = {s.parent: s for s in spans if s.name == "queue_wait"}
     table: Dict[tuple, dict] = {}
     for d in spans:
         if d.name != "dispatch":
             continue
         row = table.setdefault(tuple(d.attrs["shape"]), {
-            "chunks": 0, "events": 0, "lanes": 0, "queued_s": 0.0,
+            "chunks": 0, "events": 0, "lanes": 0, "flight_s": 0.0,
             "run_s": 0.0})
         row["chunks"] += 1
         row["events"] += d.attrs["events"]
         row["lanes"] += d.attrs["lanes"]
-        q, m = put.get(d.id), mat.get((d.job, d.chunk))
+        q, m = room.get(d.id), mat.get((d.job, d.chunk))
         run = d.t1 - d.t0 - (q.t1 - q.t0 if q is not None else 0)
         if m is not None:
             run += m.t1 - m.t0
-            if q is not None:
-                row["queued_s"] += max(m.t0 - q.t0, 0) / 1e9
+            row["flight_s"] += max(m.t0 - d.t1, 0) / 1e9
         row["run_s"] += run / 1e9
     return table

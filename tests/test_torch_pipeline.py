@@ -239,6 +239,169 @@ def test_two_chunks_of_one_bucket_draw_different_streams():
     assert not np.array_equal(out[0]["psi_ticks"], out[1]["psi_ticks"])
 
 
+# --------------------------------------------------------- the dispatch
+# (gene, reads, first total) of four buckets: their keys differ in every
+# axis, and every event's total reads is its own
+DISPATCH_BUCKETS = (
+    (([100, 50, 100], [[1, 2, 3], [1, 3]]), 40, 40),
+    (([100, 50, 80, 100], [[1, 2, 3, 4], [1, 3, 4], [1, 4]]), 110, 100),
+    (([100, 50, 80, 60, 100],
+      [[1, 2, 3, 4, 5], [1, 3, 4, 5], [1, 4, 5], [1, 2, 5]]), 210, 200),
+    (([100, 50, 100], [[1, 2, 3], [1, 3]]), 300, 290))
+PER_BUCKET = 13
+
+
+class FakeReady:
+    """A chunk's ready event that passes when ``passed()`` says so."""
+
+    def __init__(self, passed):
+        self.passed = passed
+
+    def query(self):
+        return self.passed()
+
+    def synchronize(self):
+        if not self.passed():
+            raise AssertionError("materialized before its kernels ran")
+
+
+def dispatch_events():
+    """PER_BUCKET events of each of DISPATCH_BUCKETS, the buckets' events
+    in turn, each event's total reads set to a number no other has."""
+    import dataclasses
+    from miso_tpu_torch.testing import simulated_event
+
+    out = []
+    for b, ((exons, isoforms), reads, total) in enumerate(DISPATCH_BUCKETS):
+        psi = np.full(len(isoforms), 1.0 / len(isoforms))
+        base = simulated_event(exons, isoforms, psi, reads, 36, seed=b)
+        for j in range(PER_BUCKET):
+            counts = base.counts.copy()
+            counts[np.argmax(counts)] += total + j - counts.sum()
+            out.append(dataclasses.replace(base, counts=counts))
+    order = [b * PER_BUCKET + j for j in range(PER_BUCKET)
+             for b in range(len(DISPATCH_BUCKETS))]
+    return [out[i] for i in order]
+
+
+def fake_sampler(calls, runner):
+    """A sampler that runs nothing: each event's final counts are its
+    total reads, and ``calls`` records every launch's seed, key, real
+    totals and the chunks in flight as it was issued."""
+    from miso_tpu_torch.sampler.mcmc import SamplerResult
+
+    def run(seed, batch, cfg, start_psi, pad_reads):
+        E, C, I = batch.weights.shape
+        total = batch.counts.sum(1)
+        calls.append({"seed": seed, "key": (I, C, pad_reads),
+                      "totals": [int(t) for t in total if t > 0],
+                      "in_flight": len(runner._in_flight)})
+        psi = torch.full((E, cfg.num_records, cfg.chains, I), 1.0 / I)
+        return SamplerResult(
+            psi_samples=psi, loglik=torch.zeros(psi.shape[:3]),
+            accepted=torch.zeros(E, dtype=torch.int32),
+            rejected=torch.zeros(E, dtype=torch.int32),
+            final_n=total[:, None, None].expand(E, cfg.chains, I).clone(),
+            final_psi=psi[:, 0])
+    return run
+
+
+@pytest.mark.parametrize("bound", ["streams", "memory"])
+def test_the_dispatch_keeps_seeds_and_results_in_any_completion_order(
+        monkeypatch, bound):
+    """Chunks complete out of order (random numbers of looks at their
+    ready events; with four streams the first chunk only once three
+    later ones have landed): every chunk reaches ``on_chunk`` once with
+    its own events' results, each keeps the seed and offset that the
+    order of its bucket gives (as a FIFO dispatch gave them), ``finish``
+    flushes the costliest buckets first, and the chunks in flight never
+    pass the pool's four streams, nor one where one chunk fills the
+    memory budget."""
+    monkeypatch.setattr(tp, "POOL_STREAMS", 4)
+    monkeypatch.setattr(tp, "READY_POLL_S", 1e-4)
+    rng = np.random.default_rng(5)
+    evs = dispatch_events()
+    cfg = host.RunConfig(read_len=36, iters=30, burn_in=10, lag=5,
+                         chains=2, max_batch_events=4)
+    landed, calls = [], []
+    runner = tp.StreamRunner(cfg, seed=9, device="cpu",
+                             on_chunk=lambda tags, res: landed.append(
+                                 (list(tags), res)))
+    if bound == "memory":
+        runner.memory_budget = 1
+    monkeypatch.setattr(tp, "run_sampler", fake_sampler(calls, runner))
+    payload = runner._device_payload
+
+    def pending(res, two_iso):
+        p = payload(res, two_iso)
+        n = len(calls)
+        looks = [int(rng.integers(0, 20))]
+
+        def passed():
+            if n == 1:
+                return len(landed) >= 3 or bound == "memory"
+            looks[0] -= 1
+            return looks[0] < 0
+        p["ready"] = FakeReady(passed)
+        return p
+
+    monkeypatch.setattr(runner, "_device_payload", pending)
+    try:
+        for i, ev in enumerate(evs):
+            runner.add(ev, tag=i)
+        n_added = len(calls)
+        runner.finish()
+    except BaseException:
+        runner.abort()
+        raise
+    total = {i: int(ev.counts.sum()) for i, ev in enumerate(evs)}
+    tag_of = {t: i for i, t in total.items()}
+    # every event once, with its own results
+    tags = [t for chunk, _ in landed for t in chunk]
+    assert sorted(tags) == list(range(len(evs)))
+    for chunk, results in landed:
+        for t, res in zip(chunk, results):
+            assert np.all(res["final_n"] == total[t])
+    # seeds and offsets: a bucket's chunks in its order, every 4 events
+    by_key = {}
+    for i, ev in enumerate(evs):
+        by_key.setdefault(tp._bucket_key(ev), []).append(i)
+    assert len(calls) == len(landed) == len(DISPATCH_BUCKETS) * 4
+    seen = {key: 0 for key in by_key}
+    for c in calls:
+        key = c["key"]
+        k = seen[key]
+        seen[key] += 1
+        assert [tag_of[t] for t in c["totals"]] == by_key[key][4 * k:
+                                                             4 * k + 4]
+        assert c["seed"] == tp.chunk_seed(9, 4 * k, *key)
+    if bound == "streams":
+        # the first chunk landed after later ones: completion order
+        assert [tag_of[t] for t in calls[0]["totals"]] != landed[0][0]
+    # finish: the remainder of each bucket, costliest first
+    finished = [c["key"] for c in calls[n_added:]]
+    assert finished == sorted(by_key, key=lambda k: -k[0] * k[2])
+    assert [runner.chain_cost(k) for k in finished] == sorted(
+        (runner.chain_cost(k) for k in finished), reverse=True)
+    most = max(c["in_flight"] for c in calls)
+    assert most == (1 if bound == "memory" else 4)
+
+
+def test_chain_cost_reads_the_route_from_the_key():
+    """B1/B1w: isoforms x read slots; B3 and MARGINAL/CLASSES: isoforms x
+    classes."""
+    costs = {}
+    for algorithm in ("reassign", "marginal"):
+        runner = tp.StreamRunner(host.RunConfig(read_len=36,
+                                                algorithm=algorithm),
+                                 device="cpu")
+        runner.finish()
+        costs[algorithm] = [runner.chain_cost(k) for k in (
+            (32, 64, 512), (4, 64, tp.DEEP_READS * 2))]
+    assert costs == {"reassign": [32 * 512, 4 * 64],
+                     "marginal": [32 * 64, 4 * 64]}
+
+
 # ------------------------------------------------------------ the slice
 N_EVENTS = 40
 

@@ -4,6 +4,7 @@ inside it, a chunk's dispatch, materialize and write share its id, the
 dispatch records count the events run and every sampler launch leaves one
 counter; ``--profile`` writes the records into its Chrome trace on the
 clock of the torch ops."""
+import contextlib
 import json
 import time
 
@@ -123,6 +124,75 @@ def test_dispatch_records_count_the_events_and_launches_the_calls(traced):
     assert lanes == {d.chunk: d.attrs["lanes"] for d in disp}
     for d in disp:
         assert d.attrs["events"] <= d.attrs["lanes"] < 2 * d.attrs["events"]
+
+
+def test_launch_counters_carry_the_chunks_in_flight(traced):
+    """Every launch of the pipeline's dispatch carries ``in_flight``; on
+    the CPU a chunk has run when its dispatch returns, so each runs
+    alone."""
+    _, _, recs = traced
+    launches = [r for r in recs if isinstance(r, trace.Count)
+                and r.name == "launch"]
+    assert launches and all(r.attrs["in_flight"] == 1 for r in launches)
+
+
+def _pending_chunks(monkeypatch, gate):
+    """A StreamRunner on the CPU whose chunks' ready events pass only
+    once ``gate["open"]``, and three chunks' events of one bucket."""
+    from miso_tpu_torch.testing import simulated_event
+
+    class Ready:
+        def query(self):
+            return gate["open"]
+
+        def synchronize(self):
+            assert gate["open"]
+
+    monkeypatch.setattr(tp, "POOL_STREAMS", 4)
+    monkeypatch.setattr(tp, "READY_POLL_S", 1e-4)
+    ev = simulated_event([100, 50, 100], [[1, 2, 3], [1, 3]], [0.6, 0.4],
+                         60, 36, seed=2)
+    return Ready, [ev] * 12
+
+
+@pytest.mark.parametrize("traced_run", [True, False])
+def test_in_flight_counts_the_chunks_whose_kernels_have_not_run(
+        monkeypatch, traced_run):
+    """Three chunks whose kernels have not run when the next launches:
+    their launches carry 1, 2 and 3.  Untraced, the dispatch neither
+    records nor counts them."""
+    gate = {"open": False}
+    Ready, evs = _pending_chunks(monkeypatch, gate)
+    if not traced_run:
+        def refused(**attrs):
+            raise AssertionError("in_flight counted in an untraced run")
+        monkeypatch.setattr(trace, "counter_attrs", refused)
+    t0 = time.perf_counter_ns()
+    with (profile(activities=[ProfilerActivity.CPU]) if traced_run
+          else contextlib.nullcontext()):
+        with trace.job() as tracer:
+            runner = tp.StreamRunner(
+                host.RunConfig(read_len=36, iters=30, burn_in=10, lag=5,
+                               chains=2, max_batch_events=4),
+                device="cpu", tracer=tracer)
+            payload = runner._device_payload
+
+            def pending(res, two_iso):
+                return dict(payload(res, two_iso), ready=Ready())
+
+            monkeypatch.setattr(runner, "_device_payload", pending)
+            try:
+                for ev in evs:
+                    runner.add(ev)
+                gate["open"] = True
+                runner.finish()
+            except BaseException:
+                runner.abort()
+                raise
+    launches = [r.attrs.get("in_flight") for r in trace.records(
+        t0, time.perf_counter_ns())
+        if isinstance(r, trace.Count) and r.name == "launch"]
+    assert launches == ([1, 2, 3] if traced_run else [])
 
 
 def test_profile_trace_holds_the_program_spans_on_the_ops_clock(
