@@ -377,15 +377,15 @@ def match_classes_paired_multi(pair_lo, pair_hi, span_start, span_end,
     Returns (fl_flat int64, match_flat float64, counts float64,
     class_ofs (n_genes+1,), npairs (n_genes,)) -- gene g's class c is
     noiso_arr[g] consecutive entries of the flat streams -- or None if
-    the native library is unavailable / noiso > 62.
+    the native library is unavailable.  A class is keyed by its
+    fragment-length vector, not by an isoform bitmask, so a gene may
+    have any number of isoforms.
     """
     lib = load()
     if lib is None:
         return None
     n_genes = len(pair_lo)
     noiso_arr = np.ascontiguousarray(noiso_arr, np.int64)
-    if noiso_arr.size and noiso_arr.max() > 62:
-        return None
     c = lambda a: np.ascontiguousarray(a, np.int64)  # noqa: E731
     pair_lo, pair_hi = c(pair_lo), c(pair_hi)
     span_start, span_end = c(span_start), c(span_end)
@@ -397,8 +397,9 @@ def match_classes_paired_multi(pair_lo, pair_hi, span_start, span_end,
     il = len(frag_prob)
     tot_pairs = int((pair_hi - pair_lo).sum())
     cap_classes = tot_pairs + n_genes
-    max_iso = int(noiso_arr.max()) if noiso_arr.size else 1
-    cap_entries = cap_classes * max_iso
+    # a gene has at most one class a pair (plus one), each of its own
+    # width: one wide gene does not widen every other gene's room
+    cap_entries = int(((pair_hi - pair_lo + 1) * noiso_arr).sum())
     out_fl = np.empty(cap_entries, np.int64)
     out_match = np.empty(cap_entries, np.float64)
     out_count = np.empty(cap_classes, np.int64)

@@ -405,8 +405,9 @@ int64_t g2i_one(const int64_t* starts, const int64_t* ends,
 //
 //   out_fl / out_match: flat streams; gene g's class c occupies noiso_g
 //     consecutive entries (offsets reconstructed host-side from
-//     out_class_ofs and noiso).
-// Returns 0, -1 on bad cigar, -2 on overflow/noiso > 62.
+//     out_class_ofs and noiso).  A class is keyed by its fl vector,
+//     not by an isoform bitmask, so a gene may have any noiso.
+// Returns 0, -1 on bad cigar, -2 on overflow.
 int64_t miso_match_classes_paired_multi(
     const int64_t* p1, const int64_t* e1,
     const int64_t* p2, const int64_t* e2,
@@ -436,7 +437,6 @@ int64_t miso_match_classes_paired_multi(
     out_class_ofs[0] = 0;
     for (int64_t g = 0; g < n_genes; g++) {
         int64_t noiso = noiso_arr[g];
-        if (noiso > 62) return -2;
         const int64_t* eidx = exon_idx_flat + eidx_ofs[g];
         sig_index.clear();
         sig_pairs.clear();

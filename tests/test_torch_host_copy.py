@@ -138,6 +138,59 @@ ALLOWED = {
         ("                if v == 0:                # %s does" % WORD,
          "                if v == 0:                # scanner does"),
     ],
+    # the paired batch matcher keys a class by its fragment-length
+    # vector and has no isoform bitmask, so it takes genes of any width;
+    # the single-end matchers keep the 62-isoform limit their mask needs
+    "native/matchlib.cpp": [
+        ("""//     out_class_ofs and noiso).
+// Returns 0, -1 on bad cigar, -2 on overflow/noiso > 62.
+int64_t miso_match_classes_paired_multi(""",
+         """//     out_class_ofs and noiso).  A class is keyed by its fl vector,
+//     not by an isoform bitmask, so a gene may have any noiso.
+// Returns 0, -1 on bad cigar, -2 on overflow.
+int64_t miso_match_classes_paired_multi("""),
+        ("""        if (noiso > 62) return -2;
+        const int64_t* eidx = exon_idx_flat + eidx_ofs[g];
+        sig_index.clear();
+        sig_pairs.clear();
+""", """        const int64_t* eidx = exon_idx_flat + eidx_ofs[g];
+        sig_index.clear();
+        sig_pairs.clear();
+"""),
+    ],
+    # its wrapper: no early None past 62 isoforms, and room sized by
+    # each gene's own width, not every gene at the widest one's
+    "native/__init__.py": [
+        ("""    noiso_arr[g] consecutive entries of the flat streams -- or None if
+    the native library is unavailable / noiso > 62.
+    \"\"\"
+    lib = load()
+    if lib is None:
+        return None
+    n_genes = len(pair_lo)
+    noiso_arr = np.ascontiguousarray(noiso_arr, np.int64)
+    if noiso_arr.size and noiso_arr.max() > 62:
+        return None
+""", """    noiso_arr[g] consecutive entries of the flat streams -- or None if
+    the native library is unavailable.  A class is keyed by its
+    fragment-length vector, not by an isoform bitmask, so a gene may
+    have any number of isoforms.
+    \"\"\"
+    lib = load()
+    if lib is None:
+        return None
+    n_genes = len(pair_lo)
+    noiso_arr = np.ascontiguousarray(noiso_arr, np.int64)
+"""),
+        ("""    cap_classes = tot_pairs + n_genes
+    max_iso = int(noiso_arr.max()) if noiso_arr.size else 1
+    cap_entries = cap_classes * max_iso
+""", """    cap_classes = tot_pairs + n_genes
+    # a gene has at most one class a pair (plus one), each of its own
+    # width: one wide gene does not widen every other gene's room
+    cap_entries = int(((pair_hi - pair_lo + 1) * noiso_arr).sum())
+"""),
+    ],
     # an index written by either package loads into the port's classes
     "io/index.py": [
         ('''def load_indexed_gene(pickle_filename: str) -> Dict[str, dict]:
